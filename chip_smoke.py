@@ -18,7 +18,18 @@ result) without them. Phases, each raising on failure:
    oracle gates (batch 0, a random mid-queue batch, all fallback rows; up
    to 512 queries each) must read recall 1.0;
 4. the one-shot ``nns(version=4)`` and ``nns(version="cells")`` at 1M x 10K;
-5. one JSON line of per-kernel results, then the device line last.
+5. the ladder's kernels (v3 point-major, v5 streaming, v6 queries-resident,
+   v7 two-level) against their plain versions at 10000 x 1M k=3, 1024 x 1M
+   k=3, 1024 x 1M k=16, duplicate ties and an unaligned 33 x 777 k=5, with
+   the same tolerance 0 and timing as phase 2;
+6. the ladder: ``nns(version=v)`` for v = 0..7 at 1024 x 1M, k = 3 and 16.
+   Each answer passes the f64 gate on a 512-row subsample; v1, v3, v4, v5,
+   v6 and v7 return equal index arrays; v0 (host scan) and v2 (expansion
+   matmul) print how many indices they share with v4; each ladder kernel's
+   launch count, zeroed just before its version's call, must grow during
+   it; and v6 under a query budget below m * k * 4 must launch the v4
+   kernel instead;
+7. one JSON line of per-kernel results, then the device line last.
 """
 
 from __future__ import annotations
@@ -63,10 +74,10 @@ def _compare(name, kernel_fn, plain_fn, args, expect_idx=None):
     return err, k_ms, p_ms
 
 
-def _gate(name, idx, queries, refs) -> float:
+def _gate(name, idx, queries, refs, oracle_dmin=None) -> float:
     from nns_tpu_torch.kernels.oracle import recall_at_1
 
-    rec = recall_at_1(idx, queries, refs)
+    rec = recall_at_1(idx, queries, refs, oracle_dmin)
     _log(f"[gate] {name}: recall@1 {rec} over {len(idx)} f64-oracle queries")
     if rec != 1.0:
         raise AssertionError(f"{name}: recall@1 {rec} != 1.0")
@@ -79,12 +90,24 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from nns_tpu_torch import NNEngine, nns
+    from nns_tpu_torch.config import EngineConfig
     from nns_tpu_torch.data import make_dataset
-    from nns_tpu_torch.kernels import _cuda
+    from nns_tpu_torch.kernels import _cuda, fused_ladder as fl
     from nns_tpu_torch.kernels.cell_list import CellListEngine, cell_scan, cell_scan_plain
     from nns_tpu_torch.kernels.fused import fused_min_idx, fused_min_idx_plain, prepare_refs
+    from nns_tpu_torch.kernels.oracle import nn_oracle_f64
     from nns_tpu_torch.native import native_available
     from nns_tpu_torch.utils.timing import cuda_ms
+
+    LADDER_KERNELS = (  # (launch key, wrapper, plain twin, point-major refs)
+        ("fused_point_major", fl.fused_point_major_min_idx, fl.fused_point_major_plain, True),
+        ("fused_streaming", fl.fused_streaming_min_idx, fl.fused_streaming_plain, False),
+        ("fused_queries_resident", fl.fused_queries_resident_min_idx,
+         fl.fused_queries_resident_plain, False),
+        ("two_level", fl.two_level_min_idx, fl.two_level_plain, False),
+    )
+    VERSION_KERNEL = {3: "fused_point_major", 5: "fused_streaming",
+                      6: "fused_queries_resident", 7: "two_level"}
 
     # 0. The card.
     smi = subprocess.run(
@@ -110,7 +133,7 @@ def main() -> int:
 
     # 2. Kernels against their plain versions.
     queries, refs = make_dataset(K, N_QUERIES, N_REFS, SEED)
-    results = {"fused_argmin": [], "cell_scan": []}
+    results = {"fused_argmin": [], "cell_scan": []}  # + the ladder's, phase 5
 
     r_dm, _ = prepare_refs(refs, 4096, dev)
     q_dev = torch.as_tensor(queries, device=dev)
@@ -178,8 +201,8 @@ def main() -> int:
     queue_s = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     _log(f"[main] launches during query_many: {launches}")
-    for name, count in launches.items():
-        if count < 1:
+    for name in ("cell_scan", "fused_argmin"):  # the ladder's kernels: phase 6
+        if launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched by the main path")
 
     cell = engine._built
@@ -230,20 +253,101 @@ def main() -> int:
         _log(f"[nns] version={version!r}: {ms:.1f} ms one-shot (build included)")
         _gate(f"nns(version={version!r}) (512 subsample)", idx[sub], queries[sub], refs)
 
-    # 5. Results.
+    # 5. The ladder's kernels against their plain versions.
+    del engine, cell, served, dq
+    q1k = q_dev[:1024]
+    q16_1m, r16_1m = make_dataset(16, 1024, N_REFS, SEED)
+    q16_dev = torch.as_tensor(q16_1m, device=dev)
+    r16_1m_dm, _ = prepare_refs(r16_1m, 4096, dev)
+    qu, ru = make_dataset(5, 33, 777, SEED)
+    qu_dev = torch.as_tensor(qu, device=dev)
+    ru_dm, _ = prepare_refs(ru, 4096, dev)
+    ladder_cases = [  # (name, queries, dim-major refs, point-major refs, n, expect)
+        ("10000 x 1M k=3", q_dev, r_dm, torch.as_tensor(refs, device=dev), N_REFS, None),
+        ("1024 x 1M k=3", q1k, r_dm, torch.as_tensor(refs, device=dev), N_REFS, None),
+        ("1024 x 1M k=16", q16_dev, r16_1m_dm, torch.as_tensor(r16_1m, device=dev), N_REFS,
+         None),
+        ("64 x 1M duplicate ties", torch.as_tensor(q_ties, device=dev), ties_dm,
+         torch.as_tensor(ties, device=dev), N_REFS, _ties_ok),
+        ("33 x 777 k=5 unaligned", qu_dev, ru_dm, torch.as_tensor(ru, device=dev), 777, None),
+    ]
+    # v4 at the same shapes, so that the rungs compare within one call (its
+    # rows go after the fallback bucket's, which stays the JSON's row).
+    for name, kernel_fn, plain_fn, pm in (*LADDER_KERNELS,
+                                          ("fused_argmin", fused_min_idx, fused_min_idx_plain, False)):
+        results.setdefault(name, [])
+        for case, qc, rc_dm, rc_pm, n, expect in ladder_cases:
+            results[name].append(_compare(f"{name} {case}", kernel_fn, plain_fn,
+                                          (qc, rc_pm if pm else rc_dm, n), expect))
+    del ladder_cases, r16_1m_dm
+
+    # 6. The ladder through the public entry point.
+    ladder_launches = {name: 0 for name, *_ in LADDER_KERNELS}
+    for k in (3, 16):
+        qk, rk = (queries[:1024], refs) if k == 3 else (q16_1m, r16_1m)
+        sub_k = np.random.default_rng(4).choice(1024, GATE_ROWS, replace=False)
+        t0 = time.perf_counter()
+        _, dmin = nn_oracle_f64(qk[sub_k], rk)
+        _log(f"[ladder] k={k}: f64 oracle of {GATE_ROWS} rows over 1M refs "
+             f"{time.perf_counter() - t0:.1f} s (host)")
+        answers = {}
+        for version in range(8):
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            answers[version] = idx = nns(qk, rk, version=version, device="cuda")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {name: c for name, c in _cuda.LAUNCHES.items() if c}
+            _log(f"[ladder] k={k} v{version}: {ms:.1f} ms one-shot (upload included), "
+                 f"launches {counts}")
+            own = VERSION_KERNEL.get(version)
+            if own is not None:
+                if _cuda.LAUNCHES[own] < 1:
+                    raise AssertionError(f"nns(version={version}) did not launch {own}")
+                ladder_launches[own] += _cuda.LAUNCHES[own]
+            if idx.shape != (1024,) or idx.min() < 0 or idx.max() >= N_REFS:
+                raise AssertionError(f"v{version} returned out-of-range indices")
+            _gate(f"k={k} v{version} (512 subsample)", idx[sub_k], qk[sub_k], rk, dmin)
+        for version in (1, 3, 5, 6, 7):
+            if not np.array_equal(answers[version], answers[4]):
+                bad = int((answers[version] != answers[4]).sum())
+                raise AssertionError(f"k={k}: v{version} differs from v4 in {bad} indices")
+        _log(f"[ladder] k={k}: v1, v3, v4, v5, v6, v7 index arrays equal; "
+             f"v0 shares {int((answers[0] == answers[4]).sum())}/1024 with v4, "
+             f"v2 shares {int((answers[2] == answers[4]).sum())}/1024")
+        _cuda.reset_launches()
+        budget = EngineConfig(vmem_query_budget_bytes=1024 * k * 4 - 1)
+        idx = nns(qk, rk, version=6, config=budget, device="cuda")
+        if _cuda.LAUNCHES["fused_argmin"] < 1 or _cuda.LAUNCHES["fused_queries_resident"]:
+            raise AssertionError(f"v6 over its budget launched {dict(_cuda.LAUNCHES)}")
+        if not np.array_equal(idx, answers[4]):
+            raise AssertionError("v6 over its budget differs from v4")
+        _log(f"[ladder] k={k}: v6 with a {budget.vmem_query_budget_bytes}-byte budget "
+             f"launched fused_argmin, not fused_queries_resident; answers equal v4")
+
+    # 7. Results.
     kernels = []
     for name, source, replaces in (
         ("cell_scan", "nns_tpu_torch/csrc/cell_scan.cu", "nns_tpu/kernels/cell_list.py:55"),
         ("fused_argmin", "nns_tpu_torch/csrc/fused_argmin.cu", "nns_tpu/kernels/pallas_fused.py:115"),
+        ("fused_point_major", "nns_tpu_torch/csrc/fused_point_major.cu",
+         "nns_tpu/kernels/pallas_fused.py:231"),
+        ("fused_streaming", "nns_tpu_torch/csrc/fused_streaming.cu",
+         "nns_tpu/kernels/pallas_fused.py:363"),
+        ("fused_queries_resident", "nns_tpu_torch/csrc/fused_queries_resident.cu",
+         "nns_tpu/kernels/pallas_fused.py:302"),
+        ("two_level", "nns_tpu_torch/csrc/two_level.cu", "nns_tpu/kernels/pallas_fused.py:453"),
     ):
         rows = results[name]
+        # The main path's shape: one 10K batch for the scan, the 8-query
+        # fallback bucket for the fused kernel, 1024 x 1M k=3 for the
+        # ladder's kernels.
+        main = rows[1] if name in ladder_launches else rows[0]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
+            "launches": ladder_launches.get(name, launches.get(name)),
             "max_abs_err": max(r[0] for r in rows),
-            # The main path's shape: one 10K batch for the scan, the
-            # 8-query fallback bucket for the fused kernel.
-            "ms": rows[0][1], "plain_ms": rows[0][2],
+            "ms": main[1], "plain_ms": main[2],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,10 +3,11 @@ search), for NVIDIA Hopper (H100, sm_90a).
 
 The JAX package ``nns_tpu`` stays the reference; this package imports torch
 and numpy and never jax or nns_tpu. Ported so far: the supercell serving
-path (v14, ``NNEngine("cells")`` build / query / query_many) and the v4
-fused brute force that re-answers the rows the supercell certificate cannot
-prove. Their two kernels are hand-written CUDA C++ in ``csrc/``, built with
-nvcc at first use. Every kernel wrapper dispatches on the device of its
+path (v14, ``NNEngine("cells")`` build / query / query_many), the v4 fused
+brute force that re-answers the rows the supercell certificate cannot
+prove, and the rest of the brute-force ladder, v0-v3 and v5-v7. Their six
+kernels are hand-written CUDA C++ in ``csrc/``, built with nvcc at first
+use. Every kernel wrapper dispatches on the device of its
 tensors: CPU tensors run the plain PyTorch version, CUDA tensors launch the
 kernel or raise.
 

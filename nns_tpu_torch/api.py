@@ -3,10 +3,11 @@
 
 Every version is a callable ``fn(queries[m,k] f32, refs[n,k] f32) ->
 idx[m] i32`` plus a build/query split (``NNEngine``). The registry names all
-15 versions of the JAX package; the port runs v4 (fused brute force) and
-v14 (supercell index) so far, and the others raise NotImplementedError
+15 versions of the JAX package; the port runs the brute-force ladder v0-v7
+and v14 (supercell index) so far, and the others raise NotImplementedError
 naming the ROADMAP slice that ports them. Everything runs on an explicit
-``device`` (default ``"cuda"``); nothing here probes for a GPU.
+``device`` (default ``"cuda"``); nothing here probes for a GPU. v0 is the
+host scan and never touches ``device``.
 """
 
 from __future__ import annotations
@@ -35,10 +36,57 @@ def _check_finite(arr: np.ndarray, name: str) -> None:
         )
 
 
+# Version adapters, as nns_tpu/api.py:49-98. ``r`` is the numpy refs, or
+# (NNEngine.query) the refs tensor that NNEngine.build staged on ``device``.
+
+
+def _v0(q, r, cfg, device):
+    from nns_tpu_torch.kernels.oracle import linear_scan
+
+    return linear_scan(np.asarray(q), np.asarray(r))
+
+
+def _v1(q, r, cfg, device):
+    from nns_tpu_torch.kernels.xla_bruteforce import nns_distance_matrix
+
+    return _as_idx(nns_distance_matrix(q, r, device=device))
+
+
+def _v2(q, r, cfg, device):
+    from nns_tpu_torch.kernels.xla_bruteforce import nns_expansion_matmul
+
+    return _as_idx(nns_expansion_matmul(q, r, device=device))
+
+
+def _v3(q, r, cfg, device):
+    from nns_tpu_torch.kernels.fused_ladder import nns_fused_point_major
+
+    return _as_idx(nns_fused_point_major(q, r, device=device))
+
+
 def _v4(q, r, cfg, device):
     from nns_tpu_torch.kernels.fused import nns_fused
 
     return _as_idx(nns_fused(q, r, tile_n=cfg.tile_n, device=device))
+
+
+def _v5(q, r, cfg, device):
+    from nns_tpu_torch.kernels.fused_ladder import nns_fused_streaming
+
+    return _as_idx(nns_fused_streaming(q, r, tile_n=cfg.tile_n, device=device))
+
+
+def _v6(q, r, cfg, device):
+    from nns_tpu_torch.kernels.fused_ladder import nns_fused_queries_resident
+
+    return _as_idx(nns_fused_queries_resident(
+        q, r, max_query_bytes=cfg.vmem_query_budget_bytes, device=device))
+
+
+def _v7(q, r, cfg, device):
+    from nns_tpu_torch.kernels.fused_ladder import nns_two_level
+
+    return _as_idx(nns_two_level(q, r, tile_n=cfg.tile_n, device=device))
 
 
 def _v14(q, r, cfg, device):
@@ -70,14 +118,14 @@ class VersionSpec:
 
 
 _SPECS = [
-    VersionSpec(0, "cpu_scan", "cpu", "CPU linear scan (oracle; core.cu v0)", roadmap_slice=5),
-    VersionSpec(1, "distance_matrix", "bruteforce", "materialized distance matrix + argmin (v1)", roadmap_slice=5),
-    VersionSpec(2, "expansion_matmul", "bruteforce", "|q-r|^2 expansion matmul + argmin (v2, thrust analog)", roadmap_slice=5),
-    VersionSpec(3, "fused_point_major", "bruteforce", "fused kernel, point-major refs (v3)", roadmap_slice=5),
+    VersionSpec(0, "cpu_scan", "cpu", "CPU linear scan (oracle; core.cu v0)", fn=_v0),
+    VersionSpec(1, "distance_matrix", "bruteforce", "materialized distance matrix + argmin (v1)", fn=_v1),
+    VersionSpec(2, "expansion_matmul", "bruteforce", "|q-r|^2 full-fp32 expansion matmul + exact refine (v2, thrust analog)", fn=_v2),
+    VersionSpec(3, "fused_point_major", "bruteforce", "fused CUDA kernel, point-major refs (v3)", fn=_v3),
     VersionSpec(4, "fused", "bruteforce", "fused CUDA kernel, dim-major refs — flagship brute force (v4, SoA analog)", fn=_v4),
-    VersionSpec(5, "fused_streaming", "bruteforce", "fused kernel, refs streamed through shared memory (v5, texture analog)", roadmap_slice=5),
-    VersionSpec(6, "fused_queries_resident", "bruteforce", "fused kernel, whole query set resident (v6, constant-memory analog)", roadmap_slice=5),
-    VersionSpec(7, "two_level", "bruteforce", "per-tile partial winners + second reduce (v7, multi-block analog)", roadmap_slice=5),
+    VersionSpec(5, "fused_streaming", "bruteforce", "fused CUDA kernel, ref tiles streamed through shared memory by cp.async (v5, texture analog)", fn=_v5),
+    VersionSpec(6, "fused_queries_resident", "bruteforce", "fused CUDA kernel, query set resident in __constant__ memory (v6, constant-memory analog)", fn=_v6),
+    VersionSpec(7, "two_level", "bruteforce", "per-tile partial winners + second reduce (v7, multi-block analog)", fn=_v7),
     VersionSpec(8, "sharded", "sharded", "refs sharded over devices, argmin merge (v8, 4-GPU analog)", roadmap_slice=8),
     VersionSpec(9, "mxu_expansion", "bruteforce", "split-bf16 expansion + band certificate + exact refine (v9)", roadmap_slice=6),
     VersionSpec(10, "kdtree_host", "tree", "KD-tree host build + host query (v10)", roadmap_slice=7),
@@ -133,8 +181,9 @@ def nns(
 
 
 class NNEngine:
-    """Build/query split: build stages the index (v14) or the dim-major refs
-    (v4) on ``device`` once; query / query_many reuse it."""
+    """Build/query split: build stages the index (v14), the dim-major refs
+    (v4), or the refs themselves (v1-v3, v5-v7) on ``device`` once; query /
+    query_many reuse them. v0 stages nothing: it scans on the host."""
 
     def __init__(self, version: int | str = "auto", config: EngineConfig | None = None,
                  device="cuda"):
@@ -172,7 +221,7 @@ class NNEngine:
 
     def build(self, refs) -> "NNEngine":
         from nns_tpu_torch.kernels.cell_list import CellListEngine
-        from nns_tpu_torch.kernels.fused import FusedBruteForce
+        from nns_tpu_torch.kernels.fused import FusedBruteForce, as_f32
 
         refs = np.atleast_2d(np.asarray(refs, dtype=np.float32))
         _check_finite(refs, "refs")
@@ -192,8 +241,15 @@ class NNEngine:
                 # Too clustered for the cell index: degrade ONCE at build
                 # time to the staged fused engine.
                 self._built = FusedBruteForce(refs, tile_n=self.config.tile_n, device=self.device)
-        else:
+        elif self.spec.num in (4, 14):
             self._built = FusedBruteForce(refs, tile_n=self.config.tile_n, device=self.device)
+        elif self.spec.num == 0:
+            self._built = None  # the host scan reads the numpy refs
+        else:
+            # v1-v3, v5-v7: the refs go to the device once (JAX's device_put,
+            # nns_tpu/api.py:561-565); each query runs the version's own
+            # function on them.
+            self._built = as_f32(refs, self.device)
         return self
 
     def _check_queries(self, queries) -> np.ndarray:
@@ -216,20 +272,27 @@ class NNEngine:
 
     def query(self, queries) -> np.ndarray:
         from nns_tpu_torch.kernels.cell_list import CellListEngine
+        from nns_tpu_torch.kernels.fused import FusedBruteForce
 
         queries = self._check_queries(queries)
         if isinstance(self._built, CellListEngine):
             idx, cov = self._built.query_with_coverage(queries)
             self._note_cell_coverage(cov, queries.shape[0])
             return _as_idx(idx)
-        return _as_idx(self._built.query(queries))
+        if isinstance(self._built, FusedBruteForce):
+            return _as_idx(self._built.query(queries))
+        # The version's own function (nns_tpu/api.py:637), on the staged refs.
+        refs = self._refs if self._built is None else self._built
+        return self.spec(queries, refs, self.config, self.device)
 
     def query_many(self, batches) -> list[np.ndarray]:
         """Exact answers for several query batches: the supercell engine
         drains the whole queue with one scan launch per batch and one
         device-to-host copy (CellListEngine.query_queue); the fused engine
-        answers the concatenated queue in one call."""
+        answers the concatenated queue in one call; the other versions
+        answer batch by batch (nns_tpu/api.py:692)."""
         from nns_tpu_torch.kernels.cell_list import CellListEngine
+        from nns_tpu_torch.kernels.fused import FusedBruteForce
 
         batches = [self._check_queries(b) for b in batches]
         if isinstance(self._built, CellListEngine):
@@ -237,8 +300,8 @@ class NNEngine:
             for qb, cov in zip(batches, covs):
                 self._note_cell_coverage(cov, qb.shape[0])
             return [_as_idx(i) for i in results]
-        if not batches:
-            return []
+        if not isinstance(self._built, FusedBruteForce) or not batches:
+            return [self.query(b) for b in batches]
         idx = self.query(np.concatenate(batches, axis=0))
         offs = np.cumsum([b.shape[0] for b in batches])[:-1]
         return [_as_idx(part) for part in np.split(idx, offs)]

@@ -3,7 +3,8 @@
 In this system the "weights" are index state. These functions turn a JAX
 engine's state, given as numpy arrays, into port objects on ``device``
 without rebuilding anything, so the two packages can be compared slot by
-slot on the same index.
+slot on the same index. The brute-force rungs v0-v3 and v5-v7 hold no
+state beyond the refs, so they need no function here.
 """
 
 from __future__ import annotations

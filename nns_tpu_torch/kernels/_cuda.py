@@ -36,7 +36,10 @@ _lib: ctypes.CDLL | None = None
 
 # Launch counts per kernel wrapper: each wrapper adds one right after its
 # kernel launch succeeds, and nowhere else. The plain CPU path never counts.
-LAUNCHES: dict[str, int] = {"fused_argmin": 0, "cell_scan": 0}
+LAUNCHES: dict[str, int] = {
+    "fused_argmin": 0, "cell_scan": 0, "fused_point_major": 0,
+    "fused_streaming": 0, "fused_queries_resident": 0, "two_level": 0,
+}
 
 
 def reset_launches() -> None:
@@ -97,14 +100,17 @@ def library() -> ctypes.CDLL:
         except OSError as e:
             raise RuntimeError(f"cannot load {path}: {e}") from e
         vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.nns_fused_argmin.argtypes = [
-            vp, vp, ci, ci, ci, cll, ci, vp, vp, vp, vp, vp,
-        ]
-        lib.nns_fused_argmin.restype = ci
-        lib.nns_cell_scan.argtypes = [
-            vp, vp, vp, ci, ci, ci, cf, vp, vp, vp,
-        ]
-        lib.nns_cell_scan.restype = ci
+        for name, argtypes in (
+            ("nns_fused_argmin", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp, vp, vp]),
+            ("nns_cell_scan", [vp, vp, vp, ci, ci, ci, cf, vp, vp, vp]),
+            ("nns_fused_point_major", [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp]),
+            ("nns_fused_streaming", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp, vp, vp]),
+            ("nns_fused_queries_resident", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp, vp, vp]),
+            ("nns_two_level", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp]),
+        ):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ci
         lib.nns_cuda_error_string.argtypes = [ci]
         lib.nns_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

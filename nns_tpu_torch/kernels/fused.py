@@ -1,6 +1,7 @@
 """v4 fused distance + argmin — the exact brute force and every engine's
 exact fallback. Counterpart of ``nns_tpu/kernels/pallas_fused.py:44-224``
-(the v4 analog only).
+(the v4 analog; the v3, v5, v6 and v7 rungs are in ``fused_ladder.py`` and
+share ``run_kernel`` and the plain version here).
 
 ``fused_min_idx`` dispatches on the device of the tensors it is given: CPU
 tensors go to ``fused_min_idx_plain`` (plain PyTorch, same arithmetic
@@ -74,24 +75,73 @@ def fused_splits(m: int, n: int, n_sm: int) -> int:
     return max(1, min(-(-2 * n_sm // q_tiles), -(-n // 1024)))
 
 
-def _fused_min_idx_cuda(queries, r_dm, n):
+def n_sm(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def launch_split(key: str, queries, refs, n: int, splits: int, *pitch):
+    """Launch the csrc/ entry ``nns_<key>(q, refs, m, k, n, *pitch, splits,
+    part_d, part_i, out_d, out_i, stream)`` on the current stream: a scan
+    that writes an (splits, m) table of partial winners, then a merge per
+    query. Raises RuntimeError on a CUDA error, else counts the launch in
+    ``_cuda.LAUNCHES[key]``. Returns (min_d2, idx)."""
     m, k = queries.shape
     dev = queries.device
-    splits = fused_splits(m, n, torch.cuda.get_device_properties(dev).multi_processor_count)
-    part_d = torch.empty((splits, m), dtype=torch.float32, device=dev)
-    part_i = torch.empty((splits, m), dtype=torch.int32, device=dev)
-    out_d = torch.empty(m, dtype=torch.float32, device=dev)
-    out_i = torch.empty(m, dtype=torch.int32, device=dev)
+    part_d, part_i = partials(splits, m, dev)
+    out_d, out_i = partials(m, None, dev)
     lib = _cuda.library()
     with torch.cuda.device(dev):
-        rc = lib.nns_fused_argmin(
-            queries.data_ptr(), r_dm.data_ptr(), m, k, n, r_dm.shape[1], splits,
+        rc = getattr(lib, f"nns_{key}")(
+            queries.data_ptr(), refs.data_ptr(), m, k, n, *pitch, splits,
             part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _cuda.check(lib, rc, "fused_argmin")
-    _cuda.LAUNCHES["fused_argmin"] += 1
+    _cuda.check(lib, rc, key)
+    _cuda.LAUNCHES[key] += 1
     return out_d, out_i
+
+
+def _fused_min_idx_cuda(queries, r_dm, n):
+    splits = fused_splits(queries.shape[0], n, n_sm(queries.device))
+    return launch_split("fused_argmin", queries, r_dm, n, splits, r_dm.shape[1])
+
+
+def partials(rows: int, cols: int | None, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Uninitialised (d2 f32, idx i32) winner tensors of shape (rows, cols),
+    or (rows,) when cols is None, for a kernel to fill."""
+    shape = (rows,) if cols is None else (rows, cols)
+    return (torch.empty(shape, dtype=torch.float32, device=device),
+            torch.empty(shape, dtype=torch.int32, device=device))
+
+
+def run_kernel(name: str, plain, launch, queries: torch.Tensor, refs: torch.Tensor,
+               n: int | None = None, *, point_major: bool = False, **kw):
+    """The shared front of the fused kernels' wrappers. Checks shapes, dtype
+    and device of the (m, k) queries against the refs, dim-major (k, cols)
+    or, with ``point_major``, (cols, k); ``n`` (default: all columns) is how
+    many columns are real. CPU tensors go to ``plain(queries, refs, n,
+    **kw)``; CUDA tensors to ``launch`` with the same arguments made
+    contiguous, which launches the kernel (or raises RuntimeError) and
+    counts it; any other device raises."""
+    if queries.dim() != 2 or refs.dim() != 2:
+        raise ValueError(f"shape mismatch: queries {tuple(queries.shape)}, refs {tuple(refs.shape)}")
+    k_r, cols = (refs.shape[1], refs.shape[0]) if point_major else refs.shape
+    n = cols if n is None else n
+    if queries.shape[1] != k_r:
+        raise ValueError(f"shape mismatch: queries {tuple(queries.shape)}, refs {tuple(refs.shape)}")
+    if not 0 < n <= cols:
+        raise ValueError(f"n={n} outside (0, {cols}]")
+    if queries.dtype != torch.float32 or refs.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 tensors")
+    if queries.device != refs.device:
+        raise ValueError(f"queries on {queries.device}, refs on {refs.device}")
+    if queries.device.type == "cpu":
+        return plain(queries, refs, n, **kw)
+    if queries.device.type != "cuda":
+        raise ValueError(f"unsupported device {queries.device}")
+    if queries.shape[0] == 0:
+        return partials(0, None, queries.device)
+    return launch(queries.contiguous(), refs.contiguous(), n, **kw)
 
 
 def fused_min_idx(queries: torch.Tensor, r_dm: torch.Tensor,
@@ -100,23 +150,8 @@ def fused_min_idx(queries: torch.Tensor, r_dm: torch.Tensor,
     columns [0, n) of dim-major refs (k, n_pad) (default: all columns).
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
     raise RuntimeError if it cannot be built or launched)."""
-    n = r_dm.shape[1] if n is None else n
-    if queries.dim() != 2 or r_dm.dim() != 2 or queries.shape[1] != r_dm.shape[0]:
-        raise ValueError(f"shape mismatch: queries {tuple(queries.shape)}, r_dm {tuple(r_dm.shape)}")
-    if not 0 < n <= r_dm.shape[1]:
-        raise ValueError(f"n={n} outside (0, {r_dm.shape[1]}]")
-    if queries.dtype != torch.float32 or r_dm.dtype != torch.float32:
-        raise TypeError("fused_min_idx takes float32 tensors")
-    if queries.device != r_dm.device:
-        raise ValueError(f"queries on {queries.device}, refs on {r_dm.device}")
-    if queries.device.type == "cpu":
-        return fused_min_idx_plain(queries, r_dm, n)
-    if queries.device.type != "cuda":
-        raise ValueError(f"unsupported device {queries.device}")
-    if queries.shape[0] == 0:
-        return (torch.empty(0, dtype=torch.float32, device=queries.device),
-                torch.empty(0, dtype=torch.int32, device=queries.device))
-    return _fused_min_idx_cuda(queries.contiguous(), r_dm.contiguous(), n)
+    return run_kernel("fused_min_idx", fused_min_idx_plain, _fused_min_idx_cuda,
+                      queries, r_dm, n)
 
 
 def nns_fused(queries, refs, tile_n: int = 4096, device="cuda") -> torch.Tensor:

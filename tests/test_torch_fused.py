@@ -140,7 +140,8 @@ def test_cpu_path_launches_no_kernel():
     q, r = make_dataset(3, 40, 2000, seed=3)
     FusedBruteForce(r, device="cpu").query(q)
     fused_fallback(q, r, device="cpu")
-    assert _cuda.LAUNCHES == {"fused_argmin": 0, "cell_scan": 0}
+    assert set(_cuda.LAUNCHES) >= {"fused_argmin", "cell_scan"}
+    assert set(_cuda.LAUNCHES.values()) == {0}
 
 
 def test_fused_min_idx_rejects_bad_input():

@@ -1,7 +1,8 @@
 """Kernel tests that need the GPU: each CUDA kernel of nns_tpu_torch against
 its plain PyTorch version on the card, at small shapes that reach every
-code path (query tiles past m, many ref splits, several halo tiles, empty
-slots, exact ties).
+code path (query tiles past m, many ref splits or tiles, ragged streamed
+tiles, several constant-memory chunks, several halo tiles, empty slots,
+exact ties).
 
 Tolerance: indices exactly equal and min_d2 bit-equal — kernel and plain
 version both round each sub, mul and add to nearest in the same order (the
@@ -25,6 +26,16 @@ from nns_tpu_torch.kernels.fused import (
     fused_min_idx_plain,
     fused_splits,
     prepare_refs,
+)
+from nns_tpu_torch.kernels.fused_ladder import (
+    fused_point_major_min_idx,
+    fused_point_major_plain,
+    fused_queries_resident_min_idx,
+    fused_queries_resident_plain,
+    fused_streaming_min_idx,
+    fused_streaming_plain,
+    two_level_min_idx,
+    two_level_plain,
 )
 from nns_tpu_torch.kernels.oracle import recall_at_1
 
@@ -122,3 +133,83 @@ def test_cell_engine_cuda_equals_cpu(cuda):
     np.testing.assert_array_equal(idx_g, idx_c)
     np.testing.assert_array_equal(ok_g, ok_c)
     np.testing.assert_array_equal(d_g, d_c)
+
+
+# The ladder's kernels: wrapper, plain twin, and whether refs are point-major.
+LADDER = {
+    "fused_point_major": (fused_point_major_min_idx, fused_point_major_plain, True),
+    "fused_streaming": (fused_streaming_min_idx, fused_streaming_plain, False),
+    "fused_queries_resident": (fused_queries_resident_min_idx, fused_queries_resident_plain, False),
+    "two_level": (two_level_min_idx, two_level_plain, False),
+}
+
+
+def _ladder_refs(name, r, dev):
+    if LADDER[name][2]:
+        return torch.as_tensor(r, device=dev)
+    return prepare_refs(r, 4096, dev)[0]
+
+
+# Query tiles past m, one to many ref ranges and 4096-column tables,
+# streamed tiles with a ragged end, 2 constant-memory chunks at k = 3 and
+# k = 16, and k = 40 (over 48 KB of streamed shared memory).
+@pytest.mark.parametrize("m,n,k", [(1, 5000, 3), (300, 5000, 3), (17, 70000, 16),
+                                   (1000, 3000, 3), (40, 200_000, 3), (33, 777, 5),
+                                   (6000, 2000, 3), (1100, 3000, 16), (20, 3000, 40)])
+@pytest.mark.parametrize("name", sorted(LADDER))
+def test_ladder_kernel_equals_plain(cuda, name, m, n, k):
+    kernel, plain, _ = LADDER[name]
+    q, r = make_dataset(k, m, n, seed=200 + m)
+    refs = _ladder_refs(name, r, cuda)
+    qd = torch.as_tensor(q, device=cuda)
+    before = _cuda.LAUNCHES[name]
+    got = kernel(qd, refs, n)
+    assert _cuda.LAUNCHES[name] == before + 1
+    _assert_same(got, plain(qd, refs, n))
+    assert recall_at_1(got[1].cpu().numpy(), q, r) == 1.0
+
+
+@pytest.mark.parametrize("name", sorted(LADDER))
+def test_ladder_kernel_merges_per_query(cuda, name):
+    # Each query's nearest point sits in another ref range or tile, m is not
+    # a multiple of the 16-row query tile: every query must read its own
+    # partials.
+    rng = np.random.default_rng(9)
+    r = rng.random((100_000, 3), dtype=np.float32)
+    pick = np.linspace(0, r.shape[0] - 1, 37).astype(np.int64)
+    q = r[pick] + np.float32(1e-7)
+    got = LADDER[name][0](torch.as_tensor(q, device=cuda), _ladder_refs(name, r, cuda), r.shape[0])
+    np.testing.assert_array_equal(got[1].cpu().numpy(), pick)
+
+
+@pytest.mark.parametrize("name", sorted(LADDER))
+def test_ladder_kernel_duplicate_ties(cuda, name):
+    kernel, plain, _ = LADDER[name]
+    rng = np.random.default_rng(10)
+    r = rng.random((50_000, 3), dtype=np.float32)
+    target = np.array([0.25, 0.5, 0.75], np.float32)
+    for w in (11, 4100, 25_000, 49_999):
+        r[w] = target
+    q = np.concatenate([np.repeat(target[None], 20, 0), rng.random((5, 3), dtype=np.float32)])
+    refs = _ladder_refs(name, r, cuda)
+    qd = torch.as_tensor(q, device=cuda)
+    got = kernel(qd, refs, r.shape[0])
+    _assert_same(got, plain(qd, refs, r.shape[0]))
+    assert (got[1][:20].cpu().numpy() == 11).all()
+
+
+def test_two_level_small_tiles_equal_plain(cuda):
+    # 40 tiles of 128 columns, duplicates in tiles 0 and 39.
+    q, r = make_dataset(3, 50, 5000, seed=11)
+    r[3] = r[4990] = q[0]
+    r_dm, _ = prepare_refs(r, 128, cuda)
+    qd = torch.as_tensor(q, device=cuda)
+    got = two_level_min_idx(qd, r_dm, 5000, tile_n=128)
+    _assert_same(got, two_level_plain(qd, r_dm, 5000, tile_n=128))
+    assert int(got[1][0]) == 3
+
+
+def test_streaming_rejects_unaligned_pitch(cuda):
+    r_dm = torch.zeros((3, 130), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_streaming_min_idx(torch.zeros((2, 3), device=cuda), r_dm, 130)

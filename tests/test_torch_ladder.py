@@ -1,0 +1,262 @@
+"""The brute-force ladder of the PyTorch port (v0-v3, v5-v7) against the JAX
+package, on CPU torch (the plain versions). Numpy makes each seeded input
+once and both packages get the same arrays. The JAX side runs its own
+functions, its Pallas kernels in interpret mode, as tests/test_bruteforce.py
+runs them.
+
+Tolerance: index arrays exactly equal, per version (assert_same_idx). The
+plain versions and the f64 oracle also agree on every case (assert_exact).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import nns_tpu
+import nns_tpu.kernels.pallas_fused as jax_fused
+import nns_tpu_torch
+from conftest import assert_exact
+from nns_tpu.config import EngineConfig as JaxEngineConfig
+from nns_tpu.data import make_dataset
+from nns_tpu_torch.config import EngineConfig
+from nns_tpu_torch.kernels import _cuda, fused_ladder, xla_bruteforce
+from nns_tpu_torch.kernels.fused import FusedBruteForce, fused_min_idx_plain, prepare_refs
+from test_fuzz import _random_case
+from test_torch_fused import assert_same_idx
+
+LADDER = [0, 1, 2, 3, 5, 6, 7]
+TILED = {  # the port's tiled rungs and the JAX functions they mirror
+    3: (lambda q, r: fused_ladder.nns_fused_point_major(q, r, device="cpu"),
+        lambda q, r: jax_fused.nns_fused_point_major(q, r, tile_m=8, tile_n=128)),
+    5: (lambda q, r: fused_ladder.nns_fused_streaming(q, r, tile_n=128, device="cpu"),
+        lambda q, r: jax_fused.nns_fused_streaming(q, r, tile_m=8, tile_n=128)),
+    6: (lambda q, r: fused_ladder.nns_fused_queries_resident(q, r, device="cpu"),
+        lambda q, r: jax_fused.nns_fused_queries_resident(q, r, tile_n=128)),
+    7: (lambda q, r: fused_ladder.nns_two_level(q, r, tile_n=128, device="cpu"),
+        lambda q, r: jax_fused.nns_two_level(q, r, tile_m=8, tile_n=128)),
+}
+
+
+def _both(q, r, version, port_cfg=None, jax_cfg=None):
+    got = nns_tpu_torch.nns(q, r, version=version, config=port_cfg, device="cpu")
+    want = np.asarray(nns_tpu.nns(q, r, version=version, config=jax_cfg))
+    assert got.dtype == np.int32 and got.shape == (q.shape[0],)
+    assert_same_idx(got, want, q, r)
+    return got
+
+
+@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("version", LADDER)
+def test_ladder_equals_jax_on_grid(version, case, grid_datasets):
+    k, m, n, q, r = grid_datasets[case]
+    assert_exact(_both(q, r, version), q, r)
+
+
+@pytest.mark.parametrize("k,m,n", [(5, 33, 777), (3, 300, 5000), (16, 17, 1000)])
+@pytest.mark.parametrize("version", LADDER)
+def test_ladder_equals_jax_unaligned(version, k, m, n):
+    q, r = make_dataset(k, m, n, seed=m + n)
+    _both(q, r, version)
+
+
+@pytest.mark.parametrize("version", sorted(TILED))
+def test_lowest_index_tie_across_tiles(version):
+    # Duplicates of the query point in different 128-column ref tiles
+    # (test_bruteforce.py:46-57): the lowest index wins in both packages.
+    rng = np.random.default_rng(0)
+    r = rng.random((600, 3), dtype=np.float32)
+    target = np.array([0.25, 0.5, 0.75], dtype=np.float32)
+    for dup in (17, 300, 599):
+        r[dup] = target
+    q = np.concatenate([target[None], rng.random((12, 3), dtype=np.float32)])
+    port, jax = TILED[version]
+    got = port(q, r).numpy()
+    assert_same_idx(got, np.asarray(jax(q, r)), q, r)
+    assert got[0] == 17
+
+
+def test_two_level_table_keeps_lowest_tile():
+    # Equal minima in tiles 0 and 2 of the table: the second reduce takes
+    # tile 0's index, and a replica-padded tail never enters the table.
+    r = np.random.default_rng(1).random((300, 3), dtype=np.float32)
+    r[5] = r[260] = 0.5
+    q = torch.full((2, 3), 0.5)
+    r_dm, _ = prepare_refs(r, 128, "cpu")
+    part_d, part_i = fused_ladder.two_level_table_plain(q, r_dm, 300, 128)
+    assert part_d.shape == (3, 2) and int(part_i[2, 0]) == 260 and int(part_i[0, 0]) == 5
+    d, i = fused_ladder.two_level_min_idx(q, r_dm, 300, tile_n=128)
+    assert i.tolist() == [5, 5] and d.tolist() == [0.0, 0.0]
+
+
+def test_v2_expansion_exact_at_offset():
+    # test_bruteforce.py:67-75: a common 1000 offset makes the expansion's
+    # rounding dominate; the refine restores exactness.
+    rng = np.random.default_rng(42)
+    base = rng.random((2048, 3)).astype(np.float32) * 1e-3 + 1000.0
+    q = rng.random((128, 3)).astype(np.float32) * 1e-3 + 1000.0
+    assert_exact(_both(q, base, 2), q, base)
+
+
+def test_v2_duplicate_fallback_exact():
+    # test_bruteforce.py:78-85: 40 duplicates of the NN defeat the
+    # certificate, so every row takes the v1 fallback and the lowest index.
+    refs = np.ones((64, 4), dtype=np.float32) * 0.5
+    refs[40:] = 0.9
+    q = np.full((8, 4), 0.49, dtype=np.float32)
+    _, cert = xla_bruteforce._expansion_idx(torch.from_numpy(q), torch.from_numpy(refs))
+    assert not cert.any()
+    np.testing.assert_array_equal(_both(q, refs, 2), np.zeros(8, np.int32))
+
+
+@pytest.mark.parametrize("precision", ["high", "medium"])
+def test_v2_pins_full_fp32_matmul(monkeypatch, precision):
+    seen = []
+    real = torch.matmul
+
+    def spy(*args, **kw):
+        seen.append((torch.get_float32_matmul_precision(),
+                     torch.backends.cuda.matmul.allow_tf32))
+        return real(*args, **kw)
+
+    q, r = make_dataset(16, 64, 2048, seed=3)
+    monkeypatch.setattr(torch, "matmul", spy)
+    torch.set_float32_matmul_precision(precision)
+    try:
+        got = nns_tpu_torch.nns(q, r, version=2, device="cpu")
+        assert torch.get_float32_matmul_precision() == precision  # restored
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    assert seen and all(s == ("highest", False) for s in seen)
+    assert_same_idx(got, np.asarray(nns_tpu.nns(q, r, version=2)), q, r)
+
+
+def test_v2_delta_bound_covers_fp32_rounding():
+    # The certificate's delta is the JAX package's 32 eps scale up to k = 30
+    # and grows with k past it (xla_bruteforce._delta).
+    scale = torch.tensor(2.0)
+    for k, factor in ((3, 32.0), (16, 32.0), (30, 32.0), (64, 66.0)):
+        want = np.float32(factor * xla_bruteforce._EPS) * np.float32(2.0)
+        assert float(xla_bruteforce._delta(k, scale)) == pytest.approx(float(want))
+
+
+@pytest.mark.parametrize("budget,expect_v4", [(1024, True), (4 << 20, False)])
+def test_v6_budget_fallback(monkeypatch, budget, expect_v4):
+    # test_fuzz.py:50-62: a query set over the budget takes v4, as JAX does;
+    # under it, the v6 rung itself runs.
+    rng = np.random.default_rng(31337)
+    q = rng.random((5000, 8)).astype(np.float32)
+    r = rng.random((700, 8)).astype(np.float32)
+    calls = {"v4": 0, "v6": 0}
+    real_v4, real_v6 = fused_ladder.nns_fused, fused_ladder.fused_queries_resident_min_idx
+
+    def v4(*a, **kw):
+        calls["v4"] += 1
+        return real_v4(*a, **kw)
+
+    def v6(*a, **kw):
+        calls["v6"] += 1
+        return real_v6(*a, **kw)
+
+    monkeypatch.setattr(fused_ladder, "nns_fused", v4)
+    monkeypatch.setattr(fused_ladder, "fused_queries_resident_min_idx", v6)
+    idx = _both(q, r, 6, EngineConfig(vmem_query_budget_bytes=budget),
+                JaxEngineConfig(vmem_query_budget_bytes=budget))
+    assert calls == {"v4": int(expect_v4), "v6": int(not expect_v4)}
+    assert_exact(idx, q, r)
+
+
+@pytest.mark.parametrize("version", LADDER)
+def test_f32_degenerate_top(version):
+    # test_fuzz.py:183-200: far probes of a 1e-4-wide cluster put thousands
+    # of points inside one f32 ulp of the minimum.
+    rng = np.random.default_rng(9000)
+    cluster = (rng.random((4096, 3)) * 1e-4).astype(np.float32)
+    r = np.concatenate([cluster, np.array([[1e3, 1e3, 1e3]], np.float32)])
+    q = np.concatenate([
+        np.array([[300.0, 300.0, 300.0], [500.0, 0.0, 0.0]], np.float32),
+        (rng.random((16, 3)) * 1e-4).astype(np.float32),
+    ])
+    assert_exact(_both(q, r, version), q, r)
+
+
+@pytest.mark.parametrize("case_seed", range(12))
+def test_fuzz_ladder_equals_jax(case_seed):
+    # test_fuzz._random_case: uniform, clustered, duplicate-heavy and
+    # degenerate-span refs, queries partly outside the box.
+    q, r = _random_case(np.random.default_rng(1000 + case_seed))
+    for version in LADDER:
+        assert_exact(_both(q, r, version), q, r)
+
+
+@pytest.mark.parametrize("version", LADDER)
+def test_engine_build_query_many_equals_jax(version):
+    q, r = make_dataset(5, 150, 3000, seed=21)
+    eng = nns_tpu_torch.NNEngine(version, device="cpu").build(r)
+    want = np.asarray(nns_tpu.NNEngine(version).build(r).query(q))
+    got = eng.query(q)
+    assert got.dtype == np.int32
+    assert_same_idx(got, want, q, r)
+    parts = eng.query_many([q[:40], q[40:41], q[41:]])
+    assert [p.shape[0] for p in parts] == [40, 1, 109]
+    np.testing.assert_array_equal(np.concatenate(parts), got)
+    assert eng.query_many([]) == []
+    if version == 0:
+        assert eng._built is None  # the host scan stages nothing
+    else:
+        assert isinstance(eng._built, torch.Tensor) and eng._built.shape == r.shape
+
+
+def test_engine_v3_runs_its_own_rung(monkeypatch):
+    # NNEngine(3) must answer through v3's function, never a v4 engine.
+    q, r = make_dataset(3, 40, 2000, seed=22)
+    calls = []
+    real = fused_ladder.fused_point_major_min_idx
+
+    def spy(*a, **kw):
+        calls.append(a[1].shape)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(fused_ladder, "fused_point_major_min_idx", spy)
+    eng = nns_tpu_torch.NNEngine(3, device="cpu").build(r)
+    assert not isinstance(eng._built, FusedBruteForce)
+    eng.query(q)
+    eng.query_many([q[:10], q[10:]])
+    assert calls == [r.shape] * 3  # point-major refs, once per query call
+
+
+def test_plain_twins_equal_v4_plain():
+    # Each rung's plain twin gives v4's (min_d2, idx) bit for bit, the
+    # property the card compares its kernels against.
+    q_np, r_np = make_dataset(7, 45, 1500, seed=23)
+    q, r = torch.from_numpy(q_np), torch.from_numpy(r_np)
+    r_dm, tn = prepare_refs(r_np, 512, "cpu")
+    want = fused_min_idx_plain(q, r_dm, 1500)
+    for got in (fused_ladder.fused_point_major_min_idx(q, r),
+                fused_ladder.fused_streaming_min_idx(q, r_dm, 1500),
+                fused_ladder.fused_queries_resident_min_idx(q, r_dm, 1500),
+                fused_ladder.two_level_min_idx(q, r_dm, 1500, tile_n=tn)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ladder_cpu_path_launches_no_kernel():
+    _cuda.reset_launches()
+    q, r = make_dataset(3, 20, 900, seed=24)
+    for version in LADDER:
+        nns_tpu_torch.nns(q, r, version=version, device="cpu")
+    assert set(_cuda.LAUNCHES.values()) == {0}
+
+
+def test_ladder_wrappers_reject_bad_input():
+    q = torch.zeros((2, 3))
+    r_dm, _ = prepare_refs(np.zeros((10, 3), np.float32), 128, "cpu")
+    with pytest.raises(ValueError, match="shape mismatch"):
+        fused_ladder.fused_point_major_min_idx(q, r_dm)  # not point-major (n, 3)
+    with pytest.raises(ValueError, match="outside"):
+        fused_ladder.fused_streaming_min_idx(q, r_dm, n=129)
+    with pytest.raises(TypeError):
+        fused_ladder.fused_queries_resident_min_idx(q.double(), r_dm)
+    with pytest.raises(ValueError, match="tile_n"):
+        fused_ladder.two_level_min_idx(q, r_dm, tile_n=0)
+    meta = torch.empty((4, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_ladder.two_level_min_idx(meta, torch.empty((3, 8), device="meta"))
