@@ -5,9 +5,11 @@ It needs one CUDA device, nvcc and g++, and exits non-zero (printing no
 result) without them. Phases, each raising on failure:
 
 0. the card's name and power limit (nvidia-smi);
-1. build both CUDA kernels (and the native host library) from the sources;
-2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes: indices equal and min_d2 bit-equal (tolerance 0: both
+1. build every CUDA kernel (one nvcc per source, all started together) and
+   the native host library from the sources, and time one nvcc call over
+   the same sources for comparison;
+2. the v14 and v4 kernels against their plain PyTorch versions on the
+   card, at the main path's shapes: indices equal and min_d2 bit-equal (tolerance 0: both
    round every sub, mul and add to nearest, no FMA), times from CUDA events
    (median of 5);
 3. the main path: ``NNEngine("cells", device="cuda").build`` over 1M uniform
@@ -22,21 +24,41 @@ result) without them. Phases, each raising on failure:
    v7 two-level) against their plain versions at 10000 x 1M k=3, 1024 x 1M
    k=3, 1024 x 1M k=16, duplicate ties and an unaligned 33 x 777 k=5, with
    the same tolerance 0 and timing as phase 2;
-6. the ladder: ``nns(version=v)`` for v = 0..7 at 1024 x 1M, k = 3 and 16.
-   Each answer passes the f64 gate on a 512-row subsample; v1, v3, v4, v5,
-   v6 and v7 return equal index arrays; v0 (host scan) and v2 (expansion
-   matmul) print how many indices they share with v4; each ladder kernel's
-   launch count, zeroed just before its version's call, must grow during
-   it; and v6 under a query budget below m * k * 4 must launch the v4
-   kernel instead;
-7. one JSON line of per-kernel results, then the device line last.
+6. the ladder: ``nns(version=v)`` for v = 0..7 and 9 at 1024 x 1M, k = 3
+   and 16. Each answer passes the f64 gate on a 512-row subsample; v1, v3,
+   v4, v5, v6, v7 and v9 return equal index arrays; v0 (host scan) and v2
+   (expansion matmul) print how many indices they share with v4; each
+   ladder kernel's launch count, zeroed just before its version's call,
+   must grow during it (v9: ``fused_argmin`` at k = 3, ``expansion_phase1``
+   at k = 16); and v6 under a query budget below m * k * 4 must launch the
+   v4 kernel instead;
+7. ``expansion_phase1`` (v9's tensor-core kernel) against ``phase1_plain``
+   at 10000 x 1M and 1024 x 1M k=16, an unaligned 33 x 777 k=10 and
+   1024 x 65536 k=128 (past kp = 88 the contraction runs in dimension
+   slices): values within the engine's delta, ids equal wherever the plain
+   runner-up is more than 2 delta away (tensor cores sum in their own
+   order, so no bit equality); and 64 x 1M integer-valued k=16 refs with
+   exact duplicates, where every sum is exact and all six outputs must be
+   equal;
+8. the v9 main path: ``NNEngine(9, device="cuda").build`` over the 1M 16-D
+   refs (seed 1000) and ``query_many`` over W=64 distinct 10K batches. The
+   ``expansion_phase1`` count must grow; the drain's own phase-1 launch
+   (all 640K rows at once) is held against ``phase1_plain`` in 10K-row
+   chunks with the same tolerance; all 640K answers must equal the v4
+   kernel's; batch 0 passes the f64 gate on the ladder's 512-row oracle and
+   up to 128 uncertified rows pass a float64 scan on the card;
+9. one JSON line of per-kernel results (with each kernel's bound at its
+   main path's shape; for phase 1 the drain's 640K-row launch), then the
+   device line last.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +70,10 @@ N_QUERIES = 10_000
 W = 64
 K = 3
 GATE_ROWS = 512
+K16 = 16
+# Published peaks of one H100 SXM (data sheet, dense): device memory bytes/s,
+# fp32 outside the tensor cores and bf16 on them, operations/s.
+PEAK = {"bytes": 3.35e12, "f32": 67e12, "bf16_tensor": 989e12}
 
 
 def _log(msg: str) -> None:
@@ -74,6 +100,89 @@ def _compare(name, kernel_fn, plain_fn, args, expect_idx=None):
     return err, k_ms, p_ms
 
 
+def _bound(nbytes, **ops):
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move ``nbytes`` (each input read once, each output written once) and to
+    do ``ops[rate]`` operations at each published peak rate."""
+    t_bytes = nbytes / PEAK["bytes"]
+    t_ops = max(count / PEAK[rate] for rate, count in ops.items())
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _fused_bound(m, n, k):
+    """Bound of a fused argmin over (m, k) queries and (n, k) refs: per pair
+    k subtractions, k multiplies, k adds and a compare in f32."""
+    return _bound(4 * (m * k + n * k) + 8 * m, f32=m * n * (3 * k + 1))
+
+
+def _phase1_bound(m, n_pad, kp):
+    """Bound of expansion_phase1: 2 m n 6kp bf16 tensor-core operations,
+    reading qc, rc and r2h once and writing six (m,) outputs."""
+    return _bound(m * 6 * kp * 2 + 3 * kp * n_pad * 2 + 4 * n_pad + 24 * m,
+                  bf16_tensor=2 * m * n_pad * 6 * kp, f32=2 * m * n_pad)
+
+
+def _phase1_check(name, kern, plain, delta, exact=False):
+    """expansion_phase1's outputs against phase1_plain's for the same
+    inputs: values within delta and ids equal where the plain runner-up is
+    more than 2 delta away, or (``exact``) all six outputs equal. Returns
+    (max_abs_err, log text)."""
+    k1, kt, km2, kt2v, kid2, kt3 = kern
+    p1, pt, pm2, pt2v, pid2, pt3 = plain
+    err = 0.0
+    for kv, pv in ((k1, p1), (km2, pm2), (kt2v, pt2v), (kt3, pt3)):
+        fin = torch.isfinite(pv)
+        if not torch.equal(torch.isfinite(kv), fin):
+            raise AssertionError(f"{name}: kernel and plain differ in which values are inf")
+        if fin.any():
+            err = max(err, float((kv[fin].double() - pv[fin].double()).abs().max()))
+    if exact:
+        for what, a, b in zip(("min1", "tid", "m2x", "t2v", "tid2", "t3v"), kern, plain):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: {what} differs on exact data")
+    if err > delta:
+        raise AssertionError(f"{name}: values differ by {err / delta} delta")
+    sep = (pm2 - p1) > 2 * delta
+    sep2 = ((pt2v - p1) > 2 * delta) & ((pt3 - pt2v) > 2 * delta)
+    for what, a, b, rows in (("tid", kt, pt, sep), ("tid2", kid2, pid2, sep2)):
+        if not torch.equal(a[rows], b[rows]):
+            raise AssertionError(f"{name}: {int((a[rows] != b[rows]).sum())} {what} differ "
+                                 "on rows separated by more than 2 delta")
+    return err, (f"max |value diff| {err} = {err / delta:.4f} delta (delta {delta:.4e}); "
+                 f"tid equal on {int(sep.sum())}/{len(sep)} separated rows, "
+                 f"tid2 on {int(sep2.sum())}")
+
+
+def _phase1_compare(name, args, delta, exact=False):
+    """expansion_phase1 against phase1_plain on the same card tensors
+    (``_phase1_check``), each timed. Returns (max_abs_err, kernel_ms,
+    plain_ms)."""
+    from nns_tpu_torch.kernels.mxu_expansion import phase1, phase1_plain
+    from nns_tpu_torch.utils.timing import cuda_ms
+
+    k_ms, kern = cuda_ms(phase1, *args)
+    p_ms, plain = cuda_ms(phase1_plain, *args)
+    err, text = _phase1_check(name, kern, plain, delta, exact)
+    _log(f"[kernel] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, {text}")
+    return err, k_ms, p_ms
+
+
+def _oracle_f64_card(queries, refs, dev):
+    """(idx, min d2) of each query by a chunked float64 torch scan on the
+    card, independent of every kernel of the port: the f64 expansion ranks
+    (its rounding, ~1e-15 relative, sits far inside recall_at_1's 1e-9
+    band), and the winner's distance is taken directly in f64."""
+    r = torch.as_tensor(refs, device=dev).double()
+    r2 = (r * r).sum(dim=1)
+    idx, dmin = [], []
+    for lo in range(0, len(queries), 16):
+        q = torch.as_tensor(queries[lo:lo + 16], device=dev).double()
+        i = ((q * q).sum(dim=1, keepdim=True) - 2.0 * q @ r.t() + r2).argmin(dim=1)
+        idx.append(i.cpu().numpy())
+        dmin.append(((q - r[i]) ** 2).sum(dim=1).cpu().numpy())
+    return np.concatenate(idx), np.concatenate(dmin)
+
+
 def _gate(name, idx, queries, refs, oracle_dmin=None) -> float:
     from nns_tpu_torch.kernels.oracle import recall_at_1
 
@@ -95,6 +204,9 @@ def main() -> int:
     from nns_tpu_torch.kernels import _cuda, fused_ladder as fl
     from nns_tpu_torch.kernels.cell_list import CellListEngine, cell_scan, cell_scan_plain
     from nns_tpu_torch.kernels.fused import fused_min_idx, fused_min_idx_plain, prepare_refs
+    from nns_tpu_torch.kernels import mxu_expansion as mxe
+    from nns_tpu_torch.kernels.mxu_expansion import (
+        MXUExpansion, _cat_q, phase1, phase1_plain, split_bf16x3)
     from nns_tpu_torch.kernels.oracle import nn_oracle_f64
     from nns_tpu_torch.native import native_available
     from nns_tpu_torch.utils.timing import cuda_ms
@@ -108,6 +220,7 @@ def main() -> int:
     )
     VERSION_KERNEL = {3: "fused_point_major", 5: "fused_streaming",
                       6: "fused_queries_resident", 7: "two_level"}
+    LADDER_VERSIONS = [v for v in range(10) if v != 8]  # v8 is multi-device
 
     # 0. The card.
     smi = subprocess.run(
@@ -128,8 +241,18 @@ def main() -> int:
     t0 = time.perf_counter()
     if not native_available():
         raise RuntimeError("native host library did not build (g++ -fopenmp)")
-    _log(f"[build] CUDA kernels {build_s:.2f} s (nvcc {' '.join(_cuda.NVCC_FLAGS)}); "
-         f"native host library {time.perf_counter() - t0:.2f} s")
+    native_s = time.perf_counter() - t0
+    # The same sources in one nvcc call, for comparison with the build's one
+    # nvcc per source.
+    with tempfile.TemporaryDirectory(dir=_cuda._BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", *_cuda._sources(),
+                        "-o", os.path.join(tmp, "one_call.so")],
+                       check=True, capture_output=True, timeout=600)
+        one_call_s = time.perf_counter() - t0
+    _log(f"[build] CUDA kernels {build_s:.2f} s, one nvcc per source and a link "
+         f"(nvcc {' '.join(_cuda.NVCC_FLAGS)}); the same sources in one nvcc call "
+         f"{one_call_s:.2f} s; native host library {native_s:.2f} s")
 
     # 2. Kernels against their plain versions.
     queries, refs = make_dataset(K, N_QUERIES, N_REFS, SEED)
@@ -174,6 +297,13 @@ def main() -> int:
         results["cell_scan"].append(
             _compare(f"{name} (G={dense.shape[0]}, QM={dense.shape[1]}, R_max={cells.R_max})",
                      cell_scan, cell_scan_plain, args))
+        if qb is queries:
+            # The one 10K batch: the dense queries, halo and ids read once,
+            # (d2, id) per slot written once; each real query scans its
+            # group's real candidates (3 sub, 3 mul, 3 add, 1 compare).
+            g, qm = dense.shape[:2]
+            cell_bound = _bound(4 * (g * qm * 3 + g * 4 * cells.R_max) + 8 * g * qm,
+                                f32=len(qb) * cells.avg_candidates * 10)
     if cells.stage(skew)[2] < 512:
         raise AssertionError("the skewed batch did not reach QM >= 512")
     del cells
@@ -256,16 +386,20 @@ def main() -> int:
     # 5. The ladder's kernels against their plain versions.
     del engine, cell, served, dq
     q1k = q_dev[:1024]
-    q16_1m, r16_1m = make_dataset(16, 1024, N_REFS, SEED)
+    # bench_k16's workload on 1M refs: the ladder's 1024 queries are the
+    # first 1024 of the main path's 10K batch 0 (make_dataset draws the refs
+    # first, then the query rows in order).
+    q16_10k, r16_1m = make_dataset(K16, N_QUERIES, N_REFS, SEED)
+    q16_1m = q16_10k[:1024]
     q16_dev = torch.as_tensor(q16_1m, device=dev)
-    r16_1m_dm, _ = prepare_refs(r16_1m, 4096, dev)
+    r16_dm, _ = prepare_refs(r16_1m, 4096, dev)
     qu, ru = make_dataset(5, 33, 777, SEED)
     qu_dev = torch.as_tensor(qu, device=dev)
     ru_dm, _ = prepare_refs(ru, 4096, dev)
     ladder_cases = [  # (name, queries, dim-major refs, point-major refs, n, expect)
         ("10000 x 1M k=3", q_dev, r_dm, torch.as_tensor(refs, device=dev), N_REFS, None),
         ("1024 x 1M k=3", q1k, r_dm, torch.as_tensor(refs, device=dev), N_REFS, None),
-        ("1024 x 1M k=16", q16_dev, r16_1m_dm, torch.as_tensor(r16_1m, device=dev), N_REFS,
+        ("1024 x 1M k=16", q16_dev, r16_dm, torch.as_tensor(r16_1m, device=dev), N_REFS,
          None),
         ("64 x 1M duplicate ties", torch.as_tensor(q_ties, device=dev), ties_dm,
          torch.as_tensor(ties, device=dev), N_REFS, _ties_ok),
@@ -279,7 +413,7 @@ def main() -> int:
         for case, qc, rc_dm, rc_pm, n, expect in ladder_cases:
             results[name].append(_compare(f"{name} {case}", kernel_fn, plain_fn,
                                           (qc, rc_pm if pm else rc_dm, n), expect))
-    del ladder_cases, r16_1m_dm
+    del ladder_cases
 
     # 6. The ladder through the public entry point.
     ladder_launches = {name: 0 for name, *_ in LADDER_KERNELS}
@@ -290,8 +424,10 @@ def main() -> int:
         _, dmin = nn_oracle_f64(qk[sub_k], rk)
         _log(f"[ladder] k={k}: f64 oracle of {GATE_ROWS} rows over 1M refs "
              f"{time.perf_counter() - t0:.1f} s (host)")
+        # v9 routes k < 8 to the v4 kernel and runs its own kernel above.
+        VERSION_KERNEL[9] = "fused_argmin" if k < 8 else "expansion_phase1"
         answers = {}
-        for version in range(8):
+        for version in LADDER_VERSIONS:
             _cuda.reset_launches()
             t0 = time.perf_counter()
             answers[version] = idx = nns(qk, rk, version=version, device="cuda")
@@ -304,15 +440,18 @@ def main() -> int:
             if own is not None:
                 if _cuda.LAUNCHES[own] < 1:
                     raise AssertionError(f"nns(version={version}) did not launch {own}")
-                ladder_launches[own] += _cuda.LAUNCHES[own]
+                if own in ladder_launches:
+                    ladder_launches[own] += _cuda.LAUNCHES[own]
             if idx.shape != (1024,) or idx.min() < 0 or idx.max() >= N_REFS:
                 raise AssertionError(f"v{version} returned out-of-range indices")
             _gate(f"k={k} v{version} (512 subsample)", idx[sub_k], qk[sub_k], rk, dmin)
-        for version in (1, 3, 5, 6, 7):
+        for version in (1, 3, 5, 6, 7, 9):
             if not np.array_equal(answers[version], answers[4]):
                 bad = int((answers[version] != answers[4]).sum())
                 raise AssertionError(f"k={k}: v{version} differs from v4 in {bad} indices")
-        _log(f"[ladder] k={k}: v1, v3, v4, v5, v6, v7 index arrays equal; "
+        if k == 16:
+            oracle16 = (sub_k, dmin)
+        _log(f"[ladder] k={k}: v1, v3, v4, v5, v6, v7, v9 index arrays equal; "
              f"v0 shares {int((answers[0] == answers[4]).sum())}/1024 with v4, "
              f"v2 shares {int((answers[2] == answers[4]).sum())}/1024")
         _cuda.reset_launches()
@@ -325,7 +464,157 @@ def main() -> int:
         _log(f"[ladder] k={k}: v6 with a {budget.vmem_query_budget_bytes}-byte budget "
              f"launched fused_argmin, not fused_queries_resident; answers equal v4")
 
-    # 7. Results.
+    # 7. expansion_phase1 against its plain version.
+    mx16 = MXUExpansion(r16_1m, device=dev)
+    q16_dev10k = torch.as_tensor(q16_10k, device=dev)
+
+    def _phase1_args(eng, q):
+        st = eng.stage_queries(q)
+        return st.delta, (_cat_q(*split_bf16x3(st.q_dev)), eng.rc, eng.r2h, eng.tile_n, eng.ts)
+
+    delta10k, args10k = _phase1_args(mx16, q16_10k)
+    results["expansion_phase1"] = [
+        _phase1_compare("expansion_phase1 10000 x 1M k=16", args10k, delta10k)]
+    delta1k, args1k = _phase1_args(mx16, q16_1m)
+    results["expansion_phase1"].append(
+        _phase1_compare("expansion_phase1 1024 x 1M k=16", args1k, delta1k))
+    rng_int = np.random.default_rng(SEED + 2)
+    r_int = rng_int.integers(0, 4, (N_REFS, K16)).astype(np.float32)
+    q_int = rng_int.integers(0, 4, (64, K16)).astype(np.float32)
+    for i, j in enumerate((0, 300_000, 999_999, 512_345)):  # ties across ref ranges
+        r_int[j] = q_int[i]
+        r_int[(j + 500_000) % N_REFS] = q_int[i]
+    mx_int = MXUExpansion(r_int, device=dev)
+    d_int, a_int = _phase1_args(mx_int, q_int)
+    results["expansion_phase1"].append(_phase1_compare(
+        "expansion_phase1 64 x 1M k=16 integer duplicate ties (exact)", a_int, d_int, exact=True))
+    del mx_int, a_int, r_int
+    q10, r10 = make_dataset(10, 33, 777, SEED)
+    mx10 = MXUExpansion(r10, device=dev)
+    d10, a10 = _phase1_args(mx10, q10)
+    results["expansion_phase1"].append(
+        _phase1_compare("expansion_phase1 33 x 777 k=10 unaligned", a10, d10))
+    q128, r128 = make_dataset(128, 1024, 65536, SEED)
+    mx128 = MXUExpansion(r128, device=dev)
+    d128, a128 = _phase1_args(mx128, q128)
+    results["expansion_phase1"].append(_phase1_compare(
+        "expansion_phase1 1024 x 65536 k=128 (dimension slices)", a128, d128))
+    del mx128, a128
+    v4_16_ms, _ = cuda_ms(fused_min_idx, q16_dev10k, r16_dm, N_REFS)
+    _log(f"[kernel] fused_argmin 10000 x 1M k=16 (v4, same call): {v4_16_ms:.4f} ms")
+    del args10k
+
+    # 8. The v9 main path: 1M 16-D refs, W distinct 10K batches.
+    engine = NNEngine(9, device="cuda")
+    t0 = time.perf_counter()
+    engine.build(r16_1m)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    mx = engine._built
+    if not isinstance(mx, MXUExpansion):
+        raise AssertionError(f"NNEngine(9) built {type(mx).__name__}")
+    rng = np.random.default_rng(SEED + 1)
+    batches16 = [q16_10k] + [rng.random((N_QUERIES, K16), dtype=np.float32)
+                             for _ in range(W - 1)]
+    # Record the drain's own phase-1 launches (inputs and outputs) to hold
+    # them against the plain version below; the count stays the wrapper's.
+    drain_phase1 = []
+
+    def _recorded(qc, rc, r2h, tile_n, ts):
+        out = phase1(qc, rc, r2h, tile_n, ts)
+        drain_phase1.append(((qc, rc, r2h, tile_n, ts), out))
+        return out
+
+    mxe.phase1 = _recorded
+    try:
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        served16 = engine.query_many(batches16)
+        queue_ms = (time.perf_counter() - t0) * 1e3
+        launches["expansion_phase1"] = _cuda.LAUNCHES["expansion_phase1"]
+    finally:
+        mxe.phase1 = phase1
+    _log(f"[v9] launches during query_many: {dict(_cuda.LAUNCHES)}")
+    if launches["expansion_phase1"] < 1:
+        raise AssertionError("kernel expansion_phase1 was not launched by the v9 main path")
+    allq = np.concatenate(batches16)
+    served_all = np.concatenate(served16)
+    want = torch.cat([fused_min_idx(torch.as_tensor(b, device=dev), r16_dm, N_REFS)[1]
+                      for b in batches16]).cpu().numpy()
+    if not np.array_equal(served_all, want):
+        raise AssertionError(f"v9 differs from the v4 kernel in "
+                             f"{int((served_all != want).sum())} of {len(want)} answers")
+    _log(f"[v9] all {len(want)} answers equal the v4 kernel's")
+    # The drain's phase-1 launch against the plain version, in 10K-row
+    # chunks (rows are independent), with the drain's own delta.
+    (args_main, kern_main), = drain_phase1
+    qc_main = args_main[0]
+    m_main = qc_main.shape[0]
+    delta_main = mx.stage_queries(allq).delta
+    plain_ms_main, parts = 0.0, []
+    for lo in range(0, m_main, N_QUERIES):
+        ms, out = cuda_ms(phase1_plain, qc_main[lo:lo + N_QUERIES], *args_main[1:],
+                          iters=1, warmup=0)
+        plain_ms_main += ms
+        parts.append(out)
+    err_main, text = _phase1_check("expansion_phase1 on the drain's launch", kern_main,
+                                   tuple(torch.cat(p) for p in zip(*parts)), delta_main)
+    del parts
+    kern_ms_main, _ = cuda_ms(phase1, *args_main)
+    main_bound = _phase1_bound(m_main, N_REFS, K16)
+    slots = mxe._phase1_slots(_cuda.library(), mx.kp, dev)
+    ranges = mxe.phase1_splits(m_main, mx.rc.shape[1] // mx.tile_n, slots)
+    _log(f"[v9] expansion_phase1 as the drain launched it ({m_main} x 1M k=16, {ranges} "
+         f"range(s), {slots} block slots): kernel {kern_ms_main:.4f} ms ({kern_ms_main * N_QUERIES / m_main:.4f} ms "
+         f"per 10K rows), plain {plain_ms_main:.4f} ms in 10K-row chunks, bound "
+         f"{main_bound[0]:.4f} ms ({main_bound[1]}); {text}")
+    results["expansion_phase1"].insert(0, (err_main, kern_ms_main, plain_ms_main))
+    del drain_phase1, args_main, kern_main, qc_main
+    sub16, dmin16 = oracle16
+    _gate("v9 batch 0 (the ladder's 512 rows)", served16[0][sub16], q16_1m[sub16], r16_1m,
+          dmin16)
+    _, _, cert = mx.query_min_idx_cert(allq)
+    bad = np.flatnonzero(~cert)
+    nchk = min(128, len(bad))
+    pick = bad[np.random.default_rng(5).choice(len(bad), nchk, replace=False)] if nchk else bad
+    if nchk:
+        _, dmin_bad = _oracle_f64_card(allq[pick], r16_1m, dev)
+        _gate(f"v9 uncertified rows ({nchk} of {len(bad)}, float64 scan on the card)",
+              served_all[pick], allq[pick], r16_1m, dmin_bad)
+    # Phase 1's own error on batch 0: |min1 - exact min e| over the gated rows.
+    st0 = mx.stage_queries(q16_1m[sub16])
+    min1_0 = phase1(_cat_q(*split_bf16x3(st0.q_dev)), mx.rc, mx.r2h, mx.tile_n, mx.ts)[0]
+    q_sub = q16_1m[sub16].astype(np.float64)
+    e_exact = 0.5 * (dmin16 - (q_sub ** 2).sum(axis=1))
+    # Relative to the delta of these 512 rows, at most the drain's.
+    err_ratio = float(np.abs(min1_0.double().cpu().numpy() - e_exact).max()) / st0.delta
+    t0 = time.perf_counter()
+    engine.query_many(batches16)
+    drain_ms = (time.perf_counter() - t0) * 1e3 / W
+    torch.cuda.reset_peak_memory_stats()
+    engine.query_many(batches16)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    _log(f"[v9] build {build_ms:.1f} ms; query_many over {W} batches {queue_ms / W:.3f} "
+         f"ms/batch (first call), {drain_ms:.3f} ms/batch (second call, host clock, "
+         f"upload and download included); certified {int(cert.sum())}/{len(cert)} "
+         f"({cert.mean():.6f}); phase-1 max |min1 - f64 e| over batch 0's "
+         f"{len(sub16)} gated rows {err_ratio:.6f} delta; device memory peak "
+         f"{peak_mb:.0f} MiB; promotions deferred {engine.promotions_deferred}")
+    for s_, qb in zip(served16, batches16):
+        if s_.shape != (qb.shape[0],) or s_.min() < 0 or s_.max() >= N_REFS:
+            raise AssertionError("v9 query_many returned out-of-range indices")
+    del engine, mx, mx16
+
+    # 9. Results, each kernel at its main path's shape: one 10K batch for
+    # the scan, the 8-query fallback bucket for the fused kernel, 1024 x 1M
+    # k=3 for the ladder's kernels, the drain's 640K x 1M k=16 launch for
+    # phase 1.
+    bounds = {
+        "cell_scan": cell_bound,
+        "fused_argmin": _fused_bound(8, N_REFS, K),
+        "expansion_phase1": main_bound,
+        **{name: _fused_bound(1024, N_REFS, K) for name in ladder_launches},
+    }
     kernels = []
     for name, source, replaces in (
         ("cell_scan", "nns_tpu_torch/csrc/cell_scan.cu", "nns_tpu/kernels/cell_list.py:55"),
@@ -337,17 +626,20 @@ def main() -> int:
         ("fused_queries_resident", "nns_tpu_torch/csrc/fused_queries_resident.cu",
          "nns_tpu/kernels/pallas_fused.py:302"),
         ("two_level", "nns_tpu_torch/csrc/two_level.cu", "nns_tpu/kernels/pallas_fused.py:453"),
+        ("expansion_phase1", "nns_tpu_torch/csrc/expansion_phase1.cu",
+         "nns_tpu/kernels/mxu_expansion.py:126"),
     ):
         rows = results[name]
-        # The main path's shape: one 10K batch for the scan, the 8-query
-        # fallback bucket for the fused kernel, 1024 x 1M k=3 for the
-        # ladder's kernels.
         main = rows[1] if name in ladder_launches else rows[0]
+        bound_ms, bound_by = bounds[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": ladder_launches.get(name, launches.get(name)),
             "max_abs_err": max(r[0] for r in rows),
             "ms": main[1], "plain_ms": main[2],
+            # No one PyTorch call computes an argmin of distances or the
+            # phase-1 carries.
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,9 +3,9 @@
 
 Every version is a callable ``fn(queries[m,k] f32, refs[n,k] f32) ->
 idx[m] i32`` plus a build/query split (``NNEngine``). The registry names all
-15 versions of the JAX package; the port runs the brute-force ladder v0-v7
-and v14 (supercell index) so far, and the others raise NotImplementedError
-naming the ROADMAP slice that ports them. Everything runs on an explicit
+15 versions of the JAX package; the port runs the brute-force ladder v0-v7,
+v9 (split-bf16 expansion) and v14 (supercell index) so far, and the others
+raise NotImplementedError naming the ROADMAP slice that ports them. Everything runs on an explicit
 ``device`` (default ``"cuda"``); nothing here probes for a GPU. v0 is the
 host scan and never touches ``device``.
 """
@@ -89,6 +89,12 @@ def _v7(q, r, cfg, device):
     return _as_idx(nns_two_level(q, r, tile_n=cfg.tile_n, device=device))
 
 
+def _v9(q, r, cfg, device):
+    from nns_tpu_torch.kernels.mxu_expansion import nns_mxu_expansion
+
+    return _as_idx(nns_mxu_expansion(q, r, device=device))
+
+
 def _v14(q, r, cfg, device):
     from nns_tpu_torch.kernels.cell_list import nns_cell_list
 
@@ -127,7 +133,7 @@ _SPECS = [
     VersionSpec(6, "fused_queries_resident", "bruteforce", "fused CUDA kernel, query set resident in __constant__ memory (v6, constant-memory analog)", fn=_v6),
     VersionSpec(7, "two_level", "bruteforce", "per-tile partial winners + second reduce (v7, multi-block analog)", fn=_v7),
     VersionSpec(8, "sharded", "sharded", "refs sharded over devices, argmin merge (v8, 4-GPU analog)", roadmap_slice=8),
-    VersionSpec(9, "mxu_expansion", "bruteforce", "split-bf16 expansion + band certificate + exact refine (v9)", roadmap_slice=6),
+    VersionSpec(9, "mxu_expansion", "bruteforce", "split-bf16 expansion + band certificate + exact refine (v9)", fn=_v9),
     VersionSpec(10, "kdtree_host", "tree", "KD-tree host build + host query (v10)", roadmap_slice=7),
     VersionSpec(11, "kdtree_device", "tree", "KD-tree host build + beam frontier device query (v11)", roadmap_slice=7),
     VersionSpec(12, "octree_host", "tree", "octree host build + host query (v12)", roadmap_slice=7),
@@ -181,8 +187,9 @@ def nns(
 
 
 class NNEngine:
-    """Build/query split: build stages the index (v14), the dim-major refs
-    (v4), or the refs themselves (v1-v3, v5-v7) on ``device`` once; query /
+    """Build/query split: build stages the index (v14), the split-bf16
+    expansion engine (v9, k >= 8), the dim-major refs (v4), or the refs
+    themselves (v1-v3, v5-v7, v9 at k < 8) on ``device`` once; query /
     query_many reuse them. v0 stages nothing: it scans on the host."""
 
     def __init__(self, version: int | str = "auto", config: EngineConfig | None = None,
@@ -195,9 +202,9 @@ class NNEngine:
         self._refs: np.ndarray | None = None
         self._cov_miss = 0
         self._cov_seen = 0
-        # Times the coverage hysteresis asked for the beam index, which is
-        # not ported yet: the cell engine keeps serving (exact through the
-        # fused fallback) instead.
+        # Times the coverage hysteresis (v14) or the high-k probe (v9) asked
+        # for a beam index, which is not ported yet: the engine keeps
+        # serving exactly instead.
         self.promotions_deferred = 0
 
     def _note_coverage(self, cov: float, m: int, good_cov: float,
@@ -222,17 +229,24 @@ class NNEngine:
     def build(self, refs) -> "NNEngine":
         from nns_tpu_torch.kernels.cell_list import CellListEngine
         from nns_tpu_torch.kernels.fused import FusedBruteForce, as_f32
+        from nns_tpu_torch.kernels.mxu_expansion import MXUExpansion
 
         refs = np.atleast_2d(np.asarray(refs, dtype=np.float32))
         _check_finite(refs, "refs")
         self._refs = refs
         self._cov_miss = 0  # fresh index: forget prior coverage history
         self._cov_seen = 0
+        self._hk_seen = 0  # fresh index: re-arm the high-k probe
+        self._hk_probed = False
         if self._auto:
             # Build/query semantics amortize index construction: the
-            # supercell index for large 3-D sets, else the fused kernel.
-            large_3d = refs.shape[1] == 3 and refs.shape[0] >= 65536
-            self.spec = get_version(14 if large_3d else 4)
+            # supercell index for large 3-D sets, the expansion engine for
+            # high-k sets, else the fused kernel (nns_tpu/api.py:452-459 on
+            # one device).
+            if refs.shape[1] == 3 and refs.shape[0] >= 65536:
+                self.spec = get_version(14)
+            else:
+                self.spec = get_version(9 if refs.shape[1] >= 8 else 4)
         self.spec.require_ported()
         if self.spec.num == 14 and refs.shape[1] == 3 and refs.shape[0] >= 4096:
             try:
@@ -243,12 +257,19 @@ class NNEngine:
                 self._built = FusedBruteForce(refs, tile_n=self.config.tile_n, device=self.device)
         elif self.spec.num in (4, 14):
             self._built = FusedBruteForce(refs, tile_n=self.config.tile_n, device=self.device)
+        elif self.spec.num == 9 and refs.shape[1] >= 8:
+            # Sets past the staging bound (n >= 2^25) degrade once, at build
+            # time, to the staged fused engine.
+            try:
+                self._built = MXUExpansion(refs, device=self.device)
+            except ValueError:
+                self._built = FusedBruteForce(refs, device=self.device)
         elif self.spec.num == 0:
             self._built = None  # the host scan reads the numpy refs
         else:
-            # v1-v3, v5-v7: the refs go to the device once (JAX's device_put,
-            # nns_tpu/api.py:561-565); each query runs the version's own
-            # function on them.
+            # v1-v3, v5-v7 and v9 at k < 8: the refs go to the device once
+            # (JAX's device_put, nns_tpu/api.py:561-565); each query runs the
+            # version's own function on them.
             self._built = as_f32(refs, self.device)
         return self
 
@@ -270,17 +291,35 @@ class NNEngine:
         if self._note_coverage(cov, m, good_cov=0.95, miss_frac=0.3):
             self.promotions_deferred += 1
 
+    def _note_high_k(self, m: int) -> None:
+        """Where the JAX engine runs its one-time high-k probe for a KD beam
+        index (nns_tpu/api.py:342-372: after hk_probe_after queries over at
+        least hk_promote_n_min refs of k <= kd_max_k), count a deferred
+        promotion: the beam index is not ported yet."""
+        cfg = self.config
+        n, k = self._refs.shape
+        if self._hk_probed or n < cfg.hk_promote_n_min or k > cfg.kd_max_k:
+            return
+        self._hk_seen += m
+        if self._hk_seen >= cfg.hk_probe_after:
+            self._hk_probed = True
+            self.promotions_deferred += 1
+
     def query(self, queries) -> np.ndarray:
         from nns_tpu_torch.kernels.cell_list import CellListEngine
         from nns_tpu_torch.kernels.fused import FusedBruteForce
+        from nns_tpu_torch.kernels.mxu_expansion import MXUExpansion
 
         queries = self._check_queries(queries)
         if isinstance(self._built, CellListEngine):
             idx, cov = self._built.query_with_coverage(queries)
             self._note_cell_coverage(cov, queries.shape[0])
             return _as_idx(idx)
-        if isinstance(self._built, FusedBruteForce):
-            return _as_idx(self._built.query(queries))
+        if isinstance(self._built, (FusedBruteForce, MXUExpansion)):
+            idx = _as_idx(self._built.query(queries))
+            if self.spec.num == 9:
+                self._note_high_k(queries.shape[0])
+            return idx
         # The version's own function (nns_tpu/api.py:637), on the staged refs.
         refs = self._refs if self._built is None else self._built
         return self.spec(queries, refs, self.config, self.device)
@@ -289,10 +328,12 @@ class NNEngine:
         """Exact answers for several query batches: the supercell engine
         drains the whole queue with one scan launch per batch and one
         device-to-host copy (CellListEngine.query_queue); the fused engine
-        answers the concatenated queue in one call; the other versions
-        answer batch by batch (nns_tpu/api.py:692)."""
+        answers the concatenated queue in one call, and so does the v9
+        expansion engine; the other versions answer batch by batch
+        (nns_tpu/api.py:683-692)."""
         from nns_tpu_torch.kernels.cell_list import CellListEngine
         from nns_tpu_torch.kernels.fused import FusedBruteForce
+        from nns_tpu_torch.kernels.mxu_expansion import MXUExpansion
 
         batches = [self._check_queries(b) for b in batches]
         if isinstance(self._built, CellListEngine):
@@ -300,7 +341,7 @@ class NNEngine:
             for qb, cov in zip(batches, covs):
                 self._note_cell_coverage(cov, qb.shape[0])
             return [_as_idx(i) for i in results]
-        if not isinstance(self._built, FusedBruteForce) or not batches:
+        if not isinstance(self._built, (FusedBruteForce, MXUExpansion)) or not batches:
             return [self.query(b) for b in batches]
         idx = self.query(np.concatenate(batches, axis=0))
         offs = np.cumsum([b.shape[0] for b in batches])[:-1]

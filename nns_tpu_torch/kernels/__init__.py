@@ -25,6 +25,12 @@ from nns_tpu_torch.kernels.xla_bruteforce import (  # noqa: F401
     nns_distance_matrix,
     nns_expansion_matmul,
 )
+from nns_tpu_torch.kernels.mxu_expansion import (  # noqa: F401
+    MXUExpansion,
+    nns_mxu_expansion,
+    phase1,
+    phase1_plain,
+)
 from nns_tpu_torch.kernels.cell_list import (  # noqa: F401
     CellListEngine,
     cell_scan,

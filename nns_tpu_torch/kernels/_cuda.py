@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels in ``nns_tpu_torch/csrc/``.
 
-nvcc compiles every ``csrc/*.cu`` into one shared library with a plain C
+nvcc compiles every ``csrc/*.cu`` (one nvcc process per source, all started
+together) and links the objects into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds), for ``sm_90a``
 and with ``-fmad=false``: the kernels' distances must round exactly like
 their plain PyTorch versions, which never fuse a multiply into an add. The
@@ -20,6 +21,7 @@ import ctypes
 import glob
 import os
 import subprocess
+import tempfile
 import threading
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,7 +30,7 @@ _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _LIB = os.path.join(_BUILD_DIR, "libnns_kernels.so")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -39,6 +41,7 @@ _lib: ctypes.CDLL | None = None
 LAUNCHES: dict[str, int] = {
     "fused_argmin": 0, "cell_scan": 0, "fused_point_major": 0,
     "fused_streaming": 0, "fused_queries_resident": 0, "two_level": 0,
+    "expansion_phase1": 0,
 }
 
 
@@ -74,16 +77,35 @@ def build(force: bool = False) -> str:
     )
     if fresh and not force:
         return _LIB
+    nvcc = _nvcc()
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *srcs, "-o", tmp]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, _LIB)
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as obj_dir:
+        objs = [os.path.join(obj_dir, os.path.basename(s)[:-3] + ".o") for s in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", s, "-o", o] for s, o in zip(srcs, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        failed = []
+        try:
+            for cmd, proc in zip(cmds, procs):
+                out, _ = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        finally:
+            for proc in procs:  # none outlives the build, even on a timeout
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{_LIB}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", tmp]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, _LIB)
     return _LIB
 
 
@@ -107,6 +129,9 @@ def library() -> ctypes.CDLL:
             ("nns_fused_streaming", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp, vp, vp]),
             ("nns_fused_queries_resident", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp, vp, vp]),
             ("nns_two_level", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp]),
+            ("nns_expansion_phase1",
+             [vp, vp, vp, ci, ci, cll, ci, ci, ci, ci, vp, vp, vp, vp, vp]),
+            ("nns_expansion_phase1_blocks_per_sm", [ci, vp]),
         ):
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -1,0 +1,93 @@
+"""Where the time of the v9 drain goes, on one CUDA device.
+
+Run from the repository root: ``python -m nns_tpu_torch.utils.profile_drain
+[--w 16]``. It builds ``NNEngine(9, device="cuda")`` over bench_k16's
+workload on 1M refs (16-D uniform, seed 1000), answers W distinct 10K-query
+batches once untimed, then:
+
+1. times each step of the first v9 call in the process (CUDA start, the
+   kernel library, the engine's staging, the query split, phase 1, the
+   whole drain at 1024 x 1M), then the same steps again, to separate the
+   process's one-time costs from per-call ones (host clock, synchronized);
+2. traces one ``query_many`` over the W batches with ``torch.profiler``
+   and prints the wall time, the device time by kernel (top 12) and the
+   device's busy share.
+
+It prints the card's name and power limit first, and fails without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--w", type=int, default=16, help="10K-query batches in the queue")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_drain: no CUDA device visible", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    from nns_tpu_torch import NNEngine, nns
+    from nns_tpu_torch.data import make_dataset
+    from nns_tpu_torch.kernels import _cuda
+    from nns_tpu_torch.kernels.mxu_expansion import MXUExpansion, _cat_q, phase1, split_bf16x3
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    queries, refs = make_dataset(16, 10_000, 1_000_000, 1000)
+    rng = np.random.default_rng(1001)
+    batches = [queries] + [rng.random((10_000, 16), dtype=np.float32) for _ in range(args.w - 1)]
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        print(f"[steps]   {label}: {(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+        return out
+
+    q1k = queries[:1024]
+    for i in range(2):
+        print(f"[steps] call {i}", flush=True)
+        timed("CUDA start", lambda: torch.zeros(1, device="cuda"))
+        timed("kernel library", _cuda.library)
+        mx = timed("MXUExpansion(1M refs)", lambda: MXUExpansion(refs, device="cuda"))
+        st = timed("stage_queries", lambda: mx.stage_queries(q1k))
+        qc = timed("split + _cat_q", lambda: _cat_q(*split_bf16x3(st.q_dev)))
+        timed("phase1", lambda: phase1(qc, mx.rc, mx.r2h, mx.tile_n, mx.ts))
+        timed("drain (phases 1-2, refine)", lambda: mx._drain_staged(st))
+        timed("nns(version=9) one-shot", lambda: nns(q1k, refs, version=9, device="cuda"))
+    del mx
+    eng = NNEngine(9, device="cuda").build(refs)
+    eng.query_many(batches)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.query_many(batches)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side events only (kernels and copies): an op's own entry
+    # would count its kernels' time again.
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"[drain] W={args.w}: wall {wall_ms:.3f} ms ({wall_ms / args.w:.3f} ms/batch); "
+          f"device busy {busy_ms:.3f} ms ({busy_ms / args.w:.3f} ms/batch, "
+          f"{100 * busy_ms / wall_ms:.1f}% of wall)", flush=True)
+    for e in events[:12]:
+        print(f"[drain]   {e.self_device_time_total / 1e3 / args.w:9.4f} ms/batch  "
+              f"x{e.count:<5d} {e.key[:90]}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

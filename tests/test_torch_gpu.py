@@ -7,6 +7,12 @@ exact ties).
 Tolerance: indices exactly equal and min_d2 bit-equal — kernel and plain
 version both round each sub, mul and add to nearest in the same order (the
 kernels are built with -fmad=false), so there is nothing to tolerate.
+The one exception is ``expansion_phase1`` (v9): its tensor cores sum the
+bf16 products in their own order and may truncate, so its values (min1,
+m2x, t2v, t3v) are held within the engine's delta of the plain version, and
+its ids (tid, tid2) equal wherever the plain runner-up lies more than
+2 delta away. On integer data every sum is exact, and there all six
+outputs must be equal.
 
 They skip without a CUDA device (the decision is made inside the fixture).
 This file imports neither jax nor nns_tpu, so it also runs where only the
@@ -18,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from nns_tpu_torch import NNEngine
 from nns_tpu_torch.data import make_dataset
 from nns_tpu_torch.kernels import _cuda
 from nns_tpu_torch.kernels.cell_list import CellListEngine, cell_scan, cell_scan_plain
@@ -36,6 +43,15 @@ from nns_tpu_torch.kernels.fused_ladder import (
     fused_streaming_plain,
     two_level_min_idx,
     two_level_plain,
+)
+from nns_tpu_torch.kernels.mxu_expansion import (
+    MXUExpansion,
+    _cat_q,
+    _phase1_slots,
+    phase1,
+    phase1_plain,
+    phase1_splits,
+    split_bf16x3,
 )
 from nns_tpu_torch.kernels.oracle import recall_at_1
 
@@ -213,3 +229,126 @@ def test_streaming_rejects_unaligned_pitch(cuda):
     r_dm = torch.zeros((3, 130), device=cuda)
     with pytest.raises(ValueError, match="multiple of 4"):
         fused_streaming_min_idx(torch.zeros((2, 3), device=cuda), r_dm, 130)
+
+
+# ---------------------------------------------------------------------------
+# v9 phase 1: tensor-core products, held within delta of the plain version
+# ---------------------------------------------------------------------------
+
+
+def _phase1_args(q, r, tile_n, ts, dev):
+    eng = MXUExpansion(r, tile_n=tile_n, tile_s=ts, device=dev)
+    st = eng.stage_queries(q)
+    qc = _cat_q(*split_bf16x3(st.q_dev))
+    return eng, st.delta, (qc, eng.rc, eng.r2h, eng.tile_n, eng.ts)
+
+
+def assert_phase1_close(kernel, plain, delta):
+    """Values within delta (inf where plain is inf); tid equal where the
+    plain runner-up m2x is more than 2 delta above min1; tid2 equal where
+    the plain second tile is more than 2 delta from the first and third.
+    Returns max |value difference| / delta."""
+    torch.cuda.synchronize()
+    k1, kt, km2, kt2v, kid2, kt3 = kernel
+    p1, pt, pm2, pt2v, pid2, pt3 = plain
+    worst = 0.0
+    for kv, pv in ((k1, p1), (km2, pm2), (kt2v, pt2v), (kt3, pt3)):
+        fin = torch.isfinite(pv)
+        assert torch.equal(torch.isfinite(kv), fin)
+        if fin.any():
+            worst = max(worst, float((kv[fin].double() - pv[fin].double()).abs().max()) / delta)
+    assert worst <= 1.0, f"values differ by {worst} delta"
+    sep = (pm2 - p1) > 2 * delta
+    assert torch.equal(kt[sep], pt[sep]), f"{int((kt[sep] != pt[sep]).sum())} tid differ"
+    sep2 = ((pt2v - p1) > 2 * delta) & ((pt3 - pt2v) > 2 * delta)
+    assert torch.equal(kid2[sep2], pid2[sep2]), "tid2 differ"
+    return worst
+
+
+@pytest.mark.parametrize("m,n,k,tile_n,ts", [(33, 777, 10, 128, 128), (300, 5000, 16, 512, 256),
+                                             (1000, 70000, 16, 4096, 256),
+                                             (17, 3000, 24, 640, 640), (129, 20000, 8, 1024, 256),
+                                             (1, 300, 16, 128, 64), (200, 9000, 88, 1024, 256),
+                                             (300, 9000, 96, 1024, 256),
+                                             (130, 5000, 128, 512, 128),
+                                             (64, 3000, 200, 1024, 256)])
+def test_phase1_kernel_within_delta_of_plain(cuda, m, n, k, tile_n, ts):
+    q, r = make_dataset(k, m, n, seed=300 + m)
+    _, delta, args = _phase1_args(q, r, tile_n, ts, cuda)
+    before = _cuda.LAUNCHES["expansion_phase1"]
+    got = phase1(*args)
+    assert _cuda.LAUNCHES["expansion_phase1"] == before + 1
+    assert_phase1_close(got, phase1_plain(*args), delta)
+
+
+@pytest.mark.parametrize("m,tile_n,ts,k", [(40, 512, 128, 16), (300, 256, 64, 16),
+                                            (7, 4096, 256, 16), (64, 512, 128, 100)])
+def test_phase1_kernel_merges_ranges_per_query(cuda, m, tile_n, ts, k):
+    # Integer coordinates make every sum exact in any order, so all six
+    # outputs must equal the plain version's. Exact duplicates of each
+    # query's nearest point sit in other ref ranges, and two whole tiles
+    # are identical: every merge rule meets a tie. At k = 100 (kp = 104)
+    # the contraction runs in dimension slices of 32, 32, 32 and 8.
+    rng = np.random.default_rng(m + tile_n)
+    n = 200_000
+    r = rng.integers(0, 4, (n, k)).astype(np.float32)
+    q = rng.integers(0, 4, (m, k)).astype(np.float32)
+    near = np.array([int(np.argmin(((r - qi) ** 2).sum(1))) for qi in q])
+    for i, w in enumerate(near):
+        for dup in (w + 61_000, w + 127_000, w * 7 + 13):
+            r[dup % n] = r[w]
+    r[tile_n:2 * tile_n] = r[:tile_n]
+    slots = _phase1_slots(_cuda.library(), -(-k // 8) * 8, cuda)
+    assert phase1_splits(m, -(-n // tile_n), slots) > 1
+    _, _, args = _phase1_args(q, r, tile_n, ts, cuda)
+    got, want = phase1(*args), phase1_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("g_rel", [0.0, 1e-7, 1e-6, 1e-5, 1e-3, 1e-1])
+def test_v9_near_ties_on_card(cuda, g_rel):
+    # Runner-up gaps around the band: a certified row is never wrong, and
+    # the engine's answer is exact and equals the CPU engine's.
+    rng = np.random.default_rng(12)
+    k = 16
+    refs = rng.random((50_000, k)).astype(np.float32) + 2.0
+    q = np.zeros((4, k), dtype=np.float32)
+    q[1:] = rng.random((3, k), dtype=np.float32)
+    refs[7] = 0.0
+    refs[7, 0] = 1.0
+    refs[31_313] = 0.0
+    refs[31_313, 0] = np.float32(np.sqrt(1.0 + 2.0 * g_rel))
+    eng = MXUExpansion(refs, device=cuda)
+    _, idx, cert = eng.query_min_idx_cert(q)
+    d = ((q[:, None, :].astype(np.float64) - refs[None]) ** 2).sum(-1)
+    dmin = d.min(1)
+    assert (d[np.arange(4), idx][cert] == dmin[cert]).all(), "certified a wrong row"
+    out = eng.query(q)
+    assert (d[np.arange(4), out] == dmin).all()
+    np.testing.assert_array_equal(out, MXUExpansion(refs, device="cpu").query(q))
+
+
+def test_v9_engine_equals_v4_kernel(cuda):
+    q, r = make_dataset(16, 3000, 100_000, seed=13)
+    got = MXUExpansion(r, device=cuda).query(q)
+    r_dm, _ = prepare_refs(r, 4096, cuda)
+    _, want = fused_min_idx(torch.as_tensor(q, device=cuda), r_dm, r.shape[0])
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+@pytest.mark.parametrize("k", [96, 128])
+def test_auto_engine_at_high_k_on_card(cuda, k):
+    # NNEngine("auto") picks v9 for k >= 8; past kp = 88 the query tile no
+    # longer fits in shared memory and phase 1 runs in dimension slices.
+    q, r = make_dataset(k, 500, 20_000, seed=k)
+    eng = NNEngine(device="cuda").build(r)
+    assert eng.spec.num == 9 and isinstance(eng._built, MXUExpansion)
+    before = _cuda.LAUNCHES["expansion_phase1"]
+    got = eng.query(q)
+    assert _cuda.LAUNCHES["expansion_phase1"] == before + 1
+    r_dm, _ = prepare_refs(r, 4096, cuda)
+    _, want = fused_min_idx(torch.as_tensor(q, device=cuda), r_dm, r.shape[0])
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+    assert recall_at_1(got, q, r) == 1.0
