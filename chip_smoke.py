@@ -32,24 +32,30 @@ result) without them. Phases, each raising on failure:
    must grow during it (v9: ``fused_argmin`` at k = 3, ``expansion_phase1``
    at k = 16); and v6 under a query budget below m * k * 4 must launch the
    v4 kernel instead;
-7. ``expansion_phase1`` (v9's tensor-core kernel) against ``phase1_plain``
-   at 10000 x 1M and 1024 x 1M k=16, an unaligned 33 x 777 k=10 and
-   1024 x 65536 k=128 (past kp = 88 the contraction runs in dimension
-   slices): values within the engine's delta, ids equal wherever the plain
-   runner-up is more than 2 delta away (tensor cores sum in their own
+7. v9's two phase-1 kernels against ``phase1_plain``: the dispatched
+   kernel at 10000 x 1M and 1024 x 1M k=16, unaligned 33 x 777 at k=16,
+   10 and 24, and 1024 x 65536 k=128 (kp % 16 == 0 takes the wgmma kernel,
+   other kp the mma.sync kernel, past kp = 88 in dimension slices), plus the
+   mma.sync kernel through its own entry point at 10000 x 1M k=16 as the
+   yardstick: values within the engine's delta, ids equal wherever the
+   plain runner-up is more than 2 delta away (tensor cores sum in their own
    order, so no bit equality); and 64 x 1M integer-valued k=16 refs with
    exact duplicates, where every sum is exact and all six outputs must be
-   equal;
+   equal. Then ``nns(version=9)`` at 1024 x 65536 k=128, the path that
+   launches the mma.sync kernel, with its launch count zeroed just before;
 8. the v9 main path: ``NNEngine(9, device="cuda").build`` over the 1M 16-D
    refs (seed 1000) and ``query_many`` over W=64 distinct 10K batches. The
-   ``expansion_phase1`` count must grow; the drain's own phase-1 launch
-   (all 640K rows at once) is held against ``phase1_plain`` in 10K-row
-   chunks with the same tolerance; all 640K answers must equal the v4
+   ``expansion_phase1_wgmma`` count must grow; the drain's own phase-1
+   launch (all 640K rows at once) is held against ``phase1_plain`` in
+   10K-row chunks with the same tolerance, and so is the mma.sync kernel on
+   the same launch (timed beside it); all 640K answers must equal the v4
    kernel's; batch 0 passes the f64 gate on the ladder's 512-row oracle and
    up to 128 uncertified rows pass a float64 scan on the card;
-9. one JSON line of per-kernel results (with each kernel's bound at its
-   main path's shape; for phase 1 the drain's 640K-row launch), then the
-   device line last.
+9. one JSON line of per-kernel results, each row with the shape its ms,
+   plain_ms and bound come from: each kernel's main path (for the wgmma
+   kernel the drain's 640K-row launch; for the mma.sync kernel v9 at
+   1024 x 65536 k=128, with its time on the drain's launch as a separate
+   ``yardstick``), then the device line last.
 """
 
 from __future__ import annotations
@@ -153,18 +159,28 @@ def _phase1_check(name, kern, plain, delta, exact=False):
                  f"tid2 on {int(sep2.sum())}")
 
 
-def _phase1_compare(name, args, delta, exact=False):
-    """expansion_phase1 against phase1_plain on the same card tensors
-    (``_phase1_check``), each timed. Returns (max_abs_err, kernel_ms,
-    plain_ms)."""
-    from nns_tpu_torch.kernels.mxu_expansion import phase1, phase1_plain
+def _phase1_compare(name, args, rc_t, delta, exact=False, route=None, plain=None):
+    """Phase 1 on the card (the kernel phase1 dispatches to, or ``route``'s
+    through its own entry point, which needs a contiguous rc in ``args``)
+    against phase1_plain on the same card tensors (``_phase1_check``), each
+    timed; ``plain`` = (plain_ms, outputs) when already computed. Returns
+    (launch key of the kernel that ran, (max_abs_err, kernel_ms, plain_ms),
+    plain)."""
+    from nns_tpu_torch.kernels import _cuda
+    from nns_tpu_torch.kernels.mxu_expansion import _phase1_cuda, phase1, phase1_plain
     from nns_tpu_torch.utils.timing import cuda_ms
 
-    k_ms, kern = cuda_ms(phase1, *args)
-    p_ms, plain = cuda_ms(phase1_plain, *args)
-    err, text = _phase1_check(name, kern, plain, delta, exact)
-    _log(f"[kernel] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, {text}")
-    return err, k_ms, p_ms
+    before = _cuda.LAUNCHES["expansion_phase1_wgmma"]
+    if route is None:
+        k_ms, kern = cuda_ms(lambda: phase1(*args, rc_t=rc_t))
+    else:
+        k_ms, kern = cuda_ms(lambda: _phase1_cuda(*args, rc_t, route))
+    key = ("expansion_phase1_wgmma" if _cuda.LAUNCHES["expansion_phase1_wgmma"] > before
+           else "expansion_phase1")
+    plain = cuda_ms(phase1_plain, *args) if plain is None else plain
+    err, text = _phase1_check(name, kern, plain[1], delta, exact)
+    _log(f"[kernel] {name} ({key}): kernel {k_ms:.4f} ms, plain {plain[0]:.4f} ms, {text}")
+    return key, (err, k_ms, plain[0]), plain
 
 
 def _oracle_f64_card(queries, refs, dev):
@@ -464,20 +480,31 @@ def main() -> int:
         _log(f"[ladder] k={k}: v6 with a {budget.vmem_query_budget_bytes}-byte budget "
              f"launched fused_argmin, not fused_queries_resident; answers equal v4")
 
-    # 7. expansion_phase1 against its plain version.
+    # 7. Both phase-1 kernels against their plain version.
     mx16 = MXUExpansion(r16_1m, device=dev)
     q16_dev10k = torch.as_tensor(q16_10k, device=dev)
+    results["expansion_phase1"], results["expansion_phase1_wgmma"] = [], []
 
-    def _phase1_args(eng, q):
+    def _phase1_case(name, eng, q, want_key, exact=False, yardstick=False):
+        # The dispatched kernel, and with ``yardstick`` the mma.sync kernel
+        # through its own entry point, against one plain run. Returns the
+        # dispatched kernel's (max_abs_err, kernel_ms, plain_ms).
         st = eng.stage_queries(q)
-        return st.delta, (_cat_q(*split_bf16x3(st.q_dev)), eng.rc, eng.r2h, eng.tile_n, eng.ts)
+        args = (_cat_q(*split_bf16x3(st.q_dev)), eng.rc, eng.r2h, eng.tile_n, eng.ts)
+        key, row, plain = _phase1_compare(f"phase 1 {name}", args, eng.rc_t, st.delta, exact)
+        if key != want_key:
+            raise AssertionError(f"phase 1 {name}: {key} ran, {want_key} expected")
+        results[key].append(row)
+        if yardstick:
+            args = (args[0], eng.rc.contiguous(), *args[2:])
+            _, y_row, _ = _phase1_compare(f"phase 1 {name}", args, None, st.delta, exact,
+                                          "mma_sync", plain)
+            results["expansion_phase1"].append(y_row)
+        return row
 
-    delta10k, args10k = _phase1_args(mx16, q16_10k)
-    results["expansion_phase1"] = [
-        _phase1_compare("expansion_phase1 10000 x 1M k=16", args10k, delta10k)]
-    delta1k, args1k = _phase1_args(mx16, q16_1m)
-    results["expansion_phase1"].append(
-        _phase1_compare("expansion_phase1 1024 x 1M k=16", args1k, delta1k))
+    WG, MMA = "expansion_phase1_wgmma", "expansion_phase1"
+    _phase1_case("10000 x 1M k=16", mx16, q16_10k, WG, yardstick=True)
+    _phase1_case("1024 x 1M k=16", mx16, q16_1m, WG)
     rng_int = np.random.default_rng(SEED + 2)
     r_int = rng_int.integers(0, 4, (N_REFS, K16)).astype(np.float32)
     q_int = rng_int.integers(0, 4, (64, K16)).astype(np.float32)
@@ -485,24 +512,29 @@ def main() -> int:
         r_int[j] = q_int[i]
         r_int[(j + 500_000) % N_REFS] = q_int[i]
     mx_int = MXUExpansion(r_int, device=dev)
-    d_int, a_int = _phase1_args(mx_int, q_int)
-    results["expansion_phase1"].append(_phase1_compare(
-        "expansion_phase1 64 x 1M k=16 integer duplicate ties (exact)", a_int, d_int, exact=True))
-    del mx_int, a_int, r_int
-    q10, r10 = make_dataset(10, 33, 777, SEED)
-    mx10 = MXUExpansion(r10, device=dev)
-    d10, a10 = _phase1_args(mx10, q10)
-    results["expansion_phase1"].append(
-        _phase1_compare("expansion_phase1 33 x 777 k=10 unaligned", a10, d10))
+    _phase1_case("64 x 1M k=16 integer duplicate ties (exact)", mx_int, q_int, WG, exact=True)
+    del mx_int, r_int
+    for k_u, key in ((16, WG), (10, WG), (24, MMA)):
+        q_u, r_u = make_dataset(k_u, 33, 777, SEED)
+        _phase1_case(f"33 x 777 k={k_u} unaligned", MXUExpansion(r_u, device=dev), q_u, key)
     q128, r128 = make_dataset(128, 1024, 65536, SEED)
-    mx128 = MXUExpansion(r128, device=dev)
-    d128, a128 = _phase1_args(mx128, q128)
-    results["expansion_phase1"].append(_phase1_compare(
-        "expansion_phase1 1024 x 65536 k=128 (dimension slices)", a128, d128))
-    del mx128, a128
+    mma_row = _phase1_case("1024 x 65536 k=128 (dimension slices)",
+                           MXUExpansion(r128, device=dev), q128, MMA)
+    # The path that launches the mma.sync kernel: v9 at k = 128.
+    _cuda.reset_launches()
+    idx128 = nns(q128, r128, version=9, device="cuda")
+    mma_launches = _cuda.LAUNCHES[MMA] - _cuda.LAUNCHES[WG]
+    if mma_launches < 1 or _cuda.LAUNCHES[WG]:
+        raise AssertionError(f"nns(version=9) at k=128 launched {dict(_cuda.LAUNCHES)}")
+    r128_dm, _ = prepare_refs(r128, 4096, dev)
+    want128 = fused_min_idx(torch.as_tensor(q128, device=dev), r128_dm, 65536)[1].cpu().numpy()
+    if not np.array_equal(idx128, want128):
+        raise AssertionError("nns(version=9) at k=128 differs from the v4 kernel")
+    _log(f"[kernel] nns(version=9) 1024 x 65536 k=128: {mma_launches} mma.sync phase-1 "
+         f"launch(es), no wgmma; answers equal the v4 kernel's")
+    del r128_dm
     v4_16_ms, _ = cuda_ms(fused_min_idx, q16_dev10k, r16_dm, N_REFS)
     _log(f"[kernel] fused_argmin 10000 x 1M k=16 (v4, same call): {v4_16_ms:.4f} ms")
-    del args10k
 
     # 8. The v9 main path: 1M 16-D refs, W distinct 10K batches.
     engine = NNEngine(9, device="cuda")
@@ -520,9 +552,9 @@ def main() -> int:
     # them against the plain version below; the count stays the wrapper's.
     drain_phase1 = []
 
-    def _recorded(qc, rc, r2h, tile_n, ts):
-        out = phase1(qc, rc, r2h, tile_n, ts)
-        drain_phase1.append(((qc, rc, r2h, tile_n, ts), out))
+    def _recorded(qc, rc, r2h, tile_n, ts, rc_t=None):
+        out = phase1(qc, rc, r2h, tile_n, ts, rc_t=rc_t)
+        drain_phase1.append(((qc, rc, r2h, tile_n, ts), rc_t, out))
         return out
 
     mxe.phase1 = _recorded
@@ -531,12 +563,13 @@ def main() -> int:
         t0 = time.perf_counter()
         served16 = engine.query_many(batches16)
         queue_ms = (time.perf_counter() - t0) * 1e3
-        launches["expansion_phase1"] = _cuda.LAUNCHES["expansion_phase1"]
+        launches["expansion_phase1_wgmma"] = _cuda.LAUNCHES["expansion_phase1_wgmma"]
     finally:
         mxe.phase1 = phase1
+    launches["expansion_phase1"] = mma_launches  # the v9 path at k = 128, phase 7
     _log(f"[v9] launches during query_many: {dict(_cuda.LAUNCHES)}")
-    if launches["expansion_phase1"] < 1:
-        raise AssertionError("kernel expansion_phase1 was not launched by the v9 main path")
+    if launches["expansion_phase1_wgmma"] < 1:
+        raise AssertionError("kernel expansion_phase1_wgmma was not launched by the v9 main path")
     allq = np.concatenate(batches16)
     served_all = np.concatenate(served16)
     want = torch.cat([fused_min_idx(torch.as_tensor(b, device=dev), r16_dm, N_REFS)[1]
@@ -547,7 +580,7 @@ def main() -> int:
     _log(f"[v9] all {len(want)} answers equal the v4 kernel's")
     # The drain's phase-1 launch against the plain version, in 10K-row
     # chunks (rows are independent), with the drain's own delta.
-    (args_main, kern_main), = drain_phase1
+    (args_main, rc_t_main, kern_main), = drain_phase1
     qc_main = args_main[0]
     m_main = qc_main.shape[0]
     delta_main = mx.stage_queries(allq).delta
@@ -557,19 +590,31 @@ def main() -> int:
                           iters=1, warmup=0)
         plain_ms_main += ms
         parts.append(out)
-    err_main, text = _phase1_check("expansion_phase1 on the drain's launch", kern_main,
-                                   tuple(torch.cat(p) for p in zip(*parts)), delta_main)
+    plain_main = tuple(torch.cat(p) for p in zip(*parts))
     del parts
-    kern_ms_main, _ = cuda_ms(phase1, *args_main)
+    err_main, text = _phase1_check("expansion_phase1_wgmma on the drain's launch", kern_main,
+                                   plain_main, delta_main)
+    kern_ms_main, _ = cuda_ms(phase1, *args_main, rc_t_main)
+    # The mma.sync kernel on the same launch, through its own entry point.
+    args_mma = (qc_main, mx.rc.contiguous(), *args_main[2:])
+    mma_ms_main, mma_main = cuda_ms(mxe._phase1_cuda, *args_mma, None, "mma_sync")
+    err_mma, text_mma = _phase1_check("expansion_phase1 (mma.sync) on the drain's launch",
+                                      mma_main, plain_main, delta_main)
     main_bound = _phase1_bound(m_main, N_REFS, K16)
-    slots = mxe._phase1_slots(_cuda.library(), mx.kp, dev)
-    ranges = mxe.phase1_splits(m_main, mx.rc.shape[1] // mx.tile_n, slots)
-    _log(f"[v9] expansion_phase1 as the drain launched it ({m_main} x 1M k=16, {ranges} "
-         f"range(s), {slots} block slots): kernel {kern_ms_main:.4f} ms ({kern_ms_main * N_QUERIES / m_main:.4f} ms "
-         f"per 10K rows), plain {plain_ms_main:.4f} ms in 10K-row chunks, bound "
-         f"{main_bound[0]:.4f} ms ({main_bound[1]}); {text}")
-    results["expansion_phase1"].insert(0, (err_main, kern_ms_main, plain_ms_main))
-    del drain_phase1, args_main, kern_main, qc_main
+    lib = _cuda.library()
+    slots = {r: mxe._phase1_slots(lib, mx.kp, dev, r, mx.ts) for r in ("wgmma", "mma_sync")}
+    n_tiles = mx.rc.shape[1] // mx.tile_n
+    _log(f"[v9] phase 1 as the drain launched it ({m_main} x 1M k=16, bound "
+         f"{main_bound[0]:.4f} ms ({main_bound[1]}), plain {plain_ms_main:.4f} ms in 10K-row "
+         f"chunks): wgmma {kern_ms_main:.4f} ms ({kern_ms_main * N_QUERIES / m_main:.4f} ms "
+         f"per 10K rows, {mxe.phase1_splits(m_main, n_tiles, slots['wgmma'])} range(s), "
+         f"{slots['wgmma']} block slots; {text}); mma.sync {mma_ms_main:.4f} ms "
+         f"({mma_ms_main * N_QUERIES / m_main:.4f} per 10K rows, "
+         f"{mxe.phase1_splits(m_main, n_tiles, slots['mma_sync'])} range(s), "
+         f"{slots['mma_sync']} block slots; {text_mma})")
+    results["expansion_phase1_wgmma"].insert(0, (err_main, kern_ms_main, plain_ms_main))
+    results["expansion_phase1"].append((err_mma, mma_ms_main, plain_ms_main))
+    del drain_phase1, args_main, args_mma, kern_main, qc_main, mma_main, plain_main
     sub16, dmin16 = oracle16
     _gate("v9 batch 0 (the ladder's 512 rows)", served16[0][sub16], q16_1m[sub16], r16_1m,
           dmin16)
@@ -583,7 +628,8 @@ def main() -> int:
               served_all[pick], allq[pick], r16_1m, dmin_bad)
     # Phase 1's own error on batch 0: |min1 - exact min e| over the gated rows.
     st0 = mx.stage_queries(q16_1m[sub16])
-    min1_0 = phase1(_cat_q(*split_bf16x3(st0.q_dev)), mx.rc, mx.r2h, mx.tile_n, mx.ts)[0]
+    min1_0 = phase1(_cat_q(*split_bf16x3(st0.q_dev)), mx.rc, mx.r2h, mx.tile_n, mx.ts,
+                    rc_t=mx.rc_t)[0]
     q_sub = q16_1m[sub16].astype(np.float64)
     e_exact = 0.5 * (dmin16 - (q_sub ** 2).sum(axis=1))
     # Relative to the delta of these 512 rows, at most the drain's.
@@ -608,12 +654,19 @@ def main() -> int:
     # 9. Results, each kernel at its main path's shape: one 10K batch for
     # the scan, the 8-query fallback bucket for the fused kernel, 1024 x 1M
     # k=3 for the ladder's kernels, the drain's 640K x 1M k=16 launch for
-    # phase 1.
-    bounds = {
-        "cell_scan": cell_bound,
-        "fused_argmin": _fused_bound(8, N_REFS, K),
-        "expansion_phase1": main_bound,
-        **{name: _fused_bound(1024, N_REFS, K) for name in ladder_launches},
+    # the wgmma kernel, and for the mma.sync kernel the v9 path that
+    # dispatches to it, 1024 x 65536 k=128, with its time on the drain's
+    # k=16 launch as a separate yardstick.
+    main_rows = {
+        "cell_scan": (results["cell_scan"][0], cell_bound, "one 10K batch, k=3"),
+        "fused_argmin": (results["fused_argmin"][0], _fused_bound(8, N_REFS, K),
+                         "8 x 1M k=3 (the fallback bucket)"),
+        "expansion_phase1": (mma_row, _phase1_bound(1024, 65536, 128),
+                             "1024 x 65536 k=128 (nns(version=9))"),
+        "expansion_phase1_wgmma": (results["expansion_phase1_wgmma"][0], main_bound,
+                                   f"{m_main} x 1M k=16 (the v9 drain's launch)"),
+        **{name: (results[name][1], _fused_bound(1024, N_REFS, K), "1024 x 1M k=3")
+           for name in ladder_launches},
     }
     kernels = []
     for name, source, replaces in (
@@ -628,19 +681,23 @@ def main() -> int:
         ("two_level", "nns_tpu_torch/csrc/two_level.cu", "nns_tpu/kernels/pallas_fused.py:453"),
         ("expansion_phase1", "nns_tpu_torch/csrc/expansion_phase1.cu",
          "nns_tpu/kernels/mxu_expansion.py:126"),
+        ("expansion_phase1_wgmma", "nns_tpu_torch/csrc/expansion_phase1.cu",
+         "nns_tpu/kernels/mxu_expansion.py:126"),
     ):
-        rows = results[name]
-        main = rows[1] if name in ladder_launches else rows[0]
-        bound_ms, bound_by = bounds[name]
+        main, (bound_ms, bound_by), shape = main_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": ladder_launches.get(name, launches.get(name)),
-            "max_abs_err": max(r[0] for r in rows),
+            "shape": shape, "launches": ladder_launches.get(name, launches.get(name)),
+            "max_abs_err": max(r[0] for r in results[name]),
             "ms": main[1], "plain_ms": main[2],
             # No one PyTorch call computes an argmin of distances or the
             # phase-1 carries.
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+        if name == "expansion_phase1":
+            kernels[-1]["yardstick"] = {
+                "shape": f"{m_main} x 1M k=16 (the v9 drain's launch, forced to this kernel)",
+                "ms": mma_ms_main, "plain_ms": plain_ms_main, "bound_ms": main_bound[0]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

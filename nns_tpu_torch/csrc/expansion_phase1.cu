@@ -1,7 +1,8 @@
 // v9 phase 1: split-bf16 expansion products on the tensor cores, with the
-// six per-row carries of the band certificate.
+// six per-row carries of the band certificate. Two kernels compute it; the
+// host picks one by shape alone (kernels/mxu_expansion.py, phase1_route).
 //
-// Replaces: nns_tpu/kernels/mxu_expansion.py `_phase1_kernel` (launched by
+// Replaces: nns_tpu/kernels/mxu_expansion.py:126 `_phase1_kernel` (launched by
 // `_phase12`): per (query tile, ref tile) one bf16 product of the queries
 // `[qh qh qm qh ql qm]` (m, 6 kp) against `[rh; rm; rh; rl; rh; rm]` built
 // from the split stack rc = [rh; rm; rl] (3 kp, n_pad), f32 accumulation,
@@ -13,30 +14,57 @@
 // products are 2 m n 6 kp = 1.92 TFLOP of bf16 tensor-core work, 1.94 ms at
 // 989 TFLOP/s; the rc stream is 96 MB per sweep, 0.03 ms at 3.35 TB/s if it
 // were read once. rc does not fit the 50 MB L2, so every query tile reads
-// it again: taller query tiles, or ranges that share L2, are the lever for
-// a later version (as are wgmma, TMA and a producer warp).
+// it again from L2 or device memory (about 6 KB per 128 x 64 chunk).
 //
-// Design: grid = (query tiles of kBM = 128 rows, S ranges of whole ref
-// tiles). A block walks the 64-column chunks of its range in ascending
-// order. The contraction is cut into dimension slices: slice s holds dims
-// [d0, d0 + dn) of all six blocks of qc, (128, 6 dn), and the same dims of
-// the three splits of rc, (3 dn, 64) per chunk. When the whole query tile
-// fits beside two rc buffers (kp <= 88 on the H100's 227 KB) there is one
-// slice (dn = kp): the query tile is staged once and stays. Otherwise
-// slices of 32 dims are staged per (chunk, slice) with their query slice,
-// and the accumulators carry across the slices of a chunk, so any kp runs.
-// Each unit (chunk, slice) is copied into one of two shared-memory buffers
-// by cp.async while the 4 warps compute on the other, one barrier per unit.
-// Each warp runs mma.sync m16n8k16 bf16 -> f32 over its 32 rows x 64
-// columns; the A fragments are 32-bit loads from the query slice, the B
-// fragments ldmatrix.trans loads whose row addresses pick split
-// [h, m, h, l, h, m][b] of the staged rc slice for contraction block b (the
-// 6-block partner is never stored). After a chunk's last slice the epilogue
-// forms e = r2h - cross and each row's chunk minimum (a shuffle over the 4
-// lanes that share a row). Subtile minima fold into the tile's (tmin,
-// lowest subtile, runner-up), and at each tile's end into the six carries,
-// with exactly the JAX kernel's update rules. Padded columns have
-// r2h = +inf, so they never win; nothing is masked to 0.
+// Both kernels: grid = (query tiles of kBM = 128 rows, S ranges of whole
+// ref tiles). A block walks the 64-column chunks of its range in ascending
+// order. After each chunk the shared epilogue (chunk_min, end_chunk) forms
+// e = r2h - cross and each row's chunk minimum (a shuffle over the 4 lanes
+// that share a row), folds subtile minima into the tile's (tmin, lowest
+// subtile, runner-up), and at each tile's end updates the six carries with
+// exactly the JAX kernel's rules. Padded columns have r2h = +inf, so they
+// never win; nothing is masked to 0.
+//
+// phase1_kernel (any kp % 8 == 0): mma.sync m16n8k16. The contraction is
+// cut into dimension slices: slice s holds dims [d0, d0 + dn) of all six
+// blocks of qc, (128, 6 dn), and the same dims of the three splits of rc,
+// (3 dn, 64) per chunk. When the whole query tile fits beside two rc
+// buffers (kp <= 88 on the H100's 227 KB) there is one slice (dn = kp): the
+// query tile is staged once and stays. Otherwise slices of 32 dims are
+// staged per (chunk, slice) with their query slice, and the accumulators
+// carry across the slices of a chunk, so any kp runs. Each unit (chunk,
+// slice) is copied into one of two buffers by cp.async while the 4 warps
+// compute on the other, one barrier per unit. Each warp runs mma.sync over
+// its 32 rows x 64 columns; the A fragments are 32-bit loads from the query
+// slice, the B fragments ldmatrix.trans loads whose row addresses pick
+// split [h, m, h, l, h, m][b] of the staged rc slice for contraction block
+// b (the 6-block partner is never stored).
+//
+// phase1_wgmma_kernel (kp % 16 == 0, the query tile resident; the host
+// takes it where it fits): at kp = 16 a 128 x 64 chunk is only 6 k16 steps
+// deep, and phase1_kernel spends it on instruction issue (A and B fragment
+// loads, index arithmetic, the epilogue) and a barrier with one copy in
+// flight: about 1,500 SM cycles a chunk against about 370 at the tensor
+// peak, 24% of the bound. Here two warpgroups own 64 query rows each, and
+// each chunk is 6 kp / 16 wgmma.mma_async m64nNk16 per warpgroup, both
+// operands read from shared memory by descriptor: no fragment loads, and
+// kp is a template parameter, so the contraction loop unrolls. Both
+// operands are K-major in the canonical no-swizzle layout (core matrices
+// of 8 rows x 16 bytes; LBO 128 bytes along K, SBO along M or N): the
+// query tile (128, 6 kp) is staged once, and chunks of rc_t = rc^T
+// (n_pad, 3 kp) go through a ring of kStages buffers, filled by cp.async
+// from all 256 threads. Contraction block b reads split [h, m, h, l, h,
+// m][b] by the B descriptor's start column, so the six-block partner is
+// never stored; kp % 16 == 0 keeps every k16 step inside one block. Chunks
+// are N = 128 columns where ts % 128 == 0 (else 64): per product, A is read
+// from shared memory half as often, and the barrier, waits and copies
+// happen once per 128 columns. The ring has two stages: chunk q + 1 is
+// copied while chunk q is multiplied, and chunk q's epilogue runs after its
+// products (deeper rings and an epilogue overlapped with the next chunk's
+// products measured no faster on the H100; PERF.md). Instances exist for
+// kp = 16 .. 80; larger kp take phase1_kernel. The accumulator fragment of
+// m64nNk16 is, per warp, the C fragment of mma.sync m16n8 per n8 tile, so
+// the epilogue is the one phase1_kernel calls.
 //
 // Blocks run in no order, so each range writes its six carries to an
 // (S, m) scratch and a second kernel merges the ranges of each query in
@@ -64,6 +92,9 @@ constexpr int kNT = kBN / 8;          // n8 tiles per chunk
 constexpr int kRows = 2 * kMT;        // rows each thread keeps state for
 constexpr int kSliceDims = 32;        // dims per slice when the tile cannot stay
 
+constexpr int kWgThreads = 256;       // 2 warpgroups of 64 query rows
+constexpr int kStages = 2;            // ring stages of the wgmma kernel
+
 // Smallest shared-memory row stride >= words with stride % 8 == 4: the 8
 // rows one fragment load touches then fall on distinct banks.
 __host__ __device__ constexpr int pad_stride(int words) {
@@ -79,6 +110,15 @@ __host__ __device__ constexpr int a_bytes(int ds) {
 // half-norms.
 __host__ __device__ constexpr int b_bytes(int ds) {
   return 3 * ds * kBNP * 2 + kBN * 4;
+}
+
+// The wgmma kernel's shared memory: the query tile (kBM, 6 kp) bf16, then
+// kStages ring stages of (bn, 3 kp) rc_t rows and bn half-norms.
+__host__ __device__ constexpr int wg_stage_bytes(int kp, int bn) {
+  return bn * 3 * kp * 2 + bn * 4;
+}
+__host__ __device__ constexpr size_t wg_smem(int kp, int bn) {
+  return (size_t)kBM * 6 * kp * 2 + (size_t)kStages * wg_stage_bytes(kp, bn);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -108,6 +148,127 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// ---------------------------------------------------------------------------
+// The epilogue both kernels share
+// ---------------------------------------------------------------------------
+
+// The carries of one range for R query rows per thread, and the running
+// state of the current tile (tmin, its lowest subtile sarg, the minimum
+// smin2 over its other subtiles) and subtile (smin).
+template <int R>
+struct RowState {
+  float min1[R], m2x[R], t2v[R], t3v[R];
+  float tmin[R], smin2[R], smin[R];
+  int tid[R], tid2[R], sarg[R];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      min1[r] = m2x[r] = t2v[r] = t3v[r] = CUDART_INF_F;
+      tmin[r] = smin2[r] = smin[r] = CUDART_INF_F;
+      tid[r] = tid2[r] = sarg[r] = 0;
+    }
+  }
+
+  // Subtile c done: the lowest subtile achieving the tile minimum, and the
+  // minimum over the other subtiles.
+  __device__ __forceinline__ void end_subtile(int c) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (smin[r] < tmin[r]) {
+        smin2[r] = fminf(smin2[r], tmin[r]);
+        tmin[r] = smin[r];
+        sarg[r] = c;
+      } else {
+        smin2[r] = fminf(smin2[r], smin[r]);
+      }
+      smin[r] = CUDART_INF_F;
+    }
+  }
+
+  // Tile j (of ns subtiles) done: the JAX kernel's carry update, term for
+  // term.
+  __device__ __forceinline__ void end_tile(int j, int ns) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool b1 = tmin[r] < min1[r];
+      const bool b2 = !b1 && tmin[r] < t2v[r];
+      const float n2v = b1 ? min1[r] : (b2 ? tmin[r] : t2v[r]);
+      const int nid2 = b1 ? tid[r] / ns : (b2 ? j : tid2[r]);
+      const float n3v = (b1 || b2) ? t2v[r] : fminf(t3v[r], tmin[r]);
+      m2x[r] = b1 ? fminf(min1[r], smin2[r]) : fminf(m2x[r], tmin[r]);
+      if (b1) {
+        min1[r] = tmin[r];
+        tid[r] = j * ns + sarg[r];
+      }
+      t2v[r] = n2v;
+      tid2[r] = nid2;
+      t3v[r] = n3v;
+      tmin[r] = smin2[r] = CUDART_INF_F;
+      sarg[r] = 0;
+    }
+  }
+
+  // Row r's carries into range `split` of the (S, m) scratch planes.
+  __device__ __forceinline__ void store(int r, int split, int splits, int m, int row,
+                                        float* __restrict__ part_f,
+                                        int* __restrict__ part_i) const {
+    const long long at = (long long)split * m + row;
+    const long long plane = (long long)splits * m;
+    part_f[at] = min1[r];
+    part_f[plane + at] = m2x[r];
+    part_f[2 * plane + at] = t2v[r];
+    part_f[3 * plane + at] = t3v[r];
+    part_i[at] = tid[r];
+    part_i[plane + at] = tid2[r];
+  }
+};
+
+// e = r2h - cross over one 16-row fragment of a chunk: rows g and g + 8,
+// columns 8 nt + 2 t + {0, 1}, as mma.sync m16n8 hands out its C fragment
+// per n8 tile and wgmma m64nNk16 per warp. Each row's chunk minimum joins
+// its subtile's in st.smin[r0 + h].
+template <int NT, int R>
+__device__ __forceinline__ void chunk_min(const float (&acc)[NT][4], const float* r2c, int t,
+                                          RowState<R>& st, int r0) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float v = CUDART_INF_F;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        v = fminf(v, __fsub_rn(r2c[nt * 8 + 2 * t + e], acc[nt][2 * h + e]));
+      }
+    }
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    st.smin[r0 + h] = fminf(st.smin[r0 + h], v);
+  }
+}
+
+// Where a block's walk over its chunks stands: tile j, subtile c of it, k
+// chunks of that subtile done.
+struct Walk {
+  int j, c, k;
+};
+
+// After a chunk's chunk_min: close its subtile and tile where they end
+// (cps chunks a subtile, ns subtiles a tile), stepping without dividing.
+template <int R>
+__device__ __forceinline__ void end_chunk(RowState<R>& st, Walk& w, int cps, int ns) {
+  if (++w.k < cps) return;
+  w.k = 0;
+  st.end_subtile(w.c);
+  if (++w.c < ns) return;
+  w.c = 0;
+  st.end_tile(w.j++, ns);
+}
+
+// ---------------------------------------------------------------------------
+// phase1_kernel: mma.sync, any kp % 8 == 0
+// ---------------------------------------------------------------------------
 
 // Copy dims [d0, d0 + dn) of the six blocks of query rows q0.. of qc into a
 // (kBM, 6 dn) slice with row stride sA words, zeros past row m, 16 bytes
@@ -198,26 +359,19 @@ phase1_kernel(const uint16_t* __restrict__ qc, const uint16_t* __restrict__ rc,
   }
 
   // Per-row state of rows warp*32 + mt*16 + h*8 + g, index mt*2 + h.
-  float min1[kRows], m2x[kRows], t2v[kRows], t3v[kRows];
-  float tmin[kRows], smin2[kRows], smin[kRows];
-  int tid[kRows], tid2[kRows], sarg[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    min1[r] = m2x[r] = t2v[r] = t3v[r] = CUDART_INF_F;
-    tmin[r] = smin2[r] = smin[r] = CUDART_INF_F;
-    tid[r] = tid2[r] = sarg[r] = 0;
-  }
-
+  RowState<kRows> st;
+  st.init();
+  Walk walk{j0, 0, 0};
   const int ns = tile_n / ts;
   float acc[kMT][kNT][4];
   int q_next = 0, s_next = 0;  // unit u + 1, stepped without dividing
   for (int u = 0; u < nu; ++u) {
-    const int q = q_next, s = s_next;
+    const int s = s_next;
     if (s + 1 < nsl) {
       s_next = s + 1;
     } else {
       s_next = 0;
-      q_next = q + 1;
+      ++q_next;
     }
     // Unit u has landed for every thread, and every warp is done with the
     // buffer unit u + 1 is about to fill.
@@ -280,60 +434,9 @@ phase1_kernel(const uint16_t* __restrict__ qc, const uint16_t* __restrict__ rc,
     }
     if (s + 1 < nsl) continue;  // the chunk's cross terms are not complete
 
-    // e = r2h - cross; each row's chunk minimum joins its subtile's.
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v = CUDART_INF_F;
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            v = fminf(v, __fsub_rn(r2c[nt * 8 + 2 * t + e], acc[mt][nt][2 * h + e]));
-          }
-        }
-        v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-        v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-        smin[mt * 2 + h] = fminf(smin[mt * 2 + h], v);
-      }
-    }
-    if ((q + 1) % cps) continue;
-    // Subtile c done: the lowest subtile achieving the tile minimum, and
-    // the minimum over the other subtiles.
-    const int c = (q % cpt) / cps;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (smin[r] < tmin[r]) {
-        smin2[r] = fminf(smin2[r], tmin[r]);
-        tmin[r] = smin[r];
-        sarg[r] = c;
-      } else {
-        smin2[r] = fminf(smin2[r], smin[r]);
-      }
-      smin[r] = CUDART_INF_F;
-    }
-    if ((q + 1) % cpt) continue;
-    // Tile j done: the JAX kernel's carry update, term for term.
-    const int j = j0 + q / cpt;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool b1 = tmin[r] < min1[r];
-      const bool b2 = !b1 && tmin[r] < t2v[r];
-      const float n2v = b1 ? min1[r] : (b2 ? tmin[r] : t2v[r]);
-      const int nid2 = b1 ? tid[r] / ns : (b2 ? j : tid2[r]);
-      const float n3v = (b1 || b2) ? t2v[r] : fminf(t3v[r], tmin[r]);
-      m2x[r] = b1 ? fminf(min1[r], smin2[r]) : fminf(m2x[r], tmin[r]);
-      if (b1) {
-        min1[r] = tmin[r];
-        tid[r] = j * ns + sarg[r];
-      }
-      t2v[r] = n2v;
-      tid2[r] = nid2;
-      t3v[r] = n3v;
-      tmin[r] = smin2[r] = CUDART_INF_F;
-      sarg[r] = 0;
-    }
+    for (int mt = 0; mt < kMT; ++mt) chunk_min(acc[mt], r2c, t, st, mt * 2);
+    end_chunk(st, walk, cps, ns);
   }
 
   if (t != 0) return;  // the 4 lanes of a row group hold the same state
@@ -341,20 +444,223 @@ phase1_kernel(const uint16_t* __restrict__ qc, const uint16_t* __restrict__ rc,
   for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int r = mt * 2 + h;
       const int row = q0 + warp * 32 + mt * 16 + h * 8 + g;
-      if (row >= m) continue;
-      const long long at = (long long)split * m + row;
-      const long long plane = (long long)splits * m;
-      part_f[at] = min1[r];
-      part_f[plane + at] = m2x[r];
-      part_f[2 * plane + at] = t2v[r];
-      part_f[3 * plane + at] = t3v[r];
-      part_i[at] = tid[r];
-      part_i[plane + at] = tid2[r];
+      if (row < m) st.store(mt * 2 + h, split, splits, m, row, part_f, part_i);
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// phase1_wgmma_kernel: wgmma, kp % 16 == 0, the query tile resident
+// ---------------------------------------------------------------------------
+
+// Byte offset of element (row, col) of a K-major (rows, kc) bf16 tile in
+// the canonical no-swizzle layout: core matrices of 8 rows x 16 bytes
+// stored whole, 128 bytes apart along K (LBO) and 16 kc bytes apart along
+// M or N (SBO).
+__device__ __forceinline__ int core_offset(int row, int col, int kc) {
+  return (row >> 3) * (kc >> 3) * 128 + (col >> 3) * 128 + (row & 7) * 16 + (col & 7) * 2;
+}
+
+// Descriptor of such a tile at shared address addr, SBO sbo bytes. Adding
+// c to it moves the start c columns along K (c % 8 == 0: 16 c bytes, c in
+// 16-byte units).
+__device__ __forceinline__ uint64_t smem_desc(unsigned addr, int sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// Copy rows [0, rows) of a row-major (., kc) bf16 source into that layout
+// at dst, zeros from row `valid` on. Warp w takes 8-row groups w, w + 8,
+// ...; lane (r8 = lane % 8, s = lane / 8) copies 16-byte segments s, s + 4,
+// ... of row r8: each instruction reads 8 rows x 64 contiguous bytes of
+// the source and writes 8 distinct bank groups per 8 lanes.
+__device__ __forceinline__ void stage_canonical(const uint16_t* __restrict__ src, int rows,
+                                                int valid, int kc, unsigned char* dst) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r8 = lane & 7, s0 = lane >> 3;
+  const int segs = kc >> 3;
+  for (int grp = warp; grp < rows / 8; grp += kWgThreads / nns::kWarp) {
+    const int row = grp * 8 + r8;
+    const bool ok = row < valid;
+    const uint16_t* s = ok ? src + (long long)row * kc : src;
+    unsigned char* d = dst + grp * segs * 128 + r8 * 16;
+    for (int seg = s0; seg < segs; seg += 4) cp_async16(d + seg * 128, ok ? s + seg * 8 : src, ok);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin the accumulators in place across wgmma issue and wait: the compiler
+// may not move their reads or writes past this point.
+template <int NT>
+__device__ __forceinline__ void fence_acc(float (&d)[NT][4]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+// d (+)= A B^T for the warpgroup's 64 rows x 8 NT columns x 16, A and B
+// K-major in shared memory by descriptor; scale-d = accumulate (0: d = AB).
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Shared memory: the query tile (kBM, 6 kp), then kStages ring stages, each
+// [(BN, 3 kp) rows of rc_t][BN half-norms]; both tiles in the canonical
+// layout. KP16 = kp / 16; BN ref columns a chunk.
+template <int KP16, int BN>
+__global__ void __launch_bounds__(kWgThreads, 2)
+phase1_wgmma_kernel(const uint16_t* __restrict__ qc, const uint16_t* __restrict__ rc_t,
+                    const float* __restrict__ r2h, int m, long long n_pad, int tile_n, int ts,
+                    int tiles_per_split, int splits, float* __restrict__ part_f,
+                    int* __restrict__ part_i) {
+  constexpr int kp = 16 * KP16, kc_a = 6 * kp, kc_b = 3 * kp;
+  constexpr int stage_bytes = wg_stage_bytes(kp, BN);
+  constexpr int NT = BN / 8;                       // n8 tiles of a chunk
+  extern __shared__ __align__(128) unsigned char wsmem[];
+  unsigned char* ring = wsmem + kBM * kc_a * 2;
+  const int q0 = blockIdx.x * kBM;
+  const int split = blockIdx.y;
+  const int wg = threadIdx.x >> 7;                 // warpgroup: rows 64 wg ..
+  const int warp = (threadIdx.x >> 5) & 3;         // warp in it: 16 rows
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  const int n_tiles = (int)(n_pad / tile_n);
+  const int j0 = split * tiles_per_split;
+  const int j1 = min(n_tiles, j0 + tiles_per_split);
+  const int nq = max(0, (j1 - j0) * (tile_n / BN));
+  const long long col_base = (long long)j0 * tile_n;
+
+  // Chunk q into its ring stage, as one commit group (empty past nq, so
+  // that the group count stays one per chunk).
+  auto stage_chunk = [&](int q) {
+    if (q < nq) {
+      unsigned char* dst = ring + (q % kStages) * stage_bytes;
+      const long long col0 = col_base + (long long)q * BN;
+      stage_canonical(rc_t + col0 * kc_b, BN, BN, kc_b, dst);
+      if (threadIdx.x < BN / 4)
+        cp_async16(dst + BN * kc_b * 2 + threadIdx.x * 16, r2h + col0 + threadIdx.x * 4);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  stage_canonical(qc + (long long)q0 * kc_a, kBM, m - q0, kc_a, wsmem);  // lands with chunk 0
+  stage_chunk(0);
+
+  const uint64_t da0 = smem_desc(smem_addr(wsmem) + wg * 64 * kc_a * 2, 16 * kc_a);
+  const unsigned ring_addr = smem_addr(ring);
+  RowState<2> st;  // rows 64 wg + 16 warp + 8 h + g, index h
+  st.init();
+  Walk walk{j0, 0, 0};
+  const int cps = ts / BN, ns = tile_n / ts;
+  float acc[NT][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  for (int q = 0; q < nq; ++q) {
+    // Chunk q has landed. Each thread's copies become visible to wgmma's
+    // async proxy, and the barrier makes them everyone's; no warp still
+    // reads the stage that chunk q + 1 refills.
+    cp_async_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    stage_chunk(q + 1);
+    // Contraction block b, k16 step kk reads columns b kp + kk of the query
+    // tile and split(b) kp + kk of the chunk.
+    const int stage = (q % kStages) * stage_bytes;
+    const uint64_t db0 = smem_desc(ring_addr + stage, 16 * kc_b);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int b = 0; b < 6; ++b) {
+#pragma unroll
+      for (int kk = 0; kk < kp; kk += 16) {
+        wgmma_ss(acc, da0 + (b * kp + kk), db0 + ((b == 3 ? 2 : (b & 1)) * kp + kk),
+                 b > 0 || kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    chunk_min(acc, reinterpret_cast<const float*>(ring + stage + BN * kc_b * 2), t, st, 0);
+    end_chunk(st, walk, cps, ns);
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  if (t != 0) return;  // the 4 lanes of a row group hold the same state
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wg * 64 + warp * 16 + h * 8 + g;
+    if (row < m) st.store(h, split, splits, m, row, part_f, part_i);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The merge, and the host side
+// ---------------------------------------------------------------------------
 
 // One thread per query: fold its S range states in ascending order.
 __global__ void phase1_merge_kernel(const float* __restrict__ part_f,
@@ -410,6 +716,13 @@ __global__ void phase1_merge_kernel(const float* __restrict__ part_f,
   out_i[m + row] = tid2;
 }
 
+cudaError_t smem_optin(int* bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  return cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
 // Slicing of the contraction for kp: one slice of all kp dims when the
 // query tile fits beside two unit buffers in the card's shared memory,
 // else slices of kSliceDims dims, each unit staging its query slice too.
@@ -419,10 +732,8 @@ struct Plan {
 };
 
 cudaError_t plan_for(int kp, Plan* plan) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int optin = 0;
+  cudaError_t e = smem_optin(&optin);
   if (e != cudaSuccess) return e;
   const size_t resident = (size_t)a_bytes(kp) + 2 * (size_t)b_bytes(kp);
   if (resident <= (size_t)optin) {
@@ -434,7 +745,57 @@ cudaError_t plan_for(int kp, Plan* plan) {
   return nns::allow_smem(phase1_kernel, plan->smem);
 }
 
+// phase1_wgmma_kernel's instance for kp and ts, with its chunk width bn
+// (128 columns where ts allows, else 64) and shared memory, requested from
+// the card; or cudaErrorInvalidValue where the kernel does not take them:
+// kp % 16 != 0 or past 80 (the instances), ts % 64 != 0, or the query
+// tile and ring past the card's opt-in shared memory. mxu_expansion.phase1_route
+// states the same rule on the host (a GPU test holds the two together).
+using WgmmaKernel = void (*)(const uint16_t*, const uint16_t*, const float*, int, long long,
+                             int, int, int, int, float*, int*);
+
+struct WgmmaPlan {
+  WgmmaKernel kernel;
+  size_t smem;
+};
+
+template <int BN>
+WgmmaKernel wgmma_instance(int kp16) {
+  switch (kp16) {
+    case 1: return phase1_wgmma_kernel<1, BN>;
+    case 2: return phase1_wgmma_kernel<2, BN>;
+    case 3: return phase1_wgmma_kernel<3, BN>;
+    case 4: return phase1_wgmma_kernel<4, BN>;
+    case 5: return phase1_wgmma_kernel<5, BN>;
+    default: return nullptr;
+  }
+}
+
+cudaError_t wgmma_setup(int kp, int ts, WgmmaPlan* plan) {
+  int optin = 0;
+  cudaError_t e = smem_optin(&optin);
+  if (e != cudaSuccess) return e;
+  const int bn = ts % 128 == 0 ? 128 : 64;
+  plan->kernel = bn == 128 ? wgmma_instance<128>(kp / 16) : wgmma_instance<64>(kp / 16);
+  plan->smem = wg_smem(kp, bn);
+  if (kp % 16 || plan->kernel == nullptr || ts % bn || plan->smem > (size_t)optin)
+    return cudaErrorInvalidValue;
+  return nns::allow_smem(plan->kernel, plan->smem);
+}
+
+cudaError_t launch_merge(const float* part_f, const int* part_i, int m, int splits, int ns,
+                         float* out_f, int* out_i, cudaStream_t st) {
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  phase1_merge_kernel<<<(m + 255) / 256, 256, 0, st>>>(part_f, part_i, m, splits, ns, out_f,
+                                                       out_i);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The card's opt-in shared memory per block, in bytes, into *bytes.
+extern "C" int nns_smem_optin(int* bytes) { return (int)smem_optin(bytes); }
 
 // Blocks of phase1_kernel that fit on one SM at kp (registers and shared
 // memory), into *blocks. Returns a CUDA error code.
@@ -444,6 +805,16 @@ extern "C" int nns_expansion_phase1_blocks_per_sm(int kp, int* blocks) {
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, phase1_kernel,
                                                             kThreads, plan.smem);
+}
+
+// The same for phase1_wgmma_kernel at kp and ts (cudaErrorInvalidValue
+// where it does not take them).
+extern "C" int nns_expansion_phase1_wgmma_blocks_per_sm(int kp, int ts, int* blocks) {
+  WgmmaPlan plan;
+  cudaError_t e = wgmma_setup(kp, ts, &plan);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, plan.kernel, kWgThreads,
+                                                            plan.smem);
 }
 
 // qc: (m, 6 kp) bf16 row-major; rc: (3 kp, n_pad) bf16 row-major; r2h:
@@ -467,9 +838,25 @@ extern "C" int nns_expansion_phase1(const uint16_t* qc, const uint16_t* rc,
   phase1_kernel<<<grid, kThreads, plan.smem, st>>>(qc, rc, r2h, m, kp, plan.ds, plan.nsl,
                                                    n_pad, tile_n, ts, tiles_per_split,
                                                    splits, part_f, part_i);
-  e = cudaGetLastError();
+  return (int)launch_merge(part_f, part_i, m, splits, tile_n / ts, out_f, out_i, st);
+}
+
+// As nns_expansion_phase1, on phase1_wgmma_kernel: rc_t is (n_pad, 3 kp)
+// bf16 row-major (rc transposed), kp % 16 == 0, and the query tile plus
+// the ring must fit the card's opt-in shared memory (else
+// cudaErrorInvalidValue, and nothing is launched). Chunks are 128 columns
+// where ts % 128 == 0, else 64.
+extern "C" int nns_expansion_phase1_wgmma(const uint16_t* qc, const uint16_t* rc_t,
+                                          const float* r2h, int m, int kp, long long n_pad,
+                                          int tile_n, int ts, int tiles_per_split, int splits,
+                                          float* part_f, int* part_i, float* out_f, int* out_i,
+                                          void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  WgmmaPlan plan;
+  cudaError_t e = wgmma_setup(kp, ts, &plan);
   if (e != cudaSuccess) return (int)e;
-  phase1_merge_kernel<<<(m + 255) / 256, 256, 0, st>>>(part_f, part_i, m, splits,
-                                                       tile_n / ts, out_f, out_i);
-  return (int)cudaGetLastError();
+  const dim3 grid((m + kBM - 1) / kBM, splits);
+  plan.kernel<<<grid, kWgThreads, plan.smem, st>>>(qc, rc_t, r2h, m, n_pad, tile_n, ts,
+                                                    tiles_per_split, splits, part_f, part_i);
+  return (int)launch_merge(part_f, part_i, m, splits, tile_n / ts, out_f, out_i, st);
 }

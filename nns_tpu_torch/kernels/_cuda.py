@@ -38,10 +38,12 @@ _lib: ctypes.CDLL | None = None
 
 # Launch counts per kernel wrapper: each wrapper adds one right after its
 # kernel launch succeeds, and nowhere else. The plain CPU path never counts.
+# "expansion_phase1" counts every phase-1 launch, "expansion_phase1_wgmma"
+# those of the wgmma kernel among them.
 LAUNCHES: dict[str, int] = {
     "fused_argmin": 0, "cell_scan": 0, "fused_point_major": 0,
     "fused_streaming": 0, "fused_queries_resident": 0, "two_level": 0,
-    "expansion_phase1": 0,
+    "expansion_phase1": 0, "expansion_phase1_wgmma": 0,
 }
 
 
@@ -122,6 +124,7 @@ def library() -> ctypes.CDLL:
         except OSError as e:
             raise RuntimeError(f"cannot load {path}: {e}") from e
         vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        phase1 = [vp, vp, vp, ci, ci, cll, ci, ci, ci, ci, vp, vp, vp, vp, vp]
         for name, argtypes in (
             ("nns_fused_argmin", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp, vp, vp]),
             ("nns_cell_scan", [vp, vp, vp, ci, ci, ci, cf, vp, vp, vp]),
@@ -129,9 +132,11 @@ def library() -> ctypes.CDLL:
             ("nns_fused_streaming", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp, vp, vp]),
             ("nns_fused_queries_resident", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp, vp, vp]),
             ("nns_two_level", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp]),
-            ("nns_expansion_phase1",
-             [vp, vp, vp, ci, ci, cll, ci, ci, ci, ci, vp, vp, vp, vp, vp]),
+            ("nns_expansion_phase1", phase1),
+            ("nns_expansion_phase1_wgmma", phase1),
             ("nns_expansion_phase1_blocks_per_sm", [ci, vp]),
+            ("nns_expansion_phase1_wgmma_blocks_per_sm", [ci, ci, vp]),
+            ("nns_smem_optin", [vp]),
         ):
             fn = getattr(lib, name)
             fn.argtypes = argtypes

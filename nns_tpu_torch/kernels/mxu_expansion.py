@@ -7,8 +7,8 @@ certificate and an exact refine. Counterpart of
    six products ``hh + hm + mh + hl + lh + mm``, one contraction of depth
    ``6 kp``: queries ``[qh qh qm qh ql qm]`` (``_cat_q``) against the ref
    splits stored once as ``[rh; rm; rl]`` (``_stack_r``).
-2. Phase 1 (``phase1``, the kernel ``csrc/expansion_phase1.cu``) scans every
-   reference tile with bf16 tensor-core products accumulated in f32, forms
+2. Phase 1 (``phase1``, the kernels of ``csrc/expansion_phase1.cu``) scans
+   every reference tile with bf16 tensor-core products accumulated in f32, forms
    ``e = |r|^2/2 - q.r`` and keeps per row the winning ``ts``-column
    subtile (``min1``, ``tid``), the runner-up outside it (``m2x``), and the
    tile-level top 3 (``t2v``, ``tid2``, ``t3v``) that feeds the band refine.
@@ -70,10 +70,15 @@ _SUBLANE = 8
 # folded in by the caller.
 _DELTA_REL_PER_K = 2.0 ** -21
 
-# Query rows per block and columns per chunk of the CUDA kernel (kBM, kBN
-# in csrc/expansion_phase1.cu).
+# Query rows per block and columns per chunk of both CUDA kernels (kBM,
+# kBN in csrc/expansion_phase1.cu).
 _KERNEL_BM = 128
 _KERNEL_BN = 64
+# The wgmma kernel's ring stages (kStages), contraction step, and largest
+# kp (its instances in wgmma_instance).
+_WGMMA_STAGES = 2
+_WGMMA_K = 16
+_WGMMA_MAX_KP = 80
 # Split rows of rc feeding the six blocks of the contraction: [h, m, h, l, h, m].
 _SPLIT_OF_BLOCK = (0, 1, 0, 2, 0, 1)
 # Rows of a phase-2 or band-refine gather step: ~2^21 gathered points.
@@ -183,54 +188,134 @@ def phase1_splits(m: int, n_tiles: int, slots: int) -> int:
     return max(1, min(slots // q_tiles, n_tiles))
 
 
-def _phase1_slots(lib, kp: int, dev) -> int:
+def wgmma_chunk(ts: int) -> int:
+    """Ref columns per chunk of the wgmma kernel: 128 where ts allows, else
+    64 (wgmma_setup in csrc/expansion_phase1.cu)."""
+    return 128 if ts % 128 == 0 else _KERNEL_BN
+
+
+def wgmma_smem_bytes(kp: int, ts: int) -> int:
+    """Shared memory of the wgmma kernel at kp and ts (wg_smem in
+    csrc/expansion_phase1.cu): the resident (128, 6 kp) bf16 query tile and
+    a ring of stages, each ``wgmma_chunk(ts)`` bf16 rows of ``rc_t`` (3 kp
+    wide) and their f32 half-norms."""
+    bn = wgmma_chunk(ts)
+    return _KERNEL_BM * 6 * kp * 2 + _WGMMA_STAGES * (bn * 3 * kp * 2 + bn * 4)
+
+
+def phase1_route(kp: int, ts: int, smem_optin: int) -> str:
+    """The phase-1 kernel for these shapes, by shape alone: ``"wgmma"``
+    (``phase1_wgmma_kernel``) when ``kp % 16 == 0``, ``kp <= 80``, ``ts %
+    64 == 0`` and the resident query tile plus the ring fit the card's
+    opt-in shared memory per block, ``smem_optin`` bytes; else
+    ``"mma_sync"`` (``phase1_kernel``, any kp, in dimension slices past kp
+    = 88). ``wgmma_setup`` in csrc/expansion_phase1.cu refuses exactly the
+    shapes sent elsewhere."""
+    if (kp % _WGMMA_K == 0 and kp <= _WGMMA_MAX_KP and ts % _KERNEL_BN == 0
+            and wgmma_smem_bytes(kp, ts) <= smem_optin):
+        return "wgmma"
+    return "mma_sync"
+
+
+def device_route(kp: int, ts: int, device) -> str:
+    """The kernel phase 1 runs on ``device``: ``phase1_route`` on a CUDA
+    card's opt-in shared memory, ``"plain"`` (``phase1_plain``) on the
+    CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "plain"
+    lib = _cuda.library()
+    with torch.cuda.device(device):
+        return phase1_route(kp, ts, _smem_optin(lib))
+
+
+def _smem_optin(lib) -> int:
+    optin = ctypes.c_int()
+    _cuda.check(lib, lib.nns_smem_optin(ctypes.byref(optin)), "expansion_phase1")
+    return optin.value
+
+
+def _phase1_slots(lib, kp: int, dev, route: str, ts: int) -> int:
+    """Resident blocks of the ``route`` kernel per SM at kp (and, for the
+    wgmma kernel, ts), times SMs."""
     per_sm = ctypes.c_int()
-    _cuda.check(lib, lib.nns_expansion_phase1_blocks_per_sm(kp, ctypes.byref(per_sm)),
-                "expansion_phase1")
+    if route == "wgmma":
+        rc = lib.nns_expansion_phase1_wgmma_blocks_per_sm(kp, ts, ctypes.byref(per_sm))
+    else:
+        rc = lib.nns_expansion_phase1_blocks_per_sm(kp, ctypes.byref(per_sm))
+    _cuda.check(lib, rc, "expansion_phase1")
     return per_sm.value * n_sm(dev)
 
 
-def _phase1_cuda(qc, rc, r2h, tile_n, ts):
+def _phase1_cuda(qc, rc, r2h, tile_n, ts, rc_t, route):
+    """Launch the ``route`` kernel ("wgmma" or "mma_sync") and the range
+    merge. The wgmma kernel reads ``rc_t`` (n_pad, 3 kp), the mma.sync
+    kernel ``rc`` (3 kp, n_pad); the one read must be contiguous, the other
+    is not used."""
     m, kp, n_pad = qc.shape[0], qc.shape[1] // 6, rc.shape[1]
     if ts % _KERNEL_BN or kp % _SUBLANE:
         raise ValueError(f"expansion_phase1 needs ts % {_KERNEL_BN} == 0 and kp % "
                          f"{_SUBLANE} == 0, got ts={ts}, kp={kp}")
-    if qc.data_ptr() % 16 or rc.data_ptr() % 16 or r2h.data_ptr() % 16:
-        raise ValueError("expansion_phase1 needs qc, rc and r2h on 16-byte aligned bases "
-                         "(16-byte cp.async)")
+    lib = _cuda.library()
+    if route == "wgmma":
+        if rc_t is None or tuple(rc_t.shape) != (n_pad, 3 * kp) \
+                or rc_t.dtype != torch.bfloat16 or not rc_t.is_contiguous() \
+                or rc_t.device != qc.device:
+            raise ValueError(f"the wgmma kernel reads rc_t, the contiguous bf16 (n_pad, 3 kp) "
+                             f"= {(n_pad, 3 * kp)} transpose of rc on {qc.device} "
+                             f"(MXUExpansion keeps it)")
+        refs, entry = rc_t, lib.nns_expansion_phase1_wgmma
+    elif route == "mma_sync":
+        if not rc.is_contiguous():
+            raise ValueError("the mma.sync kernel reads rc, which must be contiguous")
+        refs, entry = rc, lib.nns_expansion_phase1
+    else:
+        raise ValueError(f"unknown phase-1 route {route!r}")
+    if qc.data_ptr() % 16 or refs.data_ptr() % 16 or r2h.data_ptr() % 16:
+        raise ValueError("expansion_phase1 needs qc, rc (rc_t) and r2h on 16-byte aligned "
+                         "bases (16-byte cp.async)")
     dev = qc.device
     n_tiles = n_pad // tile_n
-    lib = _cuda.library()
     with torch.cuda.device(dev):
-        per = -(-n_tiles // phase1_splits(m, n_tiles, _phase1_slots(lib, kp, dev)))
+        slots = _phase1_slots(lib, kp, dev, route, ts)
+        per = -(-n_tiles // phase1_splits(m, n_tiles, slots))
         splits = -(-n_tiles // per)
         part_f = torch.empty((4, splits, m), dtype=torch.float32, device=dev)
         part_i = torch.empty((2, splits, m), dtype=torch.int32, device=dev)
         out_f, out_i = _empty_carries(m, dev)
-        rc_ = lib.nns_expansion_phase1(
-            qc.data_ptr(), rc.data_ptr(), r2h.data_ptr(), m, kp, n_pad, tile_n, ts,
+        rc_ = entry(
+            qc.data_ptr(), refs.data_ptr(), r2h.data_ptr(), m, kp, n_pad, tile_n, ts,
             per, splits, part_f.data_ptr(), part_i.data_ptr(), out_f.data_ptr(),
             out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(lib, rc_, "expansion_phase1")
     _cuda.LAUNCHES["expansion_phase1"] += 1
+    if route == "wgmma":
+        _cuda.LAUNCHES["expansion_phase1_wgmma"] += 1
     return _carries(out_f, out_i)
 
 
-def phase1(qc: torch.Tensor, rc: torch.Tensor, r2h: torch.Tensor, tile_n: int, ts: int):
+def phase1(qc: torch.Tensor, rc: torch.Tensor, r2h: torch.Tensor, tile_n: int, ts: int,
+           rc_t: torch.Tensor | None = None):
     """Phase 1 of v9: (min1, tid, m2x, t2v, tid2, t3v), each (m,), for the
     (m, 6 kp) bf16 queries ``qc`` (``_cat_q`` layout) against the (3 kp,
     n_pad) bf16 split stack ``rc`` and the (n_pad,) or (1, n_pad) f32
     half-norms ``r2h``. CPU tensors take ``phase1_plain``; CUDA tensors
-    launch csrc/expansion_phase1.cu (or raise RuntimeError) and count it in
-    ``_cuda.LAUNCHES["expansion_phase1"]``."""
-    m, _, _ = _check_phase1(qc, rc, r2h, tile_n, ts)
+    launch the kernel ``device_route`` picks in csrc/expansion_phase1.cu
+    (or raise RuntimeError), counted in ``_cuda.LAUNCHES["expansion_phase1"]``
+    and, for the wgmma kernel, also ``["expansion_phase1_wgmma"]``. That
+    kernel reads ``rc_t``, the contiguous (n_pad, 3 kp) transpose of rc,
+    which the caller must pass on that route (``MXUExpansion.rc_t``); ``rc``
+    may then be any view of the same values."""
+    m, kp, _ = _check_phase1(qc, rc, r2h, tile_n, ts)
     if qc.device.type == "cpu":
         return phase1_plain(qc, rc, r2h, tile_n, ts)
     if qc.device.type != "cuda":
         raise ValueError(f"unsupported device {qc.device}")
     if m == 0:
         return _carries(*_empty_carries(0, qc.device))
-    return _phase1_cuda(qc.contiguous(), rc.contiguous(), r2h.contiguous(), tile_n, ts)
+    route = device_route(kp, ts, qc.device)
+    return _phase1_cuda(qc.contiguous(), rc.contiguous() if route == "mma_sync" else rc,
+                        r2h.contiguous(), tile_n, ts, rc_t, route)
 
 
 def _sq_dist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -270,13 +355,13 @@ def _pad_k(q: torch.Tensor, kp: int) -> torch.Tensor:
     return q if q.shape[1] == kp else torch.nn.functional.pad(q, (0, kp - q.shape[1]))
 
 
-def _phase12(q, rc, r2h, refs_t, r2h_t, delta, tile_n, ts):
+def _phase12(q, rc, rc_t, r2h, refs_t, r2h_t, delta, tile_n, ts):
     """k-pad + split + phase 1 + chunked phase 2 + certificate, for (m, kp)
     f32 queries ``q``. Returns per row (min1 f32, idx i32, cert bool) and
     the band feed (tid2 i32, t3v f32), each (m,)."""
     m, kp = q.shape
     qc = _cat_q(*split_bf16x3(q))
-    _, tid, m2x, _, tid2, t3v = phase1(qc, rc, r2h, tile_n, ts)
+    _, tid, m2x, _, tid2, t3v = phase1(qc, rc, r2h, tile_n, ts, rc_t=rc_t)
     # Phase 2 in chunks of ~2^21 gathered points, for concatenated queues.
     mc = max(_SUBLANE, (_GATHER_POINTS // ts) // _SUBLANE * _SUBLANE)
     outs = [_phase2_chunk(q[lo:lo + mc], tid[lo:lo + mc], m2x[lo:lo + mc],
@@ -341,10 +426,13 @@ class StagedQueries:
 
 class MXUExpansion:
     """Prepare-once / query-many engine for v9. Staging, on ``device``: the
-    (3 kp, n_pad) bf16 split stack ``rc``, the (1, n_pad) f32 half-norms
-    ``r2h`` (+inf past n), and for phase 2 the zero-padded f32 refs
-    ``refs_t`` (n_sub, ts, kp) with their half-norms ``r2h_t`` (n_sub, ts).
-    The CUDA kernel picks its own query tile, so there is no ``tile_m``."""
+    bf16 split stack in the layout its phase-1 route reads (``route``, from
+    ``device_route``): ``rc_t`` (n_pad, 3 kp) for the wgmma kernel, else
+    ``rc`` (3 kp, n_pad), with the other a view of it (``rc`` is then
+    ``rc_t.t()``, and ``rc_t`` None); the (1, n_pad) f32 half-norms ``r2h``
+    (+inf past n); and for phase 2 the zero-padded f32 refs ``refs_t``
+    (n_sub, ts, kp) with their half-norms ``r2h_t`` (n_sub, ts). The CUDA
+    kernel picks its own query tile, so there is no ``tile_m``."""
 
     def __init__(self, refs, tile_n: int | None = None, tile_s: int | None = None,
                  device="cuda"):
@@ -401,11 +489,20 @@ class MXUExpansion:
         self.device = torch.device(device)
         self.tile_n, self.ts = int(tile_n), int(ts)
         self.kp = rc.shape[0] // 3
-        self.rc = rc.to(self.device)
+        self.route = device_route(self.kp, self.ts, self.device)
+        rc = rc.to(self.device)
+        self.rc_t = rc.t().contiguous() if self.route == "wgmma" else None
+        self._rc = None if self.route == "wgmma" else rc
         self.r2h = r2h.to(self.device)
         self.refs_t = refs_t.to(self.device)
         self.r2h_t = r2h_t.to(self.device)
         self._r2_max = 2.0 * float(r2h[0, : self.n].max()) if self.n else 0.0
+
+    @property
+    def rc(self) -> torch.Tensor:
+        """The (3 kp, n_pad) bf16 split stack [rh; rm; rl]: on the wgmma
+        route a transposed view of ``rc_t`` (not contiguous, no copy)."""
+        return self.rc_t.t() if self._rc is None else self._rc
 
     def stage_queries(self, queries) -> StagedQueries:
         """Stage a query set on the device and compute its band ``delta``
@@ -419,7 +516,7 @@ class MXUExpansion:
         return StagedQueries(q_np, _pad_k(as_f32(q_np, self.device), self.kp), float(delta))
 
     def _phase12_staged(self, st: StagedQueries):
-        return _phase12(st.q_dev, self.rc, self.r2h, self.refs_t, self.r2h_t,
+        return _phase12(st.q_dev, self.rc, self.rc_t, self.r2h, self.refs_t, self.r2h_t,
                         st.delta, self.tile_n, self.ts)
 
     def query_min_idx_cert(self, queries):

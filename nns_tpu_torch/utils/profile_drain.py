@@ -62,7 +62,7 @@ def main(argv=None) -> int:
         mx = timed("MXUExpansion(1M refs)", lambda: MXUExpansion(refs, device="cuda"))
         st = timed("stage_queries", lambda: mx.stage_queries(q1k))
         qc = timed("split + _cat_q", lambda: _cat_q(*split_bf16x3(st.q_dev)))
-        timed("phase1", lambda: phase1(qc, mx.rc, mx.r2h, mx.tile_n, mx.ts))
+        timed("phase1", lambda: phase1(qc, mx.rc, mx.r2h, mx.tile_n, mx.ts, rc_t=mx.rc_t))
         timed("drain (phases 1-2, refine)", lambda: mx._drain_staged(st))
         timed("nns(version=9) one-shot", lambda: nns(q1k, refs, version=9, device="cuda"))
     del mx

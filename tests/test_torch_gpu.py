@@ -7,7 +7,8 @@ exact ties).
 Tolerance: indices exactly equal and min_d2 bit-equal — kernel and plain
 version both round each sub, mul and add to nearest in the same order (the
 kernels are built with -fmad=false), so there is nothing to tolerate.
-The one exception is ``expansion_phase1`` (v9): its tensor cores sum the
+The one exception is ``expansion_phase1`` (v9, both its kernels: wgmma for
+kp % 16 == 0, mma.sync for every other kp): its tensor cores sum the
 bf16 products in their own order and may truncate, so its values (min1,
 m2x, t2v, t3v) are held within the engine's delta of the plain version, and
 its ids (tid, tid2) equal wherever the plain runner-up lies more than
@@ -19,6 +20,8 @@ This file imports neither jax nor nns_tpu, so it also runs where only the
 port is installed: ``python -m pytest tests/test_torch_gpu.py -q
 --noconftest``.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -47,7 +50,9 @@ from nns_tpu_torch.kernels.fused_ladder import (
 from nns_tpu_torch.kernels.mxu_expansion import (
     MXUExpansion,
     _cat_q,
+    _phase1_cuda,
     _phase1_slots,
+    device_route,
     phase1,
     phase1_plain,
     phase1_splits,
@@ -243,6 +248,14 @@ def _phase1_args(q, r, tile_n, ts, dev):
     return eng, st.delta, (qc, eng.rc, eng.r2h, eng.tile_n, eng.ts)
 
 
+def _route(kp, ts):
+    return device_route(kp, ts, "cuda")
+
+
+def _counts():
+    return _cuda.LAUNCHES["expansion_phase1"], _cuda.LAUNCHES["expansion_phase1_wgmma"]
+
+
 def assert_phase1_close(kernel, plain, delta):
     """Values within delta (inf where plain is inf); tid equal where the
     plain runner-up m2x is more than 2 delta above min1; tid2 equal where
@@ -270,15 +283,82 @@ def assert_phase1_close(kernel, plain, delta):
                                              (17, 3000, 24, 640, 640), (129, 20000, 8, 1024, 256),
                                              (1, 300, 16, 128, 64), (200, 9000, 88, 1024, 256),
                                              (300, 9000, 96, 1024, 256),
+                                             (301, 9000, 96, 1024, 64),
                                              (130, 5000, 128, 512, 128),
                                              (64, 3000, 200, 1024, 256)])
 def test_phase1_kernel_within_delta_of_plain(cuda, m, n, k, tile_n, ts):
     q, r = make_dataset(k, m, n, seed=300 + m)
-    _, delta, args = _phase1_args(q, r, tile_n, ts, cuda)
+    eng, delta, args = _phase1_args(q, r, tile_n, ts, cuda)
     before = _cuda.LAUNCHES["expansion_phase1"]
-    got = phase1(*args)
+    got = phase1(*args, rc_t=eng.rc_t)
     assert _cuda.LAUNCHES["expansion_phase1"] == before + 1
     assert_phase1_close(got, phase1_plain(*args), delta)
+
+
+@pytest.mark.parametrize("m,n,k,tile_n,ts", [(1, 300, 16, 128, 64), (33, 777, 16, 128, 128),
+                                             (1000, 70000, 16, 4096, 256),
+                                             (300, 9000, 32, 1024, 256),
+                                             (129, 20000, 48, 1024, 256)])
+def test_phase1_wgmma_kernel_within_delta_of_plain(cuda, m, n, k, tile_n, ts):
+    q, r = make_dataset(k, m, n, seed=400 + m)
+    eng, delta, args = _phase1_args(q, r, tile_n, ts, cuda)
+    assert _route(eng.kp, ts) == "wgmma"
+    before = _counts()
+    got = phase1(*args, rc_t=eng.rc_t)
+    assert _counts() == (before[0] + 1, before[1] + 1)
+    assert_phase1_close(got, phase1_plain(*args), delta)
+
+
+def test_phase1_mma_sync_kernel_where_kp_is_not_16_aligned(cuda):
+    # k = 24: kp = 24 takes phase1_kernel; the wgmma kernel refuses it and
+    # raises (no fallback) when asked directly.
+    q, r = make_dataset(24, 200, 9000, seed=24)
+    eng, delta, args = _phase1_args(q, r, 1024, 256, cuda)
+    assert _route(eng.kp, eng.ts) == "mma_sync"
+    before = _counts()
+    got = phase1(*args, rc_t=eng.rc_t)
+    assert _counts() == (before[0] + 1, before[1])
+    assert_phase1_close(got, phase1_plain(*args), delta)
+    assert eng.rc_t is None and eng.rc.is_contiguous()
+    with pytest.raises(RuntimeError, match="expansion_phase1"):
+        _phase1_cuda(*args, eng.rc.t().contiguous(), "wgmma")
+
+
+def test_phase1_mma_sync_kernel_at_kp16(cuda):
+    # The mma.sync kernel through its own entry point at the main path's kp:
+    # chip_smoke.py's yardstick, held to the same tolerance. The engine keeps
+    # only rc_t there, so rc is made contiguous for it.
+    q, r = make_dataset(16, 300, 20000, seed=16)
+    eng, delta, args = _phase1_args(q, r, 1024, 256, cuda)
+    assert not eng.rc.is_contiguous()
+    before = _counts()
+    got = _phase1_cuda(args[0], eng.rc.contiguous(), *args[2:], None, "mma_sync")
+    assert _counts() == (before[0] + 1, before[1])
+    assert_phase1_close(got, phase1_plain(*args), delta)
+
+
+def test_phase1_wgmma_route_needs_rc_t(cuda):
+    # The wgmma route reads the engine's rc_t; without it phase1 raises
+    # instead of transposing rc on every call.
+    q, r = make_dataset(16, 20, 3000, seed=5)
+    _, _, args = _phase1_args(q, r, 1024, 256, cuda)
+    before = _counts()
+    with pytest.raises(ValueError, match="rc_t"):
+        phase1(*args)
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("ts", [64, 128, 192, 256, 320, 640])
+def test_phase1_route_agrees_with_the_kernel_library(cuda, ts):
+    # phase1_route (host) and wgmma_setup (csrc/expansion_phase1.cu) state
+    # the same rule: every shape the host sends to the wgmma kernel, the
+    # library takes, and it refuses every other.
+    lib = _cuda.library()
+    for kp in range(8, 265, 8):
+        blocks = ctypes.c_int()
+        rc = lib.nns_expansion_phase1_wgmma_blocks_per_sm(kp, ts, ctypes.byref(blocks))
+        assert (rc == 0) == (_route(kp, ts) == "wgmma"), (kp, ts, rc)
+        assert rc != 0 or blocks.value >= 1
 
 
 @pytest.mark.parametrize("m,tile_n,ts,k", [(40, 512, 128, 16), (300, 256, 64, 16),
@@ -287,8 +367,9 @@ def test_phase1_kernel_merges_ranges_per_query(cuda, m, tile_n, ts, k):
     # Integer coordinates make every sum exact in any order, so all six
     # outputs must equal the plain version's. Exact duplicates of each
     # query's nearest point sit in other ref ranges, and two whole tiles
-    # are identical: every merge rule meets a tie. At k = 100 (kp = 104)
-    # the contraction runs in dimension slices of 32, 32, 32 and 8.
+    # are identical: every merge rule meets a tie. At k = 16 the wgmma
+    # kernel runs; at k = 100 (kp = 104) the mma.sync kernel, with the
+    # contraction in dimension slices of 32, 32, 32 and 8.
     rng = np.random.default_rng(m + tile_n)
     n = 200_000
     r = rng.integers(0, 4, (n, k)).astype(np.float32)
@@ -298,10 +379,15 @@ def test_phase1_kernel_merges_ranges_per_query(cuda, m, tile_n, ts, k):
         for dup in (w + 61_000, w + 127_000, w * 7 + 13):
             r[dup % n] = r[w]
     r[tile_n:2 * tile_n] = r[:tile_n]
-    slots = _phase1_slots(_cuda.library(), -(-k // 8) * 8, cuda)
+    kp = -(-k // 8) * 8
+    route = _route(kp, ts)
+    assert route == ("wgmma" if k == 16 else "mma_sync")
+    slots = _phase1_slots(_cuda.library(), kp, cuda, route, ts)
     assert phase1_splits(m, -(-n // tile_n), slots) > 1
-    _, _, args = _phase1_args(q, r, tile_n, ts, cuda)
-    got, want = phase1(*args), phase1_plain(*args)
+    eng, _, args = _phase1_args(q, r, tile_n, ts, cuda)
+    before = _counts()
+    got, want = phase1(*args, rc_t=eng.rc_t), phase1_plain(*args)
+    assert _counts()[1] == before[1] + (route == "wgmma")
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -333,6 +419,20 @@ def test_v9_near_ties_on_card(cuda, g_rel):
 def test_v9_engine_equals_v4_kernel(cuda):
     q, r = make_dataset(16, 3000, 100_000, seed=13)
     got = MXUExpansion(r, device=cuda).query(q)
+    r_dm, _ = prepare_refs(r, 4096, cuda)
+    _, want = fused_min_idx(torch.as_tensor(q, device=cuda), r_dm, r.shape[0])
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+def test_v9_engine_at_kp96_with_64_column_subtiles(cuda):
+    # kp = 96 is a multiple of 16 whose query tile and a 64-column ring would
+    # fit, but past the wgmma kernel's instances: the mma.sync kernel runs.
+    q, r = make_dataset(96, 300, 20_000, seed=96)
+    eng = MXUExpansion(r, tile_s=64, device=cuda)
+    assert (eng.kp, eng.ts, eng.route) == (96, 64, "mma_sync") and eng.rc_t is None
+    before = _counts()
+    got = eng.query(q)
+    assert _counts() == (before[0] + 1, before[1])
     r_dm, _ = prepare_refs(r, 4096, cuda)
     _, want = fused_min_idx(torch.as_tensor(q, device=cuda), r_dm, r.shape[0])
     np.testing.assert_array_equal(got, want.cpu().numpy())

@@ -180,6 +180,138 @@ def test_kernel_range_merge_equals_sequential(tile_n, ts, per):
                        float(want[3][i]), int(want[4][i]), float(want[5][i])], i
 
 
+def test_engine_keeps_rc_t(monkeypatch):
+    # The wgmma kernel's K-major ref operand: on that route the engine keeps
+    # rc_t, byte-equal to rc transposed, and rc only as a view of it, in a
+    # built engine and in one made from staged arrays; on any other route
+    # (the CPU's among them) it keeps rc alone. Either engine answers alike.
+    q, refs = make_dataset(16, 50, 900, seed=2)
+    plain = P.MXUExpansion(refs, tile_n=128, device="cpu")
+    assert plain.route == "plain" and plain.rc_t is None and plain.rc.is_contiguous()
+    monkeypatch.setattr(P, "device_route", lambda kp, ts, device: "wgmma")
+    eng = P.MXUExpansion(refs, tile_n=128, device="cpu")
+    assert eng.route == "wgmma" and eng._rc is None
+    assert eng.rc_t.shape == (plain.rc.shape[1], 3 * eng.kp) and eng.rc_t.is_contiguous()
+    np.testing.assert_array_equal(_bits(eng.rc_t), _bits(plain.rc.t().contiguous()))
+    assert eng.rc.data_ptr() == eng.rc_t.data_ptr()
+    np.testing.assert_array_equal(_bits(eng.rc.contiguous()), _bits(plain.rc))
+    staged = P.MXUExpansion.from_staged(refs, plain.rc, plain.r2h, plain.refs_t, plain.r2h_t,
+                                        plain.tile_n, plain.ts, device="cpu")
+    assert staged._rc is None
+    np.testing.assert_array_equal(_bits(staged.rc_t), _bits(eng.rc_t))
+    np.testing.assert_array_equal(eng.query(q), plain.query(q))
+
+
+# The H100's opt-in shared memory per block (227 KB).
+_H100_OPTIN = 232_448
+
+
+@pytest.mark.parametrize("kp,ts,optin,route", [
+    (16, 256, _H100_OPTIN, "wgmma"), (16, 64, _H100_OPTIN, "wgmma"),
+    (32, 256, _H100_OPTIN, "wgmma"), (48, 1024, _H100_OPTIN, "wgmma"),
+    (64, 256, _H100_OPTIN, "wgmma"),
+    (8, 256, _H100_OPTIN, "mma_sync"), (24, 256, _H100_OPTIN, "mma_sync"),
+    (80, 256, _H100_OPTIN, "mma_sync"),    # 16 | 80, but 246,784 bytes
+    (80, 64, _H100_OPTIN, "wgmma"),        # 64-column chunks: 184,832 bytes
+    (96, 64, _H100_OPTIN, "mma_sync"),     # 221,696 bytes fit, but no kp = 96 instance
+    (96, 192, _H100_OPTIN, "mma_sync"), (96, 256, _H100_OPTIN, "mma_sync"),
+    (128, 256, _H100_OPTIN, "mma_sync"),   # the sliced case
+    (16, 640, _H100_OPTIN, "wgmma"), (16, 100, _H100_OPTIN, "mma_sync"),
+    (16, 256, 48 * 1024, "mma_sync"),      # 50,176 bytes over a 48 KB card
+])
+def test_phase1_route_by_shape(kp, ts, optin, route):
+    assert P.phase1_route(kp, ts, optin) == route
+
+
+def test_wgmma_chunk_and_smem_bytes():
+    # 128-column chunks where ts allows; query tile 128 x 6 kp bf16, then 2
+    # stages of (chunk, 3 kp) bf16 rows + chunk f32 half-norms.
+    assert [P.wgmma_chunk(ts) for ts in (64, 128, 192, 256, 640)] == [64, 128, 64, 128, 128]
+    assert P.wgmma_smem_bytes(16, 256) == 24_576 + 2 * (12_288 + 512) == 50_176
+    assert P.wgmma_smem_bytes(16, 64) == 24_576 + 2 * (6_144 + 256) == 37_376
+    assert P.wgmma_smem_bytes(64, 256) <= _H100_OPTIN < P.wgmma_smem_bytes(80, 256)
+
+
+# The wgmma kernel's addressing, mirrored (csrc/expansion_phase1.cu,
+# stage_canonical, smem_desc and the wgmma loop): tiles are staged K-major in the
+# canonical no-swizzle layout, and each wgmma m64n64k16 reads its operands
+# from a descriptor start with LBO 128 bytes along K and SBO 16 kc bytes
+# along M or N.
+
+
+def _core_offset(row, col, kc):
+    """Byte offset of element (row, col) of a staged (rows, kc) tile."""
+    return (row // 8) * (kc // 8) * 128 + (col // 8) * 128 + (row % 8) * 16 + (col % 8) * 2
+
+
+def _stage(tile, kc):
+    """A (rows, kc) tile as the kernel stages it: int16 words at their core
+    offsets (each offset even, every word written once)."""
+    rows = tile.shape[0]
+    r, c = np.meshgrid(np.arange(rows), np.arange(kc), indexing="ij")
+    off = _core_offset(r, c, kc)
+    assert (off % 2 == 0).all() and len(np.unique(off)) == rows * kc
+    buf = np.zeros(rows * kc, np.int16)
+    buf[off // 2] = _bits(tile)
+    return buf
+
+
+def _a_start(wg, b, kk, kp):
+    """Byte start of the A descriptor: warpgroup wg's 64 rows, columns
+    b kp + kk of the (128, 6 kp) query tile."""
+    return wg * 64 * 6 * kp * 2 + 16 * (b * kp + kk)
+
+
+def _b_start(b, kk, kp):
+    """Byte start of the B descriptor: columns split(b) kp + kk of the
+    (chunk, 3 kp) rc_t chunk."""
+    return 16 * (P._SPLIT_OF_BLOCK[b] * kp + kk)
+
+
+def _read(buf, start, rows, kc):
+    """The (rows, 16) bf16 operand a descriptor at byte `start` reads."""
+    i, k = np.meshgrid(np.arange(rows), np.arange(16), indexing="ij")
+    addr = start + (i // 8) * (16 * kc) + (k // 8) * 128 + (i % 8) * 16 + (k % 8) * 2
+    return torch.from_numpy(buf[addr // 2].copy()).view(torch.bfloat16).double()
+
+
+@pytest.mark.parametrize("k,m,n,ts", [(16, 130, 300, 128), (12, 40, 700, 64), (32, 70, 200, 128),
+                                      (48, 9, 130, 64)])
+def test_wgmma_addressing_reads_phase1_plain_cross(monkeypatch, k, m, n, ts):
+    # Integer data: every product and sum is exact in any order, so the
+    # cross terms read through the mirrored descriptors from the engine's
+    # staged rc_t must equal the plain version's qc @ [rh; rm; rh; rl; rh;
+    # rm] exactly.
+    rng = np.random.default_rng(k + m)
+    refs = rng.integers(-3, 4, (n, k)).astype(np.float32)
+    q = rng.integers(-3, 4, (m, k)).astype(np.float32)
+    monkeypatch.setattr(P, "device_route", lambda kp, ts, device: "wgmma")
+    eng = P.MXUExpansion(refs, tile_n=128, tile_s=ts, device="cpu")
+    kp, n_pad, bn, rc_t = eng.kp, eng.rc.shape[1], P.wgmma_chunk(ts), eng.rc_t
+    assert P.phase1_route(kp, eng.ts, _H100_OPTIN) == "wgmma"
+    qc = P._cat_q(*P.split_bf16x3(eng.stage_queries(q).q_dev))
+    rows = torch.cat([eng.rc[s * kp:(s + 1) * kp] for s in P._SPLIT_OF_BLOCK]).float()
+    with P.full_fp32_matmul():
+        want = (qc.float() @ rows).double()
+    got = torch.zeros((m, n_pad), dtype=torch.float64)
+    for q0 in range(0, m, P._KERNEL_BM):
+        tile = torch.zeros((P._KERNEL_BM, 6 * kp), dtype=torch.bfloat16)
+        tile[:min(P._KERNEL_BM, m - q0)] = qc[q0:q0 + P._KERNEL_BM]
+        a_buf = _stage(tile, 6 * kp)
+        for c0 in range(0, n_pad, bn):
+            b_buf = _stage(rc_t[c0:c0 + bn], 3 * kp)
+            for wg in range(2):
+                acc = torch.zeros((64, bn), dtype=torch.float64)
+                for b in range(6):
+                    for kk in range(0, kp, 16):
+                        a = _read(a_buf, _a_start(wg, b, kk, kp), 64, 6 * kp)
+                        bt = _read(b_buf, _b_start(b, kk, kp), bn, 3 * kp)
+                        acc += a @ bt.t()
+                r0 = q0 + 64 * wg
+                got[r0:min(m, r0 + 64), c0:c0 + bn] = acc[:max(0, min(64, m - r0))]
+    assert torch.equal(got, want)
+
+
 def test_phase1_wrapper_checks_inputs():
     refs = make_dataset(16, 1, 300, seed=1)[1]
     eng = P.MXUExpansion(refs, tile_n=128, device="cpu")
