@@ -11,7 +11,10 @@ result) without them. Phases, each raising on failure:
 2. the v14 and v4 kernels against their plain PyTorch versions on the
    card, at the main path's shapes: indices equal and min_d2 bit-equal (tolerance 0: both
    round every sub, mul and add to nearest, no FMA), times from CUDA events
-   (median of 5);
+   (median of 5). The scan runs its Hopper design (persistent blocks, each
+   group's distinct slots scored once, the halo through a two-stage ring of
+   bulk asynchronous copies) on one uniform 10K batch and on a skewed one
+   (QM >= 512);
 3. the main path: ``NNEngine("cells", device="cuda").build`` over 1M uniform
    3-D refs (seed 1000) and ``query_many`` over W=64 distinct 10K-query
    batches drawn as bench.py draws them, plus one batch drawn over
@@ -23,7 +26,11 @@ result) without them. Phases, each raising on failure:
 5. the ladder's kernels (v3 point-major, v5 streaming, v6 queries-resident,
    v7 two-level) against their plain versions at 10000 x 1M k=3, 1024 x 1M
    k=3, 1024 x 1M k=16, duplicate ties and an unaligned 33 x 777 k=5, with
-   the same tolerance 0 and timing as phase 2;
+   the same tolerance 0 and timing as phase 2. v6 runs its Hopper design:
+   each thread's query rows in registers (k = 3 and 16 as template
+   parameters; k = 5 at run time, the contraction in slices of at most 16
+   dims), the refs through a two-stage ring of bulk asynchronous copies,
+   one walk of each ref range per 1024 rows;
 6. the ladder: ``nns(version=v)`` for v = 0..7 and 9 at 1024 x 1M, k = 3
    and 16. Each answer passes the f64 gate on a 512-row subsample; v1, v3,
    v4, v5, v6, v7 and v9 return equal index arrays; v0 (host scan) and v2
@@ -52,10 +59,16 @@ result) without them. Phases, each raising on failure:
    kernel's; batch 0 passes the f64 gate on the ladder's 512-row oracle and
    up to 128 uncertified rows pass a float64 scan on the card;
 9. one JSON line of per-kernel results, each row with the shape its ms,
-   plain_ms and bound come from: each kernel's main path (for the wgmma
+   plain_ms and bound come from (the scan also on the skewed batch,
+   ``*_skewed``; the ladder's kernels and v4 also at 1024 x 1M k=16,
+   ``*_k16``): each kernel's main path (for the wgmma
    kernel the drain's 640K-row launch; for the mma.sync kernel v9 at
    1024 x 65536 k=128, with its time on the drain's launch as a separate
-   ``yardstick``), then the device line last.
+   ``yardstick``), then the device line last. ``ms`` brackets each wrapper
+   call with CUDA events, so a launch shorter than its wrapper's host time
+   reads the host time; the scan's and v4's rows, whose launches are that
+   short, also give ``device_ms`` (``utils/timing.cuda_device_ms``: the
+   device held busy while the calls are enqueued).
 """
 
 from __future__ import annotations
@@ -77,9 +90,6 @@ W = 64
 K = 3
 GATE_ROWS = 512
 K16 = 16
-# Published peaks of one H100 SXM (data sheet, dense): device memory bytes/s,
-# fp32 outside the tensor cores and bf16 on them, operations/s.
-PEAK = {"bytes": 3.35e12, "f32": 67e12, "bf16_tensor": 989e12}
 
 
 def _log(msg: str) -> None:
@@ -104,28 +114,6 @@ def _compare(name, kernel_fn, plain_fn, args, expect_idx=None):
     _log(f"[kernel] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
          f"indices equal, max_abs_err {err}")
     return err, k_ms, p_ms
-
-
-def _bound(nbytes, **ops):
-    """(ms, "bytes" or "operations"): the least time the card could take to
-    move ``nbytes`` (each input read once, each output written once) and to
-    do ``ops[rate]`` operations at each published peak rate."""
-    t_bytes = nbytes / PEAK["bytes"]
-    t_ops = max(count / PEAK[rate] for rate, count in ops.items())
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-def _fused_bound(m, n, k):
-    """Bound of a fused argmin over (m, k) queries and (n, k) refs: per pair
-    k subtractions, k multiplies, k adds and a compare in f32."""
-    return _bound(4 * (m * k + n * k) + 8 * m, f32=m * n * (3 * k + 1))
-
-
-def _phase1_bound(m, n_pad, kp):
-    """Bound of expansion_phase1: 2 m n 6kp bf16 tensor-core operations,
-    reading qc, rc and r2h once and writing six (m,) outputs."""
-    return _bound(m * 6 * kp * 2 + 3 * kp * n_pad * 2 + 4 * n_pad + 24 * m,
-                  bf16_tensor=2 * m * n_pad * 6 * kp, f32=2 * m * n_pad)
 
 
 def _phase1_check(name, kern, plain, delta, exact=False):
@@ -225,7 +213,8 @@ def main() -> int:
         MXUExpansion, _cat_q, phase1, phase1_plain, split_bf16x3)
     from nns_tpu_torch.kernels.oracle import nn_oracle_f64
     from nns_tpu_torch.native import native_available
-    from nns_tpu_torch.utils.timing import cuda_ms
+    from nns_tpu_torch.utils.bounds import cell_bound, fused_bound, phase1_bound
+    from nns_tpu_torch.utils.timing import cuda_device_ms, cuda_ms
 
     LADDER_KERNELS = (  # (launch key, wrapper, plain twin, point-major refs)
         ("fused_point_major", fl.fused_point_major_min_idx, fl.fused_point_major_plain, True),
@@ -299,6 +288,9 @@ def main() -> int:
     for name, args, expect in fused_cases:
         results["fused_argmin"].append(
             _compare(name, fused_min_idx, fused_min_idx_plain, args, expect))
+    # The two main rows whose launches are shorter than their wrappers' host
+    # time also get the device time alone, beside ``ms``.
+    device_ms = {"fused_argmin": cuda_device_ms(fused_min_idx, *fused_cases[0][1])[0]}
 
     cells = CellListEngine(refs, device=dev)
     _log(f"[kernel] 1M index: D={cells.D}, G={cells.D ** 3}, R_max={cells.R_max}, "
@@ -306,6 +298,7 @@ def main() -> int:
     skew = queries.copy()
     skew[:600] = (np.float32(0.51) + np.random.default_rng(SEED).random(
         (600, 3), dtype=np.float32) * np.float32(0.01))
+    cell_bounds = []  # the one 10K batch's, then the skewed batch's
     for name, qb in (("cell_scan one 10K batch", queries), ("cell_scan skewed 10K batch", skew)):
         packed, _, q_max = cells.stage(qb)
         dense, _ = cells._dense_scatter(packed, q_max)
@@ -313,14 +306,11 @@ def main() -> int:
         results["cell_scan"].append(
             _compare(f"{name} (G={dense.shape[0]}, QM={dense.shape[1]}, R_max={cells.R_max})",
                      cell_scan, cell_scan_plain, args))
-        if qb is queries:
-            # The one 10K batch: the dense queries, halo and ids read once,
-            # (d2, id) per slot written once; each real query scans its
-            # group's real candidates (3 sub, 3 mul, 3 add, 1 compare).
-            g, qm = dense.shape[:2]
-            cell_bound = _bound(4 * (g * qm * 3 + g * 4 * cells.R_max) + 8 * g * qm,
-                                f32=len(qb) * cells.avg_candidates * 10)
-    if cells.stage(skew)[2] < 512:
+        device_ms.setdefault("cell_scan", cuda_device_ms(cell_scan, *args)[0])
+        cell_bounds.append(cell_bound(*dense.shape[:2], cells.R_max, len(qb),
+                                      cells.avg_candidates))
+    skew_qm = cells.stage(skew)[2]
+    if skew_qm < 512:
         raise AssertionError("the skewed batch did not reach QM >= 512")
     del cells
 
@@ -423,9 +413,11 @@ def main() -> int:
     ]
     # v4 at the same shapes, so that the rungs compare within one call (its
     # rows go after the fallback bucket's, which stays the JSON's row).
+    k16_row = {}  # each kernel's row of the 1024 x 1M k=16 case
     for name, kernel_fn, plain_fn, pm in (*LADDER_KERNELS,
                                           ("fused_argmin", fused_min_idx, fused_min_idx_plain, False)):
         results.setdefault(name, [])
+        k16_row[name] = len(results[name]) + 2
         for case, qc, rc_dm, rc_pm, n, expect in ladder_cases:
             results[name].append(_compare(f"{name} {case}", kernel_fn, plain_fn,
                                           (qc, rc_pm if pm else rc_dm, n), expect))
@@ -600,7 +592,7 @@ def main() -> int:
     mma_ms_main, mma_main = cuda_ms(mxe._phase1_cuda, *args_mma, None, "mma_sync")
     err_mma, text_mma = _phase1_check("expansion_phase1 (mma.sync) on the drain's launch",
                                       mma_main, plain_main, delta_main)
-    main_bound = _phase1_bound(m_main, N_REFS, K16)
+    main_bound = phase1_bound(m_main, N_REFS, K16)
     lib = _cuda.library()
     slots = {r: mxe._phase1_slots(lib, mx.kp, dev, r, mx.ts) for r in ("wgmma", "mma_sync")}
     n_tiles = mx.rc.shape[1] // mx.tile_n
@@ -658,14 +650,14 @@ def main() -> int:
     # dispatches to it, 1024 x 65536 k=128, with its time on the drain's
     # k=16 launch as a separate yardstick.
     main_rows = {
-        "cell_scan": (results["cell_scan"][0], cell_bound, "one 10K batch, k=3"),
-        "fused_argmin": (results["fused_argmin"][0], _fused_bound(8, N_REFS, K),
+        "cell_scan": (results["cell_scan"][0], cell_bounds[0], "one 10K batch, k=3"),
+        "fused_argmin": (results["fused_argmin"][0], fused_bound(8, N_REFS, K),
                          "8 x 1M k=3 (the fallback bucket)"),
-        "expansion_phase1": (mma_row, _phase1_bound(1024, 65536, 128),
+        "expansion_phase1": (mma_row, phase1_bound(1024, 65536, 128),
                              "1024 x 65536 k=128 (nns(version=9))"),
         "expansion_phase1_wgmma": (results["expansion_phase1_wgmma"][0], main_bound,
                                    f"{m_main} x 1M k=16 (the v9 drain's launch)"),
-        **{name: (results[name][1], _fused_bound(1024, N_REFS, K), "1024 x 1M k=3")
+        **{name: (results[name][1], fused_bound(1024, N_REFS, K), "1024 x 1M k=3")
            for name in ladder_launches},
     }
     kernels = []
@@ -694,6 +686,18 @@ def main() -> int:
             # phase-1 carries.
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+        if name in device_ms:
+            kernels[-1]["device_ms"] = device_ms[name]
+        # Second shapes: the scan on the skewed batch, the ladder's kernels
+        # (and v4 beside them) at 1024 x 1M k=16.
+        if name == "cell_scan":
+            _, ms, p_ms = results[name][1]
+            kernels[-1].update(shape_skewed=f"skewed 10K batch (QM={skew_qm})", ms_skewed=ms,
+                               plain_ms_skewed=p_ms, bound_ms_skewed=cell_bounds[1][0])
+        if name in k16_row:
+            _, ms, p_ms = results[name][k16_row[name]]
+            kernels[-1].update(ms_k16=ms, plain_ms_k16=p_ms,
+                               bound_ms_k16=fused_bound(1024, N_REFS, K16)[0])
         if name == "expansion_phase1":
             kernels[-1]["yardstick"] = {
                 "shape": f"{m_main} x 1M k=16 (the v9 drain's launch, forced to this kernel)",

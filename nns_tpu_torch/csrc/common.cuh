@@ -163,4 +163,80 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// Resident blocks of `kernel` per SM at kThreads threads and `smem` bytes of
+// dynamic shared memory, times the SMs of the current device: the size of a
+// persistent grid.
+template <typename Kernel>
+inline cudaError_t grid_slots(Kernel kernel, int threads, size_t smem, int* slots) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = allow_smem(kernel, smem);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  }
+  if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
+  *slots = per_sm * sms;
+  return e;
+}
+
+// ---------------------------------------------------------------------------
+// Bulk asynchronous copies (cp.async.bulk, no tensor map) completing on an
+// mbarrier in shared memory. One thread arms a stage's barrier with the
+// bytes it expects and issues the stage's copies; every thread waits on the
+// barrier's phase parity. Source, destination and size must be multiples of
+// 16 bytes.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One thread initialises the barriers (one arrival each), then the block
+// synchronizes before any thread uses them.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The arming thread's arrival, expecting `bytes` from the stage's copies.
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Order the block's earlier generic-proxy reads of shared memory before the
+// async proxy's next writes to it (a stage is refilled after it was read).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
 }  // namespace nns

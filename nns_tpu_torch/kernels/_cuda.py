@@ -130,7 +130,9 @@ def library() -> ctypes.CDLL:
             ("nns_cell_scan", [vp, vp, vp, ci, ci, ci, cf, vp, vp, vp]),
             ("nns_fused_point_major", [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp]),
             ("nns_fused_streaming", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp, vp, vp]),
-            ("nns_fused_queries_resident", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp, vp, vp]),
+            ("nns_fused_queries_resident",
+             [vp, vp, ci, ci, ci, cll, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]),
+            ("nns_fused_queries_resident_smem", [ci, ci, ci, ci, ci, vp, vp]),
             ("nns_two_level", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp]),
             ("nns_expansion_phase1", phase1),
             ("nns_expansion_phase1_wgmma", phase1),
@@ -145,6 +147,13 @@ def library() -> ctypes.CDLL:
         lib.nns_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
         return _lib
+
+
+def smem_optin(lib: ctypes.CDLL) -> int:
+    """The opt-in shared memory per block of the current CUDA device, bytes."""
+    optin = ctypes.c_int()
+    check(lib, lib.nns_smem_optin(ctypes.byref(optin)), "smem_optin")
+    return optin.value
 
 
 def check(lib: ctypes.CDLL, rc: int, name: str) -> None:

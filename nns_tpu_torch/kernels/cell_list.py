@@ -9,8 +9,10 @@ C++ counting-sort build (the JAX package's ``nns_cpu.cpp``) serves halos up
 to W/2; wider halos use the numpy enumeration.
 
 Query: bucket queries by supercell and scatter them into a dense
-(G, QM, 3) tensor on the host; ``cell_scan`` (``csrc/cell_scan.cu``, one
-block per supercell) finds each slot's nearest halo point and folds the
+(G, QM, 3) tensor on the host; ``cell_scan`` (``csrc/cell_scan.cu``:
+persistent blocks walk the supercells, score each supercell's distinct
+slots once and stream its halo through a bulk-copy ring) finds each slot's
+nearest halo point and folds the
 exactness certificate into the id's sign bit (id when best <= halo^2, -id-1
 otherwise); the host unscatters. Rows the certificate cannot prove are
 re-answered exactly by the fused brute force.
@@ -354,7 +356,11 @@ class CellListEngine:
         whole queue, host unscatter, and the exact fused re-answer of every
         uncertified row. A queue with a batch too skewed for the dense
         kernel falls back to per-batch querying. With ``return_coverage``,
-        also returns the per-batch certified fraction."""
+        also returns the per-batch certified fraction. An empty queue
+        returns [] (the JAX package raises ValueError there), as the v4 and
+        v9 engines do."""
+        if not batches:
+            return ([], []) if return_coverage else []
         denses, fslots, orders = self.stage_queue_ragged(batches)
         if denses is None:
             pairs = [self.query_with_coverage(qb) for qb in batches]

@@ -7,9 +7,11 @@ CUDA kernel of its own under ``csrc/``:
 - v3 ``fused_point_major``: refs read point-major (n, k), uncoalesced;
 - v5 ``fused_streaming``: ref tiles streamed through shared memory by
   double-buffered ``cp.async``;
-- v6 ``fused_queries_resident``: the query set resident in ``__constant__``
-  memory, a grid over ref ranges only, and the v4 fallback above the JAX
-  package's 4 MB query budget;
+- v6 ``fused_queries_resident``: the query set resident on chip (each
+  thread's rows in registers), a grid over ref ranges only, ref tiles (in
+  slices of at most 16 dims where k is not a template parameter) through a
+  bulk-copy ring, and the v4 fallback above the JAX package's 4 MB query
+  budget;
 - v7 ``two_level``: one partial winner per (query tile, ref tile) in an
   (n_tiles, m) table, then a second reduce over the tiles.
 
@@ -23,6 +25,10 @@ card the two agree bit for bit.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -111,7 +117,7 @@ def nns_fused_streaming(queries, refs, tile_n: int = 4096, device="cuda") -> tor
 
 
 # ---------------------------------------------------------------------------
-# v6: whole query set resident in __constant__ memory
+# v6: the query set resident on chip, a grid over ref ranges only
 # ---------------------------------------------------------------------------
 
 
@@ -119,19 +125,147 @@ def nns_fused_streaming(queries, refs, tile_n: int = 4096, device="cuda") -> tor
 # so its twin is the v4 plain version.
 fused_queries_resident_plain = fused_min_idx_plain
 
+# The k that csrc/fused_queries_resident.cu takes as a template parameter,
+# with 4 or 1 query rows in each thread's registers and all k dims in each
+# ring stage; every other k runs its sliced instance (one row per thread, at
+# most _QRES_MAX_DIMS dims per stage, the rows' slice in shared memory and,
+# with more than one slice, at most _QRES_GROUPS four-column groups per
+# thread and tile). A row may be shared by 1-32 threads (each its own
+# columns).
+QRES_TEMPLATE_KS = (3, 16)
+QRES_ROWS_PER_THREAD = 4
+QRES_THREADS = 256
+_QRES_STAGES = 2
+_QRES_TILES = (256, 128, 64, 32, 16, 8, 4)  # ref columns per ring stage, preferred first
+_QRES_TPR = (1, 2, 4, 8, 16, 32)
+_QRES_MAX_DIMS = 16
+_QRES_GROUPS = 8
+# What a pass costs beyond its rows, counted in rows: its walk of the ref
+# range and its barriers (a model constant of the plan, not a measurement).
+_QRES_PASS_ROWS = 32
+
+
+@dataclass(frozen=True)
+class QresPlan:
+    """How csrc/fused_queries_resident.cu runs m k-dimensional queries: each
+    thread holds ``q_rows`` query rows, ``threads_per_row`` threads share
+    one, a ring stage holds ``dims`` of the k dimensions of ``tile`` ref
+    columns, and a block takes ``smem_bytes`` of dynamic shared memory. A
+    block scores ``rows_per_pass`` rows per walk of its ref range; thread t
+    holds rows pass * rows_per_pass + q * (256 // threads_per_row) + t //
+    threads_per_row."""
+
+    q_rows: int
+    threads_per_row: int
+    tile: int
+    dims: int
+    smem_bytes: int
+
+    @property
+    def rows_per_pass(self) -> int:
+        return QRES_THREADS * self.q_rows // self.threads_per_row
+
+    def passes(self, m: int) -> int:
+        return -(-m // self.rows_per_pass)
+
+
+def qres_smem_bytes(k: int, dims: int, tile: int, rows: int) -> int:
+    """The kernel's dynamic shared memory: 16 bytes of barriers, the ring of
+    (dims, tile) stages and, at a k that is not a template parameter, the
+    pass's ``rows`` rows' slice as (dims, rows + 1)."""
+    q_bytes = 0 if k in QRES_TEMPLATE_KS else 4 * dims * (rows + 1)
+    return 16 + _QRES_STAGES * dims * tile * 4 + q_bytes
+
+
+def qres_plan(m: int, k: int, smem_optin: int) -> QresPlan:
+    """The plan for m k-dimensional queries on a card whose blocks get
+    ``smem_optin`` bytes of shared memory: of the shapes that fit, the one
+    with the least work, passes x (rows per pass + _QRES_PASS_ROWS), so that
+    few rows leave few threads idle without many walks of the refs; then the
+    fewest passes, then the widest tile. At a k that is not a template
+    parameter the contraction goes in the fewest slices of at most 16 dims,
+    as equal as they come, so every k fits; with more than one slice a tile
+    is at most 32 columns per thread of a row. Raises ValueError when
+    nothing fits ``smem_optin``."""
+    slices = 1 if k in QRES_TEMPLATE_KS else -(-k // _QRES_MAX_DIMS)
+    dims = -(-k // slices)
+    shapes = [(1, tpr) for tpr in _QRES_TPR]
+    if k in QRES_TEMPLATE_KS:
+        shapes.insert(0, (QRES_ROWS_PER_THREAD, 1))
+    best = None
+    for q_rows, tpr in shapes:
+        rows = QRES_THREADS * q_rows // tpr
+        tiles = _QRES_TILES if slices == 1 else (min(_QRES_TILES[0], 4 * _QRES_GROUPS * tpr),)
+        tile = next((t for t in tiles if qres_smem_bytes(k, dims, t, rows) <= smem_optin), None)
+        if tile is None:
+            continue
+        plan = QresPlan(q_rows, tpr, tile, dims, qres_smem_bytes(k, dims, tile, rows))
+        passes = plan.passes(m)
+        key = (passes * (plan.rows_per_pass + _QRES_PASS_ROWS), passes, -tile)
+        if best is None or key < best[0]:
+            best = (key, plan)
+    if best is None:
+        raise ValueError(f"fused_queries_resident: k={k} leaves no plan within "
+                         f"{smem_optin} bytes of shared memory")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _qres_setup(k: int, plan: QresPlan, device_index: int) -> int:
+    """The plan's grid slots on the card. The C side refuses a plan it has
+    no instance for, and its own shared-memory need must equal the plan's."""
+    lib = _cuda.library()
+    with torch.cuda.device(device_index):
+        smem, slots = ctypes.c_longlong(), ctypes.c_int()
+        rc = lib.nns_fused_queries_resident_smem(k, plan.q_rows, plan.threads_per_row, plan.tile,
+                                                 plan.dims, ctypes.byref(smem),
+                                                 ctypes.byref(slots))
+    _cuda.check(lib, rc, "fused_queries_resident")
+    if smem.value != plan.smem_bytes:
+        raise RuntimeError(f"fused_queries_resident: the kernel needs {smem.value} bytes of "
+                           f"shared memory, the plan {plan.smem_bytes}")
+    return slots.value
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(device_index: int) -> int:
+    with torch.cuda.device(device_index):
+        return _cuda.smem_optin(_cuda.library())
+
+
+def qres_launch_shape(m: int, k: int, device) -> tuple[QresPlan, int]:
+    """(plan, grid slots) of m k-dimensional queries on CUDA ``device``."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    plan = qres_plan(m, k, _smem_optin(index))
+    return plan, _qres_setup(k, plan, index)
+
 
 def _fused_queries_resident_cuda(queries, r_dm, n):
-    # Ref ranges only (no query axis): ~4 blocks per SM.
-    splits = fused_splits(1, n, 2 * n_sm(queries.device))
-    return launch_split("fused_queries_resident", queries, r_dm, n, splits, r_dm.shape[1])
+    m, k = queries.shape
+    dev = queries.device
+    plan, slots = qres_launch_shape(m, k, dev)
+    # Ref ranges of whole tiles only (no query axis), as many as fit at once.
+    splits = max(1, min(slots, -(-n // plan.tile)))
+    part_d, part_i = partials(splits, m, dev)
+    out_d, out_i = partials(m, None, dev)
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        rc = lib.nns_fused_queries_resident(
+            queries.data_ptr(), r_dm.data_ptr(), m, k, n, r_dm.shape[1], splits,
+            plan.q_rows, plan.threads_per_row, plan.tile, plan.dims, part_d.data_ptr(),
+            part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(lib, rc, "fused_queries_resident")
+    _cuda.LAUNCHES["fused_queries_resident"] += 1
+    return out_d, out_i
 
 
 def fused_queries_resident_min_idx(queries: torch.Tensor, r_dm: torch.Tensor,
                                    n: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact 1-NN over columns [0, n) of dim-major refs (k, ld):
-    csrc/fused_queries_resident.cu on CUDA tensors, one launch per 64 KB
-    chunk of query rows. Launch it on one stream only (the constant bank is
-    one per device)."""
+    csrc/fused_queries_resident.cu on CUDA tensors, one scan launch (as
+    ``qres_plan`` says) and one merge."""
     return run_kernel("fused_queries_resident_min_idx", fused_queries_resident_plain,
                       _fused_queries_resident_cuda, queries, r_dm, n)
 
@@ -141,7 +275,7 @@ def nns_fused_queries_resident(queries, refs, max_query_bytes: int = 4 << 20,
     """v6 one-shot: exact 1-NN indices (m,) i32 on ``device``. A query set of
     more than ``max_query_bytes`` (m * k * 4) falls back to v4, as the JAX
     package does (reference: core.cu:546-550); below it, this kernel runs
-    whatever its launches hold."""
+    the whole query set in one launch."""
     m, k = queries.shape
     if m * max(k, 1) * 4 > max_query_bytes:
         return nns_fused(queries, refs, device=device)

@@ -226,13 +226,7 @@ def device_route(kp: int, ts: int, device) -> str:
         return "plain"
     lib = _cuda.library()
     with torch.cuda.device(device):
-        return phase1_route(kp, ts, _smem_optin(lib))
-
-
-def _smem_optin(lib) -> int:
-    optin = ctypes.c_int()
-    _cuda.check(lib, lib.nns_smem_optin(ctypes.byref(optin)), "expansion_phase1")
-    return optin.value
+        return phase1_route(kp, ts, _cuda.smem_optin(lib))
 
 
 def _phase1_slots(lib, kp: int, dev, route: str, ts: int) -> int:

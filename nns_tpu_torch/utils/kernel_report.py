@@ -1,0 +1,179 @@
+"""The v14 scan and v6 kernels of this tree against those of another tree.
+
+Run from the repository root on a machine with one CUDA device:
+``python -m nns_tpu_torch.utils.kernel_report --parent DIR``, where DIR is
+an unpacked copy of the tree to compare with (``git archive`` of the parent
+commit). It prints the card's name and power limit, then
+
+1. ptxas's registers, shared memory and spills for every kernel of
+   ``csrc/cell_scan.cu`` and ``csrc/fused_queries_resident.cu`` of both
+   trees (``nvcc -Xptxas -v`` with this tree's flags);
+2. the times of both trees' kernels, each tree imported in a process of its
+   own and called through its own public wrappers (``cell_list.cell_scan``
+   and ``fused_ladder.fused_queries_resident_min_idx``), in turns (parent,
+   this tree, this tree, parent). Every turn is timed by this tree's
+   ``utils/timing``: ``cuda_ms`` (CUDA events around each wrapper call,
+   median of 5; host time where it is longer than the kernel) and, beside
+   it, ``cuda_device_ms`` (the device held busy while the calls are
+   enqueued: device time alone), on the same inputs, with each shape's
+   bound (``utils/bounds``) and both trees' outputs held bit-equal:
+   ``cell_scan`` on one uniform 10K batch and on a skewed one over 1M
+   uniform 3-D refs (seed 1000, as ``chip_smoke.py`` draws them), and v6
+   at 1024 x 1M k=3, k=16 and k=5 (a k that is not a template parameter)
+   and at 10000 x 1M k=3.
+
+It fails without a card, or when the two trees' outputs differ.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+SOURCES = ("cell_scan.cu", "fused_queries_resident.cu")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_ROOT = os.path.dirname(os.path.dirname(_HERE))
+_TURNS = ("parent", "this tree", "this tree", "parent")
+
+
+def _ptxas(_cuda, csrc: str, tag: str) -> None:
+    for name in SOURCES:
+        with tempfile.TemporaryDirectory(dir=_cuda._BUILD_DIR) as tmp:
+            out = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                                  os.path.join(csrc, name), "-o", os.path.join(tmp, "k.o")],
+                                 capture_output=True, text=True, check=True, timeout=600)
+        kernel = None
+        for line in (out.stdout + out.stderr).splitlines():
+            if "Compiling entry function" in line:
+                mangled = line.split("'")[1]
+                inst = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)ELi(\d+)E)?", mangled)
+                kernel = (f"{inst.group(1)}<{inst.group(2)}, {inst.group(3)}>" if inst.group(2)
+                          else inst.group(1))
+            elif kernel and any(w in line for w in ("registers", "spill")):
+                print(f"[ptxas] {tag} {name} {kernel}: {line.split(':', 1)[-1].strip()}",
+                      flush=True)
+
+
+def _measure(out: str) -> None:
+    """One turn: time the kernels of the tree that ``nns_tpu_torch`` imports
+    from (this process's PYTHONPATH) and save times and outputs to ``out``."""
+    from nns_tpu_torch.data import make_dataset
+    from nns_tpu_torch.kernels import fused_ladder
+    from nns_tpu_torch.kernels.cell_list import CellListEngine, cell_scan
+    from nns_tpu_torch.kernels.fused import prepare_refs
+
+    # This tree's timing, whichever tree is measured: one yardstick for both.
+    spec = importlib.util.spec_from_file_location("_report_timing",
+                                                  os.path.join(_HERE, "timing.py"))
+    timing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timing)
+    dev = torch.device("cuda")
+    rows, outputs = [], []
+
+    def timed(name, bound, detail, fn, *args):
+        ms, got = timing.cuda_ms(fn, *args)
+        device_ms, _ = timing.cuda_device_ms(fn, *args)
+        rows.append({"name": name, "ms": ms, "device_ms": device_ms, "bound": bound,
+                     "detail": detail})
+        outputs.append([t.cpu() for t in got])
+
+    # cell_scan: one uniform 10K batch and a skewed one (chip_smoke's).
+    queries, refs = make_dataset(3, 10_000, 1_000_000, 1000)
+    cells = CellListEngine(refs, device=dev)
+    skew = queries.copy()
+    skew[:600] = (np.float32(0.51) + np.random.default_rng(1000).random(
+        (600, 3), dtype=np.float32) * np.float32(0.01))
+    for tag, qb in (("one 10K batch", queries), ("skewed 10K batch", skew)):
+        packed, _, q_max = cells.stage(qb)
+        dense = torch.as_tensor(cells._dense_scatter(packed, q_max)[0], device=dev)
+        g, qm = dense.shape[:2]
+        timed(f"cell_scan {tag} (G={g}, QM={qm}, R_max={cells.R_max})",
+              ("cell", g, qm, cells.R_max, len(qb), cells.avg_candidates), "",
+              cell_scan, dense, cells.halo_dm, cells.halo_ids_dev, cells.halo2)
+    del cells
+
+    # v6 at the ladder's shapes, at a run-time k and at 10000 rows.
+    plan_of = getattr(fused_ladder, "qres_launch_shape", None)
+    for tag, (q, r) in (("1024 x 1M k=3", (queries[:1024], refs)),
+                        ("1024 x 1M k=16", make_dataset(16, 1024, 1_000_000, 1000)),
+                        ("1024 x 1M k=5", make_dataset(5, 1024, 1_000_000, 1000)),
+                        ("10000 x 1M k=3", (queries, refs))):
+        (m, k), n = q.shape, r.shape[0]
+        detail = str(plan_of(m, k, dev)) if plan_of else ""
+        timed(f"fused_queries_resident {tag}", ("fused", m, n, k), detail,
+              fused_ladder.fused_queries_resident_min_idx, torch.as_tensor(q, device=dev),
+              prepare_refs(r, 4096, dev)[0], n)
+    torch.save({"rows": rows, "outputs": outputs}, out)
+
+
+def _bound(spec) -> tuple[float, str]:
+    from nns_tpu_torch.utils.bounds import cell_bound, fused_bound
+
+    return cell_bound(*spec[1:]) if spec[0] == "cell" else fused_bound(*spec[1:])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="root of the tree to compare with")
+    ap.add_argument("--measure", help=argparse.SUPPRESS)  # one turn's output file
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_report: no CUDA device visible", file=sys.stderr)
+        return 1
+    if args.measure:
+        _measure(args.measure)
+        return 0
+    if not args.parent:
+        ap.error("--parent is required")
+    from nns_tpu_torch.kernels import _cuda
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    parent = os.path.abspath(args.parent)
+    os.makedirs(_cuda._BUILD_DIR, exist_ok=True)
+    _ptxas(_cuda, _cuda._CSRC, "this tree")
+    _ptxas(_cuda, os.path.join(parent, "nns_tpu_torch", "csrc"), "parent")
+    turns = []
+    with tempfile.TemporaryDirectory(dir=_cuda._BUILD_DIR) as tmp:
+        for i, tag in enumerate(_TURNS):
+            root = parent if tag == "parent" else _ROOT
+            out = os.path.join(tmp, f"turn{i}.pt")
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", out],
+                           cwd=root, env={**os.environ, "PYTHONPATH": root}, check=True,
+                           timeout=1200)
+            turns.append(torch.load(out))
+    p1, n1, n2, p2 = turns
+    for j, row in enumerate(n1["rows"]):
+        if not all(t["rows"][j]["name"] == row["name"] for t in turns):
+            raise AssertionError(f"the turns measured different cases at {row['name']}")
+        if not all(torch.equal(a, b) for a, b in zip(p1["outputs"][j], n1["outputs"][j])):
+            raise AssertionError(f"the two trees' kernels disagree on {row['name']}")
+        bound_ms, bound_by = _bound(row["bound"])
+        for key, what in (("ms", "cuda_ms"), ("device_ms", "cuda_device_ms")):
+            old = (p1["rows"][j][key] + p2["rows"][j][key]) / 2
+            new = (row[key] + n2["rows"][j][key]) / 2
+            print(f"[time] {row['name']}, {what}: parent {p1['rows'][j][key]:.4f} / "
+                  f"{p2['rows'][j][key]:.4f} ms, this tree {row[key]:.4f} / "
+                  f"{n2['rows'][j][key]:.4f} ms (in turns); bound {bound_ms:.4f} ms "
+                  f"({bound_by}); share of bound parent {bound_ms / old:.1%}, this tree "
+                  f"{bound_ms / new:.1%}; speed-up {old / new:.2f}x; outputs bit-equal",
+                  flush=True)
+        if row["detail"]:
+            print(f"[plan] {row['name']}: this tree {row['detail']}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    if "--measure" in sys.argv:
+        # Run as a file for one turn: import the measured tree's package from
+        # PYTHONPATH, never from this file's directory.
+        sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != _HERE]
+    sys.exit(main())

@@ -209,3 +209,62 @@ def test_convert_rejects_bad_state():
         cell_engine_from_numpy({k: v for k, v in state.items() if k != "halo_ids"}, "cpu")
     with pytest.raises(ValueError):
         cell_engine_from_numpy({**state, "R_max": state["R_max"] + 256}, "cpu")
+
+
+def _shared_slot_answers_agree(dense, d2, sgid):
+    """Per group, every slot whose coordinates another slot of the group
+    shares has that slot's (min_d2, signed id)."""
+    for g in range(dense.shape[0]):
+        _, inv = np.unique(dense[g], axis=0, return_inverse=True)
+        inv = inv.ravel()
+        for u in np.unique(inv):
+            same = inv == u
+            assert (d2[g][same] == d2[g][same][0]).all(), g
+            assert (sgid[g][same] == sgid[g][same][0]).all(), g
+
+
+def test_cell_scan_equal_slots_equal_answers():
+    # The invariant the CUDA scan scores by: within one group, slots with
+    # the same coordinates get the same answer. Group 0 keeps its padding
+    # and gets a real query at the origin (and one at -0.0); group 1 has no
+    # zero slot and two repeated queries; the others are the staged batch.
+    _, r = make_dataset(3, 1, 8192, seed=41)
+    jeng = jax_cells.CellListEngine(r)
+    eng = cell_engine_from_numpy(_jax_state(jeng), device="cpu")
+    packed, _, q_max = eng.stage(_queries_with_far_rows(100, 41))
+    dense, _ = eng._dense_scatter(packed, q_max)
+    rng = np.random.default_rng(41)
+    pad = np.flatnonzero(~dense[0].any(axis=1))
+    assert len(pad) >= 3
+    dense[0, pad[0]] = 0.0
+    dense[0, pad[1]] = np.array([-0.0, 0.0, -0.0], np.float32)
+    dense[1] = rng.random((q_max, 3), dtype=np.float32) * np.float32(0.3) + np.float32(0.01)
+    dense[1, 5] = dense[1, 0]
+    dense[1, 7] = dense[1, 0]
+    assert dense[1].all(axis=1).all()
+    d_j, s_j = jax_cells._cell_scan(jnp.asarray(dense), jeng.halo_dm, jeng.halo_ids_dev,
+                                    jnp.float32(jeng.halo) ** 2, interpret=True)
+    d_t, s_t = cell_scan(torch.from_numpy(dense), eng.halo_dm, eng.halo_ids_dev, eng.halo2)
+    for d2, sgid in ((np.asarray(d_j)[:, :, 0], np.asarray(s_j)[:, :, 0]),
+                     (d_t.numpy(), s_t.numpy())):
+        _shared_slot_answers_agree(dense, d2, sgid)
+        zero = ~dense.any(axis=2)  # all padded slots and the origin queries
+        for g in range(dense.shape[0]):
+            if zero[g].any():
+                assert (sgid[g][zero[g]] == sgid[g][zero[g]][0]).all()
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j)[:, :, 0])
+
+
+def test_empty_queue_returns_empty_list():
+    # Deliberate deviation: the JAX package raises ValueError (it
+    # concatenates an empty list); the port returns [], as v4 and v9 do.
+    _, r = make_dataset(3, 1, 70000, seed=42)
+    eng = CellListEngine(r, device="cpu")
+    assert eng.query_queue([]) == []
+    assert eng.query_queue([], return_coverage=True) == ([], [])
+    import nns_tpu_torch
+    cells = nns_tpu_torch.NNEngine("cells", device="cpu").build(r)
+    assert isinstance(cells._built, CellListEngine)
+    assert cells.query_many([]) == []
+    with pytest.raises(ValueError):
+        jax_cells.CellListEngine(r).query_queue([])

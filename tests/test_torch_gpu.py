@@ -1,8 +1,8 @@
 """Kernel tests that need the GPU: each CUDA kernel of nns_tpu_torch against
 its plain PyTorch version on the card, at small shapes that reach every
 code path (query tiles past m, many ref splits or tiles, ragged streamed
-tiles, several constant-memory chunks, several halo tiles, empty slots,
-exact ties).
+tiles, several passes over a ref range, rows shared by threads, several
+halo tiles, padded and repeated slots, unaligned rows, exact ties).
 
 Tolerance: indices exactly equal and min_d2 bit-equal — kernel and plain
 version both round each sub, mul and add to nearest in the same order (the
@@ -38,12 +38,15 @@ from nns_tpu_torch.kernels.fused import (
     prepare_refs,
 )
 from nns_tpu_torch.kernels.fused_ladder import (
+    QRES_TEMPLATE_KS,
     fused_point_major_min_idx,
     fused_point_major_plain,
     fused_queries_resident_min_idx,
     fused_queries_resident_plain,
     fused_streaming_min_idx,
     fused_streaming_plain,
+    qres_launch_shape,
+    qres_plan,
     two_level_min_idx,
     two_level_plain,
 )
@@ -122,7 +125,10 @@ def test_fused_kernel_duplicate_and_equal_refs(cuda):
     assert (got[1].cpu().numpy() == 0).all()
 
 
-@pytest.mark.parametrize("qm,r_max", [(8, 256), (16, 2304), (2048, 1280)])
+# QM = 8, 16 and 32 within one warp of the 128-thread block, 64 across its
+# warps, 256 and 2048 across the 256-thread block's.
+@pytest.mark.parametrize("qm,r_max", [(8, 256), (16, 2304), (2048, 1280), (32, 256),
+                                      (64, 1280), (256, 2304)])
 def test_cell_scan_kernel_equals_plain(cuda, qm, r_max):
     rng = np.random.default_rng(qm + r_max)
     g = 27
@@ -140,6 +146,70 @@ def test_cell_scan_kernel_equals_plain(cuda, qm, r_max):
     assert _cuda.LAUNCHES["cell_scan"] == before + 1
     _assert_same(got, cell_scan_plain(*args))
     assert int(got[1][3, 0]) == min(ids[3, 7], ids[3, 200])
+
+
+def _cell_case(rng, g, qm, r_max, real=0.5):
+    halo = rng.random((g, 3, r_max), dtype=np.float32)
+    halo[:, :, max(r_max - 50, r_max // 2):] = 1e6  # sentinel-padded tail
+    ids = rng.permutation(g * r_max).astype(np.int32).reshape(g, r_max)
+    dense = rng.random((g, qm, 3), dtype=np.float32)
+    dense[:, int(qm * real):] = 0.0  # padded slots
+    return dense, halo, ids
+
+
+def _run_cell(cuda, dense, halo, ids, halo2=float(np.float32(0.05) ** 2)):
+    args = (torch.as_tensor(dense, device=cuda), torch.as_tensor(halo, device=cuda),
+            torch.as_tensor(ids, device=cuda), halo2)
+    before = _cuda.LAUNCHES["cell_scan"]
+    got = cell_scan(*args)
+    assert _cuda.LAUNCHES["cell_scan"] == before + 1
+    _assert_same(got, cell_scan_plain(*args))
+    return got[0].cpu().numpy(), got[1].cpu().numpy()
+
+
+def test_cell_scan_distinct_slot_cases(cuda):
+    # Group 0 all padding, group 1 without a zero slot (and with a repeated
+    # slot), group 2 a real query at the origin and one at -0.0 among the
+    # padding, group 3 a halo of sentinels only: the sentinel tail wins.
+    rng = np.random.default_rng(21)
+    dense, halo, ids = _cell_case(rng, 6, 16, 1280)
+    dense[0] = 0.0
+    dense[1] = rng.random((16, 3), dtype=np.float32) + np.float32(0.01)
+    dense[1, 9] = dense[1, 2]
+    dense[2, 12] = 0.0
+    dense[2, 13] = np.array([-0.0, 0.0, -0.0], np.float32)
+    halo[3] = 1e6
+    halo[2, :, 40] = 0.0  # a halo point at the origin
+    d, s = _run_cell(cuda, dense, halo, ids)
+    assert (d[0] == d[0, 0]).all() and (s[0] == s[0, 0]).all()
+    assert d[1, 9] == d[1, 2] and s[1, 9] == s[1, 2]
+    assert (s[2, 8:] == ids[2, 40]).all() and (d[2, 8:] == 0.0).all()
+    assert (d[3] > 1e11).all() and (s[3] < 0).all()
+
+
+def test_cell_scan_several_tiles_tie_across_tiles(cuda):
+    # QM = 2048 and R_max = 8192: four ring tiles per group. An exact tie
+    # between a point of the first tile and one of the fourth, the smaller
+    # id in the fourth.
+    rng = np.random.default_rng(22)
+    dense, halo, ids = _cell_case(rng, 3, 2048, 8192, real=0.3)
+    halo[1, :, 7000] = halo[1, :, 100]
+    ids[1, 100], ids[1, 7000] = 5_000_000, 17
+    dense[1, 0] = halo[1, :, 100]
+    d, s = _run_cell(cuda, dense, halo, ids)
+    assert s[1, 0] == 17 and d[1, 0] == 0.0
+
+
+@pytest.mark.parametrize("r_max", [777, 1, 6])
+def test_cell_scan_plain_load_path(cuda, r_max):
+    # R_max not a multiple of 4: the rows are not 16-byte aligned for a bulk
+    # copy, so every thread fills the stage.
+    rng = np.random.default_rng(r_max)
+    dense, halo, ids = _cell_case(rng, 9, 8, r_max)
+    if r_max > 100:
+        halo[4, :, 600] = halo[4, :, 3]
+        dense[4, 0] = halo[4, :, 3]
+    _run_cell(cuda, dense, halo, ids)
 
 
 def test_cell_engine_cuda_equals_cpu(cuda):
@@ -172,8 +242,8 @@ def _ladder_refs(name, r, dev):
 
 
 # Query tiles past m, one to many ref ranges and 4096-column tables,
-# streamed tiles with a ragged end, 2 constant-memory chunks at k = 3 and
-# k = 16, and k = 40 (over 48 KB of streamed shared memory).
+# streamed tiles with a ragged end, several v6 passes at k = 3 and k = 16,
+# and k = 40 (over 48 KB of streamed shared memory).
 @pytest.mark.parametrize("m,n,k", [(1, 5000, 3), (300, 5000, 3), (17, 70000, 16),
                                    (1000, 3000, 3), (40, 200_000, 3), (33, 777, 5),
                                    (6000, 2000, 3), (1100, 3000, 16), (20, 3000, 40)])
@@ -217,6 +287,70 @@ def test_ladder_kernel_duplicate_ties(cuda, name):
     got = kernel(qd, refs, r.shape[0])
     _assert_same(got, plain(qd, refs, r.shape[0]))
     assert (got[1][:20].cpu().numpy() == 11).all()
+
+
+# v6 at template k (3, 16) and run-time k (1, 5, 17, 64, 300 and, in
+# slices of 16 dims, 4096 and 20000: k the 4 MB budget admits beyond the
+# shared memory a whole-k stage would need), m past one pass of 256 x
+# rows-per-thread rows, n not a multiple of the ring tile.
+@pytest.mark.parametrize("m,n,k", [(300, 5000, 1), (1100, 70001, 3), (600, 3001, 5),
+                                   (1030, 20000, 16), (257, 9999, 17), (300, 4097, 64),
+                                   (40, 3000, 300), (64, 3001, 4096), (50, 1001, 20000)])
+def test_queries_resident_kernel_equals_plain(cuda, m, n, k):
+    q, r = make_dataset(k, m, n, seed=500 + k)
+    r_dm, _ = prepare_refs(r, 4096, cuda)
+    qd = torch.as_tensor(q, device=cuda)
+    plan, _ = qres_launch_shape(m, k, cuda)
+    assert plan.passes(m) > 1 or plan.threads_per_row > 1
+    assert plan.q_rows == 1 or k in QRES_TEMPLATE_KS
+    before = _cuda.LAUNCHES["fused_queries_resident"]
+    got = fused_queries_resident_min_idx(qd, r_dm, n)
+    assert _cuda.LAUNCHES["fused_queries_resident"] == before + 1
+    _assert_same(got, fused_queries_resident_plain(qd, r_dm, n))
+    assert recall_at_1(got[1].cpu().numpy(), q, r) == 1.0
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("pitch", ["padded", "unaligned"])
+def test_queries_resident_ties_at_tile_edges(cuda, k, pitch):
+    # Duplicates of the target on both sides of ring-tile and range edges;
+    # an unaligned pitch (777 columns) takes the plain-load path.
+    rng = np.random.default_rng(k)
+    n = 777 if pitch == "unaligned" else 50_000
+    r = rng.random((n, k), dtype=np.float32)
+    target = rng.random(k, dtype=np.float32)
+    cols = (255, 256, 511, 512, 776) if pitch == "unaligned" else (255, 256, 4096, 25_000, 49_999)
+    for c in cols:
+        r[c] = target
+    q = np.concatenate([np.repeat(target[None], 300, 0), rng.random((7, k), dtype=np.float32)])
+    r_dm = (torch.as_tensor(r, device=cuda).t().contiguous() if pitch == "unaligned"
+            else prepare_refs(r, 4096, cuda)[0])
+    qd = torch.as_tensor(q, device=cuda)
+    got = fused_queries_resident_min_idx(qd, r_dm, n)
+    _assert_same(got, fused_queries_resident_plain(qd, r_dm, n))
+    assert (got[1][:300].cpu().numpy() == 255).all()
+
+
+def test_queries_resident_plan_agrees_with_the_kernel_library(cuda):
+    # qres_plan (host) and the library state one rule: the library takes
+    # every plan the host makes, with the same shared memory, and refuses a
+    # plan it has no instance for.
+    lib = _cuda.library()
+    optin = _cuda.smem_optin(lib)
+    smem, slots = ctypes.c_longlong(), ctypes.c_int()
+    for k in [*range(1, 81), 100, 300, 1000, 4096, 20000, 1 << 20]:
+        for m in (1, 8, 64, 300, 1024, 10000):
+            plan = qres_plan(m, k, optin)
+            rc = lib.nns_fused_queries_resident_smem(k, plan.q_rows, plan.threads_per_row,
+                                                     plan.tile, plan.dims, ctypes.byref(smem),
+                                                     ctypes.byref(slots))
+            assert rc == 0 and smem.value == plan.smem_bytes and slots.value >= 1, (k, m, rc)
+    # (k, rows per thread, threads per row, tile, dims per stage)
+    for bad in ((5, 4, 1, 32, 5), (3, 4, 2, 256, 3), (3, 1, 3, 256, 3), (3, 2, 1, 256, 3),
+                (3, 1, 64, 256, 3), (3, 4, 1, 6, 3), (16, 4, 1, 256, 8), (40, 1, 1, 64, 14),
+                (40, 1, 1, 32, 17), (3, 1, 1, 32, 4), (5, 1, 1, 32, 0)):
+        rc = lib.nns_fused_queries_resident_smem(*bad, ctypes.byref(smem), ctypes.byref(slots))
+        assert rc != 0, bad
 
 
 def test_two_level_small_tiles_equal_plain(cuda):

@@ -260,3 +260,56 @@ def test_ladder_wrappers_reject_bad_input():
     meta = torch.empty((4, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fused_ladder.two_level_min_idx(meta, torch.empty((3, 8), device="meta"))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 16, 17, 64, 300, 3000, 4096, 20000])
+def test_qres_plan_covers_every_row_once(k):
+    # The v6 kernel's plan (csrc/fused_queries_resident.cu): pass p writes
+    # rows p * R + q * (256 // tpr) + t // tpr from the first of the tpr
+    # threads of each row (q < q_rows, t < 256, R = rows_per_pass); every
+    # row of m, from 1 to the 4 MB query budget, must be written exactly once,
+    # and the ring's slices of dims must cover the k dimensions, within the
+    # card's shared memory.
+    optin = 232448  # the H100's opt-in shared memory per block
+    budget_rows = (4 << 20) // (4 * k)
+    for m in sorted({1, 7, 64, 255, 256, 257, 1023, 1024, 1025, 5000, budget_rows}):
+        plan = fused_ladder.qres_plan(m, k, optin)
+        assert plan.smem_bytes == fused_ladder.qres_smem_bytes(
+            k, plan.dims, plan.tile, plan.rows_per_pass) <= optin
+        assert plan.tile % 4 == 0 and 32 % plan.threads_per_row == 0
+        if k in fused_ladder.QRES_TEMPLATE_KS:
+            assert plan.dims == k
+        else:
+            assert plan.q_rows == 1 and 1 <= plan.dims <= 16
+            slices = -(-k // plan.dims)
+            # Sums carried over slices: 8 four-column groups per thread.
+            assert slices == 1 or plan.tile <= 32 * plan.threads_per_row
+            assert (slices - 1) * plan.dims < k <= slices * plan.dims
+            assert slices == -(-k // 16)
+        step = fused_ladder.QRES_THREADS // plan.threads_per_row
+        per_pass = (np.arange(plan.q_rows)[:, None] * step + np.arange(step)).ravel()
+        assert len(per_pass) == plan.rows_per_pass
+        rows = (np.arange(plan.passes(m))[:, None] * plan.rows_per_pass + per_pass).ravel()
+        rows = rows[rows < m]
+        assert np.array_equal(np.bincount(rows, minlength=m), np.ones(m, np.int64)), m
+
+
+def test_qres_plan_fits_rows_to_threads():
+    optin = 232448
+    plan = fused_ladder.qres_plan
+    # The ladder's shapes: four rows per thread at template k, one pass of
+    # 1024 rows; a run-time k one row per thread.
+    assert (plan(1024, 3, optin).q_rows, plan(1024, 3, optin).threads_per_row) == (4, 1)
+    assert (plan(10000, 16, optin).q_rows, plan(10000, 16, optin).passes(10000)) == (4, 10)
+    assert (plan(1024, 5, optin).q_rows, plan(1024, 5, optin).threads_per_row) == (1, 1)
+    # A small query set shares each row among threads instead of idling them.
+    assert plan(64, 3, optin).rows_per_pass == 64
+    assert plan(1, 17, optin).threads_per_row == 32
+    # A large k slices the contraction instead of sharing rows, and needs the
+    # same shared memory at any k: every k the 4 MB budget admits has a plan.
+    assert plan(1024, 300, optin).threads_per_row == 1
+    assert plan(1024, 5, optin).tile == 256 and plan(1024, 17, optin).tile == 32
+    assert plan(64, 4096, optin).smem_bytes == plan(64, 1 << 20, optin).smem_bytes <= 40000
+    assert (plan(1, 17, optin).dims, plan(1, 64, optin).dims, plan(1, 65, optin).dims) == (9, 16, 13)
+    with pytest.raises(ValueError, match="no plan"):
+        plan(1024, 5, 200)
