@@ -25,12 +25,22 @@ result) without them. Phases, each raising on failure:
 4. the one-shot ``nns(version=4)`` and ``nns(version="cells")`` at 1M x 10K;
 5. the ladder's kernels (v3 point-major, v5 streaming, v6 queries-resident,
    v7 two-level) against their plain versions at 10000 x 1M k=3, 1024 x 1M
-   k=3, 1024 x 1M k=16, duplicate ties and an unaligned 33 x 777 k=5, with
-   the same tolerance 0 and timing as phase 2. v6 runs its Hopper design:
-   each thread's query rows in registers (k = 3 and 16 as template
-   parameters; k = 5 at run time, the contraction in slices of at most 16
-   dims), the refs through a two-stage ring of bulk asynchronous copies,
-   one walk of each ref range per 1024 rows;
+   k=3, 1024 x 1M k=16, duplicate ties and an unaligned 33 x 777 k=5, and
+   v5 at 1024 x 65536 k=128 (where a whole-k stage once outgrew shared
+   memory), with the same tolerance 0 and timing as phase 2. v6 runs its
+   Hopper design: each thread's query rows in registers (k = 3 and 16 as
+   template parameters; k = 5 at run time, the contraction in slices of at
+   most 16 dims), the refs through a two-stage ring of bulk asynchronous
+   copies, one walk of each ref range per 1024 rows. v3 and v5 run theirs:
+   query tiles of 256 or 1024 rows held in registers (4 rows per thread at
+   k = 3 and 16), the refs through a 4-stage producer/consumer ring (one
+   producer warp issues the bulk copies, full and empty mbarriers per
+   stage, no block-wide barrier in the loop): v5 one copy per dimension row
+   of a dim-major tile (in slices of at most 16 dims at a run-time k), v3
+   one copy per stage of whole points in the caller's (n, k) layout, the
+   last 0-3 floats loaded by hand so that nothing past row n is read; below
+   256 rows (the 64-row ties case) threads share each row and split its
+   columns;
 6. the ladder: ``nns(version=v)`` for v = 0..7 and 9 at 1024 x 1M, k = 3
    and 16. Each answer passes the f64 gate on a 512-row subsample; v1, v3,
    v4, v5, v6, v7 and v9 return equal index arrays; v0 (host scan) and v2
@@ -57,7 +67,8 @@ result) without them. Phases, each raising on failure:
    10K-row chunks with the same tolerance, and so is the mma.sync kernel on
    the same launch (timed beside it); all 640K answers must equal the v4
    kernel's; batch 0 passes the f64 gate on the ladder's 512-row oracle and
-   up to 128 uncertified rows pass a float64 scan on the card;
+   up to 128 uncertified rows pass a float64 scan on the card; the rows of
+   each v3 full scan the drain runs are printed;
 9. one JSON line of per-kernel results, each row with the shape its ms,
    plain_ms and bound come from (the scan also on the skewed batch,
    ``*_skewed``; the ladder's kernels and v4 also at 1024 x 1M k=16,
@@ -422,6 +433,14 @@ def main() -> int:
             results[name].append(_compare(f"{name} {case}", kernel_fn, plain_fn,
                                           (qc, rc_pm if pm else rc_dm, n), expect))
     del ladder_cases
+    # v5 where a whole-k stage outgrew the opt-in shared memory (k >= 56):
+    # the sliced instance, 16 dims per stage.
+    q128s, r128s = make_dataset(128, 1024, 65536, SEED)
+    results["fused_streaming"].append(_compare(
+        "fused_streaming 1024 x 65536 k=128 (sliced)", fl.fused_streaming_min_idx,
+        fl.fused_streaming_plain,
+        (torch.as_tensor(q128s, device=dev), prepare_refs(r128s, 4096, dev)[0], 65536)))
+    del q128s, r128s
 
     # 6. The ladder through the public entry point.
     ladder_launches = {name: 0 for name, *_ in LADDER_KERNELS}
@@ -549,7 +568,14 @@ def main() -> int:
         drain_phase1.append(((qc, rc, r2h, tile_n, ts), rc_t, out))
         return out
 
-    mxe.phase1 = _recorded
+    # And the rows of each full scan (v3 at the drain's own small m).
+    full_scan_rows, full_scan = [], mxe._full_scan_rows
+
+    def _full_scan_recorded(qb, refs_t, n):
+        full_scan_rows.append(qb.shape[0])
+        return full_scan(qb, refs_t, n)
+
+    mxe.phase1, mxe._full_scan_rows = _recorded, _full_scan_recorded
     try:
         _cuda.reset_launches()
         t0 = time.perf_counter()
@@ -557,9 +583,10 @@ def main() -> int:
         queue_ms = (time.perf_counter() - t0) * 1e3
         launches["expansion_phase1_wgmma"] = _cuda.LAUNCHES["expansion_phase1_wgmma"]
     finally:
-        mxe.phase1 = phase1
+        mxe.phase1, mxe._full_scan_rows = phase1, full_scan
     launches["expansion_phase1"] = mma_launches  # the v9 path at k = 128, phase 7
-    _log(f"[v9] launches during query_many: {dict(_cuda.LAUNCHES)}")
+    _log(f"[v9] launches during query_many: {dict(_cuda.LAUNCHES)}; full scans of "
+         f"{full_scan_rows} rows")
     if launches["expansion_phase1_wgmma"] < 1:
         raise AssertionError("kernel expansion_phase1_wgmma was not launched by the v9 main path")
     allq = np.concatenate(batches16)

@@ -129,7 +129,7 @@ _SPECS = [
     VersionSpec(2, "expansion_matmul", "bruteforce", "|q-r|^2 full-fp32 expansion matmul + exact refine (v2, thrust analog)", fn=_v2),
     VersionSpec(3, "fused_point_major", "bruteforce", "fused CUDA kernel, point-major refs (v3)", fn=_v3),
     VersionSpec(4, "fused", "bruteforce", "fused CUDA kernel, dim-major refs — flagship brute force (v4, SoA analog)", fn=_v4),
-    VersionSpec(5, "fused_streaming", "bruteforce", "fused CUDA kernel, ref tiles streamed through shared memory by cp.async (v5, texture analog)", fn=_v5),
+    VersionSpec(5, "fused_streaming", "bruteforce", "fused CUDA kernel, ref tiles streamed through a shared-memory ring of bulk copies (v5, texture analog)", fn=_v5),
     VersionSpec(6, "fused_queries_resident", "bruteforce", "fused CUDA kernel, query set resident on chip, grid over ref ranges only (v6, constant-memory analog)", fn=_v6),
     VersionSpec(7, "two_level", "bruteforce", "per-tile partial winners + second reduce (v7, multi-block analog)", fn=_v7),
     VersionSpec(8, "sharded", "sharded", "refs sharded over devices, argmin merge (v8, 4-GPU analog)", roadmap_slice=8),

@@ -111,6 +111,32 @@ def build(force: bool = False) -> str:
     return _LIB
 
 
+_vp, _ci, _cf, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_PHASE1 = [_vp, _vp, _vp, _ci, _ci, _cll, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp]
+# The argument types of the library's C entry points (each returns an int,
+# a cudaError_t); a CPU test holds them against the extern "C" definitions
+# under csrc/.
+SIGNATURES = {
+    "nns_fused_argmin": [_vp, _vp, _ci, _ci, _ci, _cll, _ci, _vp, _vp, _vp, _vp, _vp],
+    "nns_cell_scan": [_vp, _vp, _vp, _ci, _ci, _ci, _cf, _vp, _vp, _vp],
+    "nns_fused_point_major":
+        [_vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp],
+    "nns_fused_point_major_smem": [_ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp],
+    "nns_fused_streaming":
+        [_vp, _vp, _ci, _ci, _ci, _cll, _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp],
+    "nns_fused_streaming_smem": [_ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp],
+    "nns_fused_queries_resident":
+        [_vp, _vp, _ci, _ci, _ci, _cll, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp],
+    "nns_fused_queries_resident_smem": [_ci, _ci, _ci, _ci, _ci, _vp, _vp],
+    "nns_two_level": [_vp, _vp, _ci, _ci, _ci, _cll, _ci, _vp, _vp, _vp],
+    "nns_expansion_phase1": _PHASE1,
+    "nns_expansion_phase1_wgmma": _PHASE1,
+    "nns_expansion_phase1_blocks_per_sm": [_ci, _vp],
+    "nns_expansion_phase1_wgmma_blocks_per_sm": [_ci, _ci, _vp],
+    "nns_smem_optin": [_vp],
+}
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use). Raises RuntimeError
     when it cannot be built or loaded."""
@@ -123,27 +149,11 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
         except OSError as e:
             raise RuntimeError(f"cannot load {path}: {e}") from e
-        vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        phase1 = [vp, vp, vp, ci, ci, cll, ci, ci, ci, ci, vp, vp, vp, vp, vp]
-        for name, argtypes in (
-            ("nns_fused_argmin", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp, vp, vp]),
-            ("nns_cell_scan", [vp, vp, vp, ci, ci, ci, cf, vp, vp, vp]),
-            ("nns_fused_point_major", [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp]),
-            ("nns_fused_streaming", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp, vp, vp]),
-            ("nns_fused_queries_resident",
-             [vp, vp, ci, ci, ci, cll, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]),
-            ("nns_fused_queries_resident_smem", [ci, ci, ci, ci, ci, vp, vp]),
-            ("nns_two_level", [vp, vp, ci, ci, ci, cll, ci, vp, vp, vp]),
-            ("nns_expansion_phase1", phase1),
-            ("nns_expansion_phase1_wgmma", phase1),
-            ("nns_expansion_phase1_blocks_per_sm", [ci, vp]),
-            ("nns_expansion_phase1_wgmma_blocks_per_sm", [ci, ci, vp]),
-            ("nns_smem_optin", [vp]),
-        ):
+        for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ci
-        lib.nns_cuda_error_string.argtypes = [ci]
+            fn.restype = _ci
+        lib.nns_cuda_error_string.argtypes = [_ci]
         lib.nns_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
         return _lib

@@ -79,31 +79,26 @@ def n_sm(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def launch_split(key: str, queries, refs, n: int, splits: int, *pitch):
-    """Launch the csrc/ entry ``nns_<key>(q, refs, m, k, n, *pitch, splits,
-    part_d, part_i, out_d, out_i, stream)`` on the current stream: a scan
-    that writes an (splits, m) table of partial winners, then a merge per
-    query. Raises RuntimeError on a CUDA error, else counts the launch in
-    ``_cuda.LAUNCHES[key]``. Returns (min_d2, idx)."""
+def _fused_min_idx_cuda(queries, r_dm, n):
+    """Launch csrc/fused_argmin.cu on the current stream: a scan that writes
+    an (splits, m) table of partial winners, then a merge per query. Raises
+    RuntimeError on a CUDA error, else counts the launch. Returns (min_d2,
+    idx)."""
     m, k = queries.shape
     dev = queries.device
+    splits = fused_splits(m, n, n_sm(dev))
     part_d, part_i = partials(splits, m, dev)
     out_d, out_i = partials(m, None, dev)
     lib = _cuda.library()
     with torch.cuda.device(dev):
-        rc = getattr(lib, f"nns_{key}")(
-            queries.data_ptr(), refs.data_ptr(), m, k, n, *pitch, splits,
+        rc = lib.nns_fused_argmin(
+            queries.data_ptr(), r_dm.data_ptr(), m, k, n, r_dm.shape[1], splits,
             part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _cuda.check(lib, rc, key)
-    _cuda.LAUNCHES[key] += 1
+    _cuda.check(lib, rc, "fused_argmin")
+    _cuda.LAUNCHES["fused_argmin"] += 1
     return out_d, out_i
-
-
-def _fused_min_idx_cuda(queries, r_dm, n):
-    splits = fused_splits(queries.shape[0], n, n_sm(queries.device))
-    return launch_split("fused_argmin", queries, r_dm, n, splits, r_dm.shape[1])
 
 
 def partials(rows: int, cols: int | None, device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -4,9 +4,12 @@ of ``nns_tpu/kernels/pallas_fused.py:226-505``.
 Each rung keeps the memory idea it stands for in the reference ladder, in a
 CUDA kernel of its own under ``csrc/``:
 
-- v3 ``fused_point_major``: refs read point-major (n, k), uncoalesced;
-- v5 ``fused_streaming``: ref tiles streamed through shared memory by
-  double-buffered ``cp.async``;
+- v3 ``fused_point_major``: refs kept point-major (n, k), unpadded, stages
+  of whole points (one contiguous span each) through a producer/consumer
+  ring of bulk copies, each point read by a warp as a broadcast;
+- v5 ``fused_streaming``: dim-major ref tiles (in slices of at most 16 dims
+  where k is not a template parameter) streamed through the same ring, one
+  bulk copy per dimension row;
 - v6 ``fused_queries_resident``: the query set resident on chip (each
   thread's rows in registers), a grid over ref ranges only, ref tiles (in
   slices of at most 16 dims where k is not a template parameter) through a
@@ -36,9 +39,6 @@ from nns_tpu_torch.kernels import _cuda, layouts
 from nns_tpu_torch.kernels.fused import (
     as_f32,
     fused_min_idx_plain,
-    fused_splits,
-    launch_split,
-    n_sm,
     nns_fused,
     partials,
     prepare_refs,
@@ -50,8 +50,165 @@ _MAX_GRID_Y = 65535
 
 
 # ---------------------------------------------------------------------------
-# v3: point-major refs
+# v3 and v5: a producer/consumer ring of ref stages, query rows in registers
 # ---------------------------------------------------------------------------
+
+
+# The k that csrc/fused_streaming.cu and csrc/fused_point_major.cu take as a
+# template parameter (4 or 1 query rows in each consumer thread's registers);
+# every other k runs a sliced instance. A block has RING_CONSUMERS consumer
+# threads and one producer warp.
+RING_TEMPLATE_KS = (3, 16)
+RING_ROWS_PER_THREAD = 4
+RING_CONSUMERS = 256
+RING_LAYOUTS = ("dim_major", "point_major")
+_RING_STAGES = 4
+_RING_MAX_DIMS = 16  # v5 sliced: dims per stage
+_RING_GROUPS = 8     # v5 sliced: four-column groups carried across slices
+# Stage columns (v5) or points (v3) at a template k, and the sliced v5's
+# one-slice stage width; v3's sliced stages shrink as k grows.
+_RING_COLS = {("dim_major", 3): 512, ("dim_major", 16): 256,
+              ("point_major", 3): 1024, ("point_major", 16): 256}
+_RING_SLICED_COLS = 256
+_RING_PM_POINTS = (256, 128, 64, 32, 16, 8, 4, 2, 1)
+# v3 sliced: points per stage while their coordinates fit 16 KiB, so that
+# two blocks of 4 stages share an SM; past k = 4096 one point, 4 stages or 2.
+_RING_PM_STAGE_BYTES = 16384
+# v3 sliced: 4 rows per thread (8-dim query chunks) up to this k, else 1.
+_RING_PM_ROWS4_MAX_K = 8
+# Threads sharing a query row below one tile of rows: 1 to 32, so a tile
+# holds 256 down to 8 rows.
+_RING_MAX_TPR = 32
+_RING_KEYS = {"dim_major": "fused_streaming", "point_major": "fused_point_major"}
+
+
+@dataclass(frozen=True)
+class RingPlan:
+    """How the v3 or v5 kernel runs m k-dimensional queries: each of the
+    RING_CONSUMERS consumer threads holds ``q_rows`` query rows, which
+    ``threads_per_row`` threads share (each its own columns), a stage of the
+    ring holds ``dims`` of the k dimensions of ``cols`` ref columns (v5,
+    dim-major) or ``cols`` whole points (v3, point-major: ``dims`` == k), the
+    ring has ``stages`` stages, and a block takes ``smem_bytes`` of dynamic
+    shared memory. With stride = RING_CONSUMERS // threads_per_row, query
+    tile x holds rows x * rows_per_tile + q * stride + t % stride for q <
+    q_rows and consumer thread t, which takes part t // stride of the
+    columns."""
+
+    q_rows: int
+    threads_per_row: int
+    cols: int
+    dims: int
+    stages: int
+    smem_bytes: int
+
+    @property
+    def rows_per_tile(self) -> int:
+        return RING_CONSUMERS * self.q_rows // self.threads_per_row
+
+    def q_tiles(self, m: int) -> int:
+        return -(-m // self.rows_per_tile)
+
+
+def ring_smem_bytes(layout: str, k: int, cols: int, dims: int, stages: int) -> int:
+    """The kernel's dynamic shared memory: 16 bytes of mbarriers per stage,
+    then the stages, (dims, cols) floats dim-major or, point-major, cols * k
+    floats and room for 0-3 floats of alignment in front, rounded up to 4."""
+    stage = dims * cols if layout == "dim_major" else layouts.round_up(cols * k + 3, 4)
+    return 16 * stages + 4 * stages * stage
+
+
+def ring_plan(layout: str, m: int, k: int, smem_optin: int) -> RingPlan:
+    """The v5 (``layout`` "dim_major") or v3 ("point_major") plan for m
+    k-dimensional queries on a card whose blocks get ``smem_optin`` bytes of
+    shared memory. At a template k, and for v3 up to k = 8: 4 rows per
+    thread unless 1 leaves fewer idle rows; else one. Fewer than 256 rows
+    fill one tile of the fewest rows (a power of two, at least 8) that holds
+    them, the threads sharing each row. At any other k, v5 slices the
+    contraction into the fewest slices of at most 16 dims, as equal as they
+    come, with tiles of 32 columns per thread of a row (at most 256) when
+    there are several, so its shared memory does not grow with k; v3 keeps
+    whole points in a stage, the most (at most 256) whose coordinates fit
+    16 KiB, else one, in 4 stages or else 2. Raises ValueError when nothing
+    fits ``smem_optin``."""
+    if layout not in RING_LAYOUTS:
+        raise ValueError(f"layout {layout!r} not in {RING_LAYOUTS}")
+    four = k in RING_TEMPLATE_KS or (layout == "point_major" and k <= _RING_PM_ROWS4_MAX_K)
+    # The most rows per thread that scores no more rows (idle ones included).
+    q_rows = min((RING_ROWS_PER_THREAD, 1) if four else (1,),
+                 key=lambda q: -(-m // (RING_CONSUMERS * q)) * RING_CONSUMERS * q)
+    tpr = 1
+    while q_rows == 1 and tpr < _RING_MAX_TPR and RING_CONSUMERS // (2 * tpr) >= m:
+        tpr *= 2
+    if k in RING_TEMPLATE_KS:
+        shapes = [(_RING_COLS[layout, k], k, _RING_STAGES)]
+    elif layout == "dim_major":
+        slices = -(-k // _RING_MAX_DIMS)
+        cols = (_RING_SLICED_COLS if slices == 1
+                else min(_RING_SLICED_COLS, 4 * _RING_GROUPS * tpr))
+        shapes = [(cols, -(-k // slices), _RING_STAGES)]
+    else:
+        points = next((t for t in _RING_PM_POINTS if 4 * t * k <= _RING_PM_STAGE_BYTES), 1)
+        shapes = [(points, k, stages) for stages in (_RING_STAGES, 2)]
+    fits = [(cols, dims, stages, ring_smem_bytes(layout, k, cols, dims, stages))
+            for cols, dims, stages in shapes]
+    fits = [f for f in fits if f[3] <= smem_optin]
+    if not fits:
+        raise ValueError(f"{_RING_KEYS[layout]}: k={k} leaves no plan within {smem_optin} "
+                         "bytes of shared memory")
+    return RingPlan(q_rows, tpr, *fits[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_setup(key: str, k: int, plan: RingPlan, device_index: int) -> int:
+    """The plan's grid slots on the card. The C side refuses a plan it has
+    no instance for, and its own shared-memory need must equal the plan's."""
+    lib = _cuda.library()
+    with torch.cuda.device(device_index):
+        smem, slots = ctypes.c_longlong(), ctypes.c_int()
+        rc = getattr(lib, f"nns_{key}_smem")(k, plan.q_rows, plan.threads_per_row, plan.cols,
+                                              plan.dims, plan.stages, ctypes.byref(smem),
+                                              ctypes.byref(slots))
+    _cuda.check(lib, rc, key)
+    if smem.value != plan.smem_bytes:
+        raise RuntimeError(f"{key}: the kernel needs {smem.value} bytes of shared memory, "
+                           f"the plan {plan.smem_bytes}")
+    return slots.value
+
+
+def ring_launch_shape(layout: str, m: int, k: int, device) -> tuple[RingPlan, int]:
+    """(plan, grid slots) of the v5 or v3 kernel for m k-dimensional queries
+    on CUDA ``device``."""
+    index = _device_index(device)
+    plan = ring_plan(layout, m, k, _smem_optin(index))
+    return plan, _ring_setup(_RING_KEYS[layout], k, plan, index)
+
+
+def ring_splits(plan: RingPlan, m: int, n: int, slots: int) -> int:
+    """Ref ranges S: as many as fill the grid slots in one wave beside the
+    query tiles, at most one per stage of columns."""
+    return max(1, min(slots // plan.q_tiles(m), -(-n // plan.cols), _MAX_GRID_Y))
+
+
+def _ring_cuda(layout, queries, refs, n):
+    m, k = queries.shape
+    dev = queries.device
+    key = _RING_KEYS[layout]
+    plan, slots = ring_launch_shape(layout, m, k, dev)
+    splits = ring_splits(plan, m, n, slots)
+    part_d, part_i = partials(splits, m, dev)
+    out_d, out_i = partials(m, None, dev)
+    pitch = (refs.shape[1],) if layout == "dim_major" else ()
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, f"nns_{key}")(
+            queries.data_ptr(), refs.data_ptr(), m, k, n, *pitch, splits, plan.q_rows,
+            plan.threads_per_row, plan.cols, plan.dims, plan.stages, part_d.data_ptr(),
+            part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(lib, rc, key)
+    _cuda.LAUNCHES[key] += 1
+    return out_d, out_i
 
 
 def fused_point_major_plain(queries: torch.Tensor, r_pm: torch.Tensor,
@@ -61,17 +218,14 @@ def fused_point_major_plain(queries: torch.Tensor, r_pm: torch.Tensor,
     return fused_min_idx_plain(queries, r_pm.t(), n)
 
 
-def _fused_point_major_cuda(queries, r_pm, n):
-    splits = fused_splits(queries.shape[0], n, n_sm(queries.device))
-    return launch_split("fused_point_major", queries, r_pm, n, splits)
-
-
 def fused_point_major_min_idx(queries: torch.Tensor, r_pm: torch.Tensor,
                               n: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact 1-NN of each (m, k) query over rows [0, n) of the point-major
-    refs (n_rows, k): csrc/fused_point_major.cu on CUDA tensors."""
+    refs (n_rows, k): csrc/fused_point_major.cu on CUDA tensors, one scan
+    launch (as ``ring_plan`` says) and one merge."""
     return run_kernel("fused_point_major_min_idx", fused_point_major_plain,
-                      _fused_point_major_cuda, queries, r_pm, n, point_major=True)
+                      functools.partial(_ring_cuda, "point_major"), queries, r_pm, n,
+                      point_major=True)
 
 
 def nns_fused_point_major(queries, refs, device="cuda") -> torch.Tensor:
@@ -81,37 +235,25 @@ def nns_fused_point_major(queries, refs, device="cuda") -> torch.Tensor:
     return fused_point_major_min_idx(as_f32(queries, device), r)[1]
 
 
-# ---------------------------------------------------------------------------
-# v5: ref tiles streamed through shared memory
-# ---------------------------------------------------------------------------
-
-
 # Plain PyTorch v5: streaming changes where the refs wait, not the
 # arithmetic, so its twin is the v4 plain version.
 fused_streaming_plain = fused_min_idx_plain
 
 
-def _fused_streaming_cuda(queries, r_dm, n):
-    if r_dm.shape[1] % 4 or r_dm.data_ptr() % 16:
-        raise ValueError("fused_streaming needs dim-major refs with a row pitch of a "
-                         "multiple of 4 floats on a 16-byte aligned base (16-byte cp.async)")
-    splits = fused_splits(queries.shape[0], n, n_sm(queries.device))
-    return launch_split("fused_streaming", queries, r_dm, n, splits, r_dm.shape[1])
-
-
 def fused_streaming_min_idx(queries: torch.Tensor, r_dm: torch.Tensor,
                             n: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact 1-NN over columns [0, n) of dim-major refs (k, ld):
-    csrc/fused_streaming.cu on CUDA tensors, which needs ld % 4 == 0 (as
-    ``prepare_refs`` pads) and raises ValueError otherwise."""
+    csrc/fused_streaming.cu on CUDA tensors, one scan launch (as
+    ``ring_plan`` says) and one merge. A pitch that is not a multiple of 4
+    floats, or a misaligned base, takes the kernel's plain-load path."""
     return run_kernel("fused_streaming_min_idx", fused_streaming_plain,
-                      _fused_streaming_cuda, queries, r_dm, n)
+                      functools.partial(_ring_cuda, "dim_major"), queries, r_dm, n)
 
 
 def nns_fused_streaming(queries, refs, tile_n: int = 4096, device="cuda") -> torch.Tensor:
     """v5 one-shot: exact 1-NN indices (m,) i32 on ``device``. The refs are
     replica-padded to a multiple of ``tile_n`` rounded up to 4 columns, so
-    every 16-byte copy of a dim-major row is aligned."""
+    every dim-major row is 16-byte aligned for the bulk copies."""
     r_dm, _ = prepare_refs(refs, layouts.round_up(tile_n, 4), device)
     return fused_streaming_min_idx(as_f32(queries, device), r_dm, refs.shape[0])[1]
 
@@ -227,6 +369,11 @@ def _qres_setup(k: int, plan: QresPlan, device_index: int) -> int:
     return slots.value
 
 
+def _device_index(device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
 @functools.lru_cache(maxsize=None)
 def _smem_optin(device_index: int) -> int:
     with torch.cuda.device(device_index):
@@ -235,8 +382,7 @@ def _smem_optin(device_index: int) -> int:
 
 def qres_launch_shape(m: int, k: int, device) -> tuple[QresPlan, int]:
     """(plan, grid slots) of m k-dimensional queries on CUDA ``device``."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
+    index = _device_index(device)
     plan = qres_plan(m, k, _smem_optin(index))
     return plan, _qres_setup(k, plan, index)
 

@@ -1,4 +1,5 @@
-"""The v14 scan and v6 kernels of this tree against those of another tree.
+"""The v14 scan, v3, v5 and v6 kernels of this tree against those of another
+tree.
 
 Run from the repository root on a machine with one CUDA device:
 ``python -m nns_tpu_torch.utils.kernel_report --parent DIR``, where DIR is
@@ -6,21 +7,28 @@ an unpacked copy of the tree to compare with (``git archive`` of the parent
 commit). It prints the card's name and power limit, then
 
 1. ptxas's registers, shared memory and spills for every kernel of
-   ``csrc/cell_scan.cu`` and ``csrc/fused_queries_resident.cu`` of both
+   ``csrc/cell_scan.cu``, ``csrc/fused_queries_resident.cu``,
+   ``csrc/fused_streaming.cu`` and ``csrc/fused_point_major.cu`` of both
    trees (``nvcc -Xptxas -v`` with this tree's flags);
 2. the times of both trees' kernels, each tree imported in a process of its
-   own and called through its own public wrappers (``cell_list.cell_scan``
-   and ``fused_ladder.fused_queries_resident_min_idx``), in turns (parent,
-   this tree, this tree, parent). Every turn is timed by this tree's
+   own and called through its own public wrappers (``cell_list.cell_scan``,
+   ``fused_ladder.fused_queries_resident_min_idx``,
+   ``fused_point_major_min_idx`` and ``fused_streaming_min_idx``), in turns
+   (parent, this tree, this tree, parent). Every turn is timed by this tree's
    ``utils/timing``: ``cuda_ms`` (CUDA events around each wrapper call,
    median of 5; host time where it is longer than the kernel) and, beside
    it, ``cuda_device_ms`` (the device held busy while the calls are
    enqueued: device time alone), on the same inputs, with each shape's
    bound (``utils/bounds``) and both trees' outputs held bit-equal:
    ``cell_scan`` on one uniform 10K batch and on a skewed one over 1M
-   uniform 3-D refs (seed 1000, as ``chip_smoke.py`` draws them), and v6
-   at 1024 x 1M k=3, k=16 and k=5 (a k that is not a template parameter)
-   and at 10000 x 1M k=3.
+   uniform 3-D refs (seed 1000, as ``chip_smoke.py`` draws them), and v6,
+   v3 and v5 at 1024 x 1M k=3, k=16 and k=5 (a k that is not a template
+   parameter), at 10000 x 1M k=3, and at small m: 1, 4, 16, 64 and 136 x
+   1M k=16 (the first rows of the k=16 set; 136 rows is the v9 drain's
+   full scan in ``chip_smoke.py``, which runs v3) and 64 x 1M k=3;
+3. cases that only this tree runs, timed in this tree's two turns and
+   labelled so: v5 at 1024 x 65536 k=128 (v5 before its ring design ran
+   out of shared memory from k = 56 and raised).
 
 It fails without a card, or when the two trees' outputs differ.
 """
@@ -38,7 +46,8 @@ import tempfile
 import numpy as np
 import torch
 
-SOURCES = ("cell_scan.cu", "fused_queries_resident.cu")
+SOURCES = ("cell_scan.cu", "fused_queries_resident.cu", "fused_streaming.cu",
+           "fused_point_major.cu")
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _ROOT = os.path.dirname(os.path.dirname(_HERE))
 _TURNS = ("parent", "this tree", "this tree", "parent")
@@ -54,17 +63,18 @@ def _ptxas(_cuda, csrc: str, tag: str) -> None:
         for line in (out.stdout + out.stderr).splitlines():
             if "Compiling entry function" in line:
                 mangled = line.split("'")[1]
-                inst = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)ELi(\d+)E)?", mangled)
-                kernel = (f"{inst.group(1)}<{inst.group(2)}, {inst.group(3)}>" if inst.group(2)
-                          else inst.group(1))
+                inst = re.search(r"\d+([a-z_]+_kernel)(I.*E)?", mangled)
+                args = re.findall(r"L[ib](\d+)E", inst.group(2) or "")
+                kernel = f"{inst.group(1)}<{', '.join(args)}>" if args else inst.group(1)
             elif kernel and any(w in line for w in ("registers", "spill")):
                 print(f"[ptxas] {tag} {name} {kernel}: {line.split(':', 1)[-1].strip()}",
                       flush=True)
 
 
-def _measure(out: str) -> None:
+def _measure(out: str, this_tree: bool) -> None:
     """One turn: time the kernels of the tree that ``nns_tpu_torch`` imports
-    from (this process's PYTHONPATH) and save times and outputs to ``out``."""
+    from (this process's PYTHONPATH) and save times and outputs to ``out``;
+    with ``this_tree`` also the cases only this tree runs."""
     from nns_tpu_torch.data import make_dataset
     from nns_tpu_torch.kernels import fused_ladder
     from nns_tpu_torch.kernels.cell_list import CellListEngine, cell_scan
@@ -100,17 +110,38 @@ def _measure(out: str) -> None:
               cell_scan, dense, cells.halo_dm, cells.halo_ids_dev, cells.halo2)
     del cells
 
-    # v6 at the ladder's shapes, at a run-time k and at 10000 rows.
-    plan_of = getattr(fused_ladder, "qres_launch_shape", None)
-    for tag, (q, r) in (("1024 x 1M k=3", (queries[:1024], refs)),
-                        ("1024 x 1M k=16", make_dataset(16, 1024, 1_000_000, 1000)),
-                        ("1024 x 1M k=5", make_dataset(5, 1024, 1_000_000, 1000)),
-                        ("10000 x 1M k=3", (queries, refs))):
-        (m, k), n = q.shape, r.shape[0]
-        detail = str(plan_of(m, k, dev)) if plan_of else ""
-        timed(f"fused_queries_resident {tag}", ("fused", m, n, k), detail,
-              fused_ladder.fused_queries_resident_min_idx, torch.as_tensor(q, device=dev),
-              prepare_refs(r, 4096, dev)[0], n)
+    # v6, v3 and v5 at the ladder's shapes, at a run-time k and at 10000
+    # rows; the plan each tree prints is its own, where it has one.
+    plans = {"fused_queries_resident": lambda m, k: fused_ladder.qres_launch_shape(m, k, dev),
+             "fused_point_major": lambda m, k: fused_ladder.ring_launch_shape(
+                 "point_major", m, k, dev),
+             "fused_streaming": lambda m, k: fused_ladder.ring_launch_shape(
+                 "dim_major", m, k, dev)}
+    q16, r16 = make_dataset(16, 1024, 1_000_000, 1000)
+    cases = [("1024 x 1M k=3", (queries[:1024], refs)),
+             ("1024 x 1M k=16", (q16, r16)),
+             ("1024 x 1M k=5", make_dataset(5, 1024, 1_000_000, 1000)),
+             ("10000 x 1M k=3", (queries, refs)),
+             *((f"{m} x 1M k=16", (q16[:m], r16)) for m in (1, 4, 16, 64, 136)),
+             ("64 x 1M k=3", (queries[:64], refs))]
+    for name in ("fused_queries_resident", "fused_point_major", "fused_streaming"):
+        wrapper = getattr(fused_ladder, f"{name}_min_idx")
+        for tag, (q, r) in cases:
+            (m, k), n = q.shape, r.shape[0]
+            try:
+                detail = str(plans[name](m, k))
+            except AttributeError:  # a tree without this plan function
+                detail = ""
+            refs_dev = (torch.as_tensor(r, device=dev) if name == "fused_point_major"
+                        else prepare_refs(r, 4096, dev)[0])
+            timed(f"{name} {tag}", ("fused", m, n, k), detail, wrapper,
+                  torch.as_tensor(q, device=dev), refs_dev, n)
+            del refs_dev
+    if this_tree:
+        q, r = make_dataset(128, 1024, 65536, 1000)
+        timed("fused_streaming 1024 x 65536 k=128 (this tree only)", ("fused", 1024, 65536, 128),
+              str(plans["fused_streaming"](1024, 128)), fused_ladder.fused_streaming_min_idx,
+              torch.as_tensor(q, device=dev), prepare_refs(r, 4096, dev)[0], 65536)
     torch.save({"rows": rows, "outputs": outputs}, out)
 
 
@@ -124,12 +155,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="root of the tree to compare with")
     ap.add_argument("--measure", help=argparse.SUPPRESS)  # one turn's output file
+    ap.add_argument("--this-tree", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_report: no CUDA device visible", file=sys.stderr)
         return 1
     if args.measure:
-        _measure(args.measure)
+        _measure(args.measure, args.this_tree)
         return 0
     if not args.parent:
         ap.error("--parent is required")
@@ -146,12 +178,21 @@ def main(argv=None) -> int:
         for i, tag in enumerate(_TURNS):
             root = parent if tag == "parent" else _ROOT
             out = os.path.join(tmp, f"turn{i}.pt")
-            subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", out],
+            flags = [] if tag == "parent" else ["--this-tree"]
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", out, *flags],
                            cwd=root, env={**os.environ, "PYTHONPATH": root}, check=True,
                            timeout=1200)
             turns.append(torch.load(out))
     p1, n1, n2, p2 = turns
-    for j, row in enumerate(n1["rows"]):
+    shared = len(p1["rows"])
+    for j, row in enumerate(n1["rows"][shared:], shared):  # this tree alone
+        print(f"[time] {row['name']}: cuda_ms {row['ms']:.4f} / {n2['rows'][j]['ms']:.4f} ms, "
+              f"cuda_device_ms {row['device_ms']:.4f} / {n2['rows'][j]['device_ms']:.4f} ms; "
+              f"bound {_bound(row['bound'])[0]:.4f} ms ({_bound(row['bound'])[1]}); "
+              f"plan {row['detail']}", flush=True)
+        if not all(torch.equal(a, b) for a, b in zip(n1["outputs"][j], n2["outputs"][j])):
+            raise AssertionError(f"this tree's two turns disagree on {row['name']}")
+    for j, row in enumerate(n1["rows"][:shared]):
         if not all(t["rows"][j]["name"] == row["name"] for t in turns):
             raise AssertionError(f"the turns measured different cases at {row['name']}")
         if not all(torch.equal(a, b) for a, b in zip(p1["outputs"][j], n1["outputs"][j])):

@@ -45,8 +45,12 @@ from nns_tpu_torch.kernels.fused_ladder import (
     fused_queries_resident_plain,
     fused_streaming_min_idx,
     fused_streaming_plain,
+    RING_TEMPLATE_KS,
     qres_launch_shape,
     qres_plan,
+    ring_launch_shape,
+    ring_plan,
+    ring_splits,
     two_level_min_idx,
     two_level_plain,
 )
@@ -243,7 +247,7 @@ def _ladder_refs(name, r, dev):
 
 # Query tiles past m, one to many ref ranges and 4096-column tables,
 # streamed tiles with a ragged end, several v6 passes at k = 3 and k = 16,
-# and k = 40 (over 48 KB of streamed shared memory).
+# and k = 40 (the sliced v3 and v5 instances, three slices for v5).
 @pytest.mark.parametrize("m,n,k", [(1, 5000, 3), (300, 5000, 3), (17, 70000, 16),
                                    (1000, 3000, 3), (40, 200_000, 3), (33, 777, 5),
                                    (6000, 2000, 3), (1100, 3000, 16), (20, 3000, 40)])
@@ -364,10 +368,181 @@ def test_two_level_small_tiles_equal_plain(cuda):
     assert int(got[1][0]) == 3
 
 
-def test_streaming_rejects_unaligned_pitch(cuda):
-    r_dm = torch.zeros((3, 130), device=cuda)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        fused_streaming_min_idx(torch.zeros((2, 3), device=cuda), r_dm, 130)
+# ---------------------------------------------------------------------------
+# v3 and v5: the producer/consumer ring (ring_plan)
+# ---------------------------------------------------------------------------
+
+RING = {"point_major": "fused_point_major", "dim_major": "fused_streaming"}
+
+
+def _ring_refs(layout, r, dev):
+    return (torch.as_tensor(r, device=dev) if layout == "point_major"
+            else prepare_refs(r, 4096, dev)[0])
+
+
+def _ring_run(layout, qd, refs, n):
+    name = RING[layout]
+    kernel, plain, _ = LADDER[name]
+    before = _cuda.LAUNCHES[name]
+    got = kernel(qd, refs, n)
+    assert _cuda.LAUNCHES[name] == before + 1
+    _assert_same(got, plain(qd, refs, n))
+    return got
+
+
+@pytest.mark.parametrize("k", [56, 64, 128, 300, 1500])
+def test_streaming_at_high_k(cuda, k):
+    # From k = 56 a whole-k stage outgrew the opt-in shared memory and v5
+    # raised; the sliced instance streams 16 dims per stage at every k
+    # (1500: 94 slices).
+    q, r = make_dataset(k, 300, 3001, seed=700 + k)
+    plan, _ = ring_launch_shape("dim_major", 300, k, cuda)
+    assert plan.dims <= 16 and plan.smem_bytes < 10_000
+    got = _ring_run("dim_major", torch.as_tensor(q, device=cuda), _ring_refs("dim_major", r, cuda),
+                    3001)
+    assert recall_at_1(got[1].cpu().numpy(), q, r) == 1.0
+
+
+# m past one query tile and not a multiple of it: 600 rows run three
+# 256-row tiles, 2000 rows two 1024-row tiles at k = 3 and 16 (4 rows per
+# thread) and in v3's sliced instance at k <= 8, eight 256-row tiles past
+# k = 8 in v3's and at every sliced k in v5's (1 row per thread).
+@pytest.mark.parametrize("m", [600, 2000])
+@pytest.mark.parametrize("k", [1, 3, 5, 16, 17, 40])
+@pytest.mark.parametrize("layout", sorted(RING))
+def test_ring_kernels_equal_plain(cuda, layout, k, m):
+    q, r = make_dataset(k, m, 9001, seed=800 + k + m)
+    plan, _ = ring_launch_shape(layout, m, k, cuda)
+    assert plan.q_tiles(m) > 1 and m % plan.rows_per_tile
+    sliced_rows = 4 if layout == "point_major" and k <= 8 else 1
+    assert plan.q_rows == (1 if m == 600 else 4 if k in RING_TEMPLATE_KS else sliced_rows)
+    assert plan.threads_per_row == 1
+    got = _ring_run(layout, torch.as_tensor(q, device=cuda), _ring_refs(layout, r, cuda), 9001)
+    assert recall_at_1(got[1].cpu().numpy(), q, r) == 1.0
+
+
+# n * k % 4 = 3, 3, 0, 1, 1, 3, 1; offsets 0 (aligned) to 3 floats.
+@pytest.mark.parametrize("k,n,offset", [(3, 5001, 0), (3, 5001, 1), (16, 3001, 1), (5, 4001, 0),
+                                        (5, 4001, 3), (17, 2999, 2), (301, 401, 1)])
+def test_point_major_tail_and_offset_views(cuda, k, n, offset):
+    # n * k not a multiple of 4: the last stage's bulk copy stops at the last
+    # whole 16 bytes and the producer loads the rest; refs that start
+    # `offset` floats into their allocation (a sliced view) take the
+    # plain-load path. Nothing past row n may be read: the view ends there.
+    q, r = make_dataset(k, 300, n, seed=900 + k)
+    flat = torch.empty(offset + n * k, device=cuda)
+    flat[offset:] = torch.as_tensor(r, device=cuda).reshape(-1)
+    view = flat[offset:].view(n, k)
+    assert (view.data_ptr() % 16 == 0) == (offset == 0)
+    got = _ring_run("point_major", torch.as_tensor(q, device=cuda), view, n)
+    assert recall_at_1(got[1].cpu().numpy(), q, r) == 1.0
+
+
+@pytest.mark.parametrize("k", [3, 5, 16, 40])
+@pytest.mark.parametrize("base", ["aligned", "misaligned"])
+def test_streaming_unaligned_pitch_equals_plain(cuda, k, base):
+    # A 777-column pitch (not a multiple of 4 floats) and, misaligned, a base
+    # 4 bytes into its allocation: the producer's plain-load path.
+    q, r = make_dataset(k, 300, 777, seed=k)
+    shift = 1 if base == "misaligned" else 0
+    flat = torch.empty(shift + k * 777, device=cuda)
+    r_dm = flat[shift:].view(k, 777)
+    r_dm.copy_(torch.as_tensor(r, device=cuda).t())
+    got = _ring_run("dim_major", torch.as_tensor(q, device=cuda), r_dm, 777)
+    assert recall_at_1(got[1].cpu().numpy(), q, r) == 1.0
+
+
+# Fewer rows than a tile: 1 to 128 rows share each row among 32 down to 2
+# threads, each scoring its own groups of columns; the block folds them.
+@pytest.mark.parametrize("m,tpr", [(1, 32), (5, 32), (16, 16), (64, 4), (100, 2)])
+@pytest.mark.parametrize("k", [3, 5, 16, 40])
+@pytest.mark.parametrize("layout", sorted(RING))
+def test_ring_kernels_share_rows_below_one_tile(cuda, layout, k, m, tpr):
+    q, r = make_dataset(k, m, 20_001, seed=1100 + k + m)
+    plan, slots = ring_launch_shape(layout, m, k, cuda)
+    assert (plan.q_rows, plan.threads_per_row, plan.q_tiles(m)) == (1, tpr, 1)
+    assert ring_splits(plan, m, 20_001, slots) > 1
+    got = _ring_run(layout, torch.as_tensor(q, device=cuda), _ring_refs(layout, r, cuda), 20_001)
+    assert recall_at_1(got[1].cpu().numpy(), q, r) == 1.0
+
+
+@pytest.mark.parametrize("m", [16, 300, 2000])
+@pytest.mark.parametrize("k", [3, 5, 16, 40])
+@pytest.mark.parametrize("layout", sorted(RING))
+def test_ring_kernels_with_overflowing_distances(cuda, layout, k, m):
+    # Coordinates of +-3e19: every square overflows to +inf for the even
+    # rows, and for the odd rows against the first half of the refs. No
+    # distance beats a start of +inf there, and the answer must still be the
+    # plain version's lowest index: 0 for the even rows.
+    rng = np.random.default_rng(1200 + k)
+    n = 9001
+    r = rng.random((n, k), dtype=np.float32)
+    r[: n // 2, 0] = -3e19
+    q = rng.random((m, k), dtype=np.float32)
+    q[::2, 0] = 3e19
+    got = _ring_run(layout, torch.as_tensor(q, device=cuda), _ring_refs(layout, r, cuda), n)
+    assert torch.isinf(got[0][::2]).all() and (got[1][::2] == 0).all()
+    assert torch.isfinite(got[0][1::2]).all() and (got[1][1::2] >= n // 2).all()
+
+
+@pytest.mark.parametrize("m", [20, 300])
+@pytest.mark.parametrize("k", [3, 5, 16])
+@pytest.mark.parametrize("layout", sorted(RING))
+def test_ring_ties_at_stage_and_range_edges(cuda, layout, k, m):
+    # Duplicates of the target on both sides of a stage edge and of a range
+    # edge, as the launch cuts them: the lowest index must win (at m = 20 also
+    # across the threads that share a row).
+    rng = np.random.default_rng(40 + k)
+    n = 60_000
+    plan, slots = ring_launch_shape(layout, m, k, cuda)
+    splits = ring_splits(plan, m, n, slots)
+    per_split = -(-n // splits)
+    per = -(-per_split // plan.cols) * plan.cols  # whole stages per range
+    assert splits > 1 and per < n
+    r = rng.random((n, k), dtype=np.float32)
+    target = rng.random(k, dtype=np.float32)
+    edges = (plan.cols - 1, plan.cols, per - 1, per, n - 1)
+    for c in edges:
+        r[c] = target
+    q = np.concatenate([np.repeat(target[None], 20, 0), rng.random((m - 20, k), dtype=np.float32)])
+    got = _ring_run(layout, torch.as_tensor(q, device=cuda), _ring_refs(layout, r, cuda), n)
+    assert (got[1][:20].cpu().numpy() == edges[0]).all()
+    r[: per - 1] = rng.random((per - 1, k), dtype=np.float32) + 2.0  # now the range edge wins
+    got = _ring_run(layout, torch.as_tensor(q, device=cuda), _ring_refs(layout, r, cuda), n)
+    assert (got[1][:20].cpu().numpy() == per - 1).all()
+
+
+@pytest.mark.parametrize("layout", sorted(RING))
+def test_ring_plan_agrees_with_the_kernel_library(cuda, layout):
+    # ring_plan (host) and the library state one rule: the library takes
+    # every plan the host makes, with the same shared memory, and refuses a
+    # plan it has no instance for.
+    lib = _cuda.library()
+    optin = _cuda.smem_optin(lib)
+    check = getattr(lib, f"nns_{RING[layout]}_smem")
+    smem, slots = ctypes.c_longlong(), ctypes.c_int()
+    for k in [*range(1, 81), 100, 300, 1000, 3600, 4096, 20000]:
+        for m in (1, 16, 64, 300, 1024, 10000):
+            plan = ring_plan(layout, m, k, optin)
+            rc = check(k, plan.q_rows, plan.threads_per_row, plan.cols, plan.dims, plan.stages,
+                       ctypes.byref(smem), ctypes.byref(slots))
+            assert rc == 0 and smem.value == plan.smem_bytes and slots.value >= 1, (k, m, rc)
+    # (k, rows per thread, threads per row, stage columns, dims per stage,
+    # stages); threads per row: a power of two up to 32, 1 with 4 rows.
+    bad = [(5, 3, 1, 256, 5, 4), (3, 2, 1, 512, 3, 4), (3, 4, 1, 512, 3, 1),
+           (3, 4, 1, 512, 3, 9), (16, 1, 1, 0, 16, 4), (0, 1, 1, 256, 1, 4),
+           (3, 4, 2, 512, 3, 4), (3, 1, 3, 512, 3, 4), (3, 1, 64, 512, 3, 4),
+           (3, 1, 0, 512, 3, 4)]
+    if layout == "dim_major":
+        bad += [(5, 4, 1, 256, 5, 4), (16, 4, 1, 256, 8, 4), (40, 1, 1, 64, 14, 4),
+                (40, 1, 1, 32, 17, 4), (5, 1, 1, 6, 5, 4), (40, 1, 2, 128, 14, 4),
+                (3, 1, 1, 4096, 3, 8)]  # the last: 393 KB of stages
+    else:
+        bad += [(3, 4, 1, 1022, 3, 4), (16, 1, 1, 256, 8, 4), (5, 2, 1, 256, 5, 4),
+                (30000, 1, 1, 1, 30000, 2),
+                (1, 1, 2, 1, 1, 2)]  # the last: stages too small for the parts' fold
+    for b in bad:
+        assert check(*b, ctypes.byref(smem), ctypes.byref(slots)) != 0, b
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,11 @@ Tolerance: index arrays exactly equal, per version (assert_same_idx). The
 plain versions and the f64 oracle also agree on every case (assert_exact).
 """
 
+import ctypes
+import glob
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +24,7 @@ from conftest import assert_exact
 from nns_tpu.config import EngineConfig as JaxEngineConfig
 from nns_tpu.data import make_dataset
 from nns_tpu_torch.config import EngineConfig
-from nns_tpu_torch.kernels import _cuda, fused_ladder, xla_bruteforce
+from nns_tpu_torch.kernels import _cuda, fused_ladder, layouts, xla_bruteforce
 from nns_tpu_torch.kernels.fused import FusedBruteForce, fused_min_idx_plain, prepare_refs
 from test_fuzz import _random_case
 from test_torch_fused import assert_same_idx
@@ -313,3 +318,128 @@ def test_qres_plan_fits_rows_to_threads():
     assert (plan(1, 17, optin).dims, plan(1, 64, optin).dims, plan(1, 65, optin).dims) == (9, 16, 13)
     with pytest.raises(ValueError, match="no plan"):
         plan(1024, 5, 200)
+
+
+@pytest.mark.parametrize("layout", fused_ladder.RING_LAYOUTS)
+def test_ring_plan_fits_every_k(layout):
+    # The v3 and v5 kernels' plans (csrc/fused_point_major.cu,
+    # csrc/fused_streaming.cu) exist at every k from 1 to 20000 within the
+    # H100's opt-in shared memory; v5's stays small (sliced, at most 16 dims
+    # and 256 columns per stage), so it does not grow with k.
+    optin = 232448
+    for k in range(1, 20001):
+        plan = fused_ladder.ring_plan(layout, 1024, k, optin)
+        assert plan.smem_bytes == fused_ladder.ring_smem_bytes(
+            layout, k, plan.cols, plan.dims, plan.stages) <= optin, k
+        assert 2 <= plan.stages <= 8 and plan.cols >= 1
+        assert plan.threads_per_row == 1
+        if k in fused_ladder.RING_TEMPLATE_KS:
+            assert plan.dims == k and plan.cols % 4 == 0 and plan.q_rows == 4
+        elif layout == "dim_major":
+            slices = -(-k // plan.dims)
+            assert plan.q_rows == 1 and 1 <= plan.dims <= 16 and slices == -(-k // 16)
+            assert (slices - 1) * plan.dims < k and plan.cols % 4 == 0
+            assert slices == 1 or plan.cols <= 32  # sums carried over slices: 8 groups of 4
+            assert plan.smem_bytes <= 65600
+        else:
+            assert plan.q_rows == (4 if k <= 8 else 1) and plan.dims == k
+    with pytest.raises(ValueError, match="no plan"):
+        fused_ladder.ring_plan(layout, 1024, 5, 200)
+
+
+@pytest.mark.parametrize("layout", fused_ladder.RING_LAYOUTS)
+def test_ring_plan_shares_rows_below_one_tile(layout):
+    # Fewer than 256 rows: one tile of the fewest rows (a power of two, at
+    # least 8) that holds them, the 256 consumer threads sharing each row;
+    # the block folds a row's parts through its stages, which must hold 2 x
+    # 256 words; v5's sliced tiles give each thread of a row at most 8
+    # groups of 4 columns.
+    optin = 232448
+    for m, tpr in ((1, 32), (8, 32), (9, 16), (16, 16), (17, 8), (64, 4), (65, 2), (128, 2),
+                   (129, 1), (255, 1)):
+        for k in (*range(1, 70), 100, 300, 4096, 20000):
+            plan = fused_ladder.ring_plan(layout, m, k, optin)
+            assert (plan.q_rows, plan.threads_per_row, plan.q_tiles(m)) == (1, tpr, 1), (m, k)
+            assert plan.smem_bytes - 16 * plan.stages >= 8 * fused_ladder.RING_CONSUMERS
+            if layout == "dim_major" and plan.dims < k:
+                assert plan.cols <= 4 * 8 * tpr
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 16, 17, 64, 300, 4096, 20000])
+@pytest.mark.parametrize("layout", fused_ladder.RING_LAYOUTS)
+def test_ring_plan_covers_every_row_once(layout, k):
+    # Query tile x holds rows x * R + q * S + t % S (q < q_rows, t < 256
+    # consumer threads, S = 256 / threads_per_row, R = rows_per_tile), and
+    # thread t scores part t // S of the columns: every row of m must be
+    # scored once in each part, and written once (by part 0).
+    optin = 232448
+    for m in (1, 7, 16, 100, 255, 256, 257, 1000, 1023, 1024, 1025, 2000, 5000, 10000):
+        plan = fused_ladder.ring_plan(layout, m, k, optin)
+        tpr = plan.threads_per_row
+        stride = fused_ladder.RING_CONSUMERS // tpr
+        t = np.arange(fused_ladder.RING_CONSUMERS)
+        per_tile = (np.arange(plan.q_rows)[:, None] * stride + t % stride).ravel()
+        part = np.tile(t // stride, plan.q_rows)
+        assert np.array_equal(np.bincount(per_tile * tpr + part),
+                              np.ones(plan.rows_per_tile * tpr, np.int64))
+        rows = (np.arange(plan.q_tiles(m))[:, None] * plan.rows_per_tile + per_tile).ravel()
+        parts = np.tile(part, plan.q_tiles(m))
+        keep = rows < m
+        assert np.array_equal(np.bincount(rows[keep] * tpr + parts[keep], minlength=m * tpr),
+                              np.ones(m * tpr, np.int64)), m
+        # 4 rows per thread only where it scores no more rows than 1 would.
+        assert plan.q_tiles(m) * plan.rows_per_tile <= -(-m // 256) * 256
+
+
+# n * k % 4 = 3, 1, 3, 1, 0 and 0.
+@pytest.mark.parametrize("k,n,splits", [(3, 5001, 7), (5, 4001, 3), (17, 2999, 5),
+                                        (301, 401, 4), (16, 3001, 2), (20000, 9, 2)])
+def test_point_major_stages_stop_at_n(k, n, splits):
+    # A Python mirror of csrc/fused_point_major.cu's producer: stage (range,
+    # t) covers points [p0, p0 + cnt) and copies the floats [p0 * k - offset,
+    # (p0 + cnt) * k) with offset = p0 * k % 4, the bulk copy moving the span
+    # rounded DOWN to 16 bytes from a 16-byte aligned start and the producer
+    # loading the last 0-3 floats. No copy may read past n * k floats (the
+    # allocation's end), every float of the refs lands in exactly one stage,
+    # and the span fits the stage.
+    plan = fused_ladder.ring_plan("point_major", 1024, k, 232448)
+    stage_floats = layouts.round_up(plan.cols * k + 3, 4)
+    cols_per_split = layouts.round_up(-(-n // splits), plan.cols)  # whole stages
+    seen = np.zeros(n * k, np.int64)
+    for split in range(splits):
+        lo, hi = split * cols_per_split, min(n, (split + 1) * cols_per_split)
+        for p0 in range(lo, hi, plan.cols):
+            cnt = min(plan.cols, hi - p0)
+            offset = p0 * k % 4
+            start, span = p0 * k - offset, offset + cnt * k
+            whole = span // 4 * 4
+            assert start % 4 == 0 and start + whole <= n * k and start + span <= n * k
+            assert span <= stage_floats and span - whole < 4
+            if k in fused_ladder.RING_TEMPLATE_KS:
+                assert offset == 0
+            seen[p0 * k:(p0 + cnt) * k] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("k", [64, 128])
+def test_streaming_equals_jax_at_high_k(k):
+    # The k at which the v5 kernel once ran out of shared memory: the port's
+    # v5 (plain version on the CPU) against the JAX package's, whose Pallas
+    # kernel runs in interpret mode.
+    q, r = make_dataset(k, 33, 777, seed=k)
+    assert_exact(_both(q, r, 5), q, r)
+
+
+def test_library_signatures_match_the_c_sources():
+    # Every extern "C" entry point under csrc/ is bound with one ctypes type
+    # per C parameter (pointers as void*), in order: a wrong count or type
+    # would pass garbage to the card without an error.
+    c_types = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
+    found = {}
+    for path in glob.glob(os.path.join(_cuda._CSRC, "*.cu")):
+        with open(path) as f:
+            src = f.read()
+        for name, params in re.findall(r'extern "C" int (nns_\w+)\(([^)]*)\)', src):
+            found[name] = [ctypes.c_void_p if "*" in p else c_types[p.rsplit(None, 1)[0]]
+                           for p in (" ".join(p.split()) for p in params.split(","))]
+    assert found == _cuda.SIGNATURES
