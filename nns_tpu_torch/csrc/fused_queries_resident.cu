@@ -21,7 +21,9 @@
 //   (1024 at kQ = 4) for a pass over its range, with a (d2, idx) carry per
 //   row. A thread visits its range's columns in ascending order, so a strict
 //   `<` keeps the lowest index: no index compare and no block reduction per
-//   column or pass. A larger query set takes several passes, each re-reading
+//   column or pass. Each pass starts at (inf, the range's first column), so
+//   a row whose every distance overflows to +inf still gets the range's
+//   lowest index, as the plain version gives. A larger query set takes several passes, each re-reading
 //   the range (from L2 at the ladder's shapes). Each query row is read from
 //   memory once per block either way, so it goes straight to registers;
 //   staging it in shared memory first would only copy it twice.
@@ -203,7 +205,7 @@ queries_resident_kernel(const float* __restrict__ q, const float* __restrict__ r
     }
     float best_d[kQ];
     int best_i[kQ];
-    nns::init_best(best_d, best_i);
+    nns::init_best(best_d, best_i, (int)ring.lo);
 
     for (int t = 0; t < ring.n_tiles; ++t, ++it) {
       long long col0;
@@ -275,7 +277,7 @@ queries_resident_sliced_kernel(const float* __restrict__ q, const float* __restr
     const int row0 = pass * rows;
     float best_d[1];
     int best_i[1];
-    nns::init_best(best_d, best_i);
+    nns::init_best(best_d, best_i, (int)ring.lo);
 
     for (int t = 0; t < ring.n_tiles; ++t) {
       long long col0;

@@ -487,6 +487,30 @@ def test_ring_kernels_with_overflowing_distances(cuda, layout, k, m):
 
 @pytest.mark.parametrize("m", [20, 300])
 @pytest.mark.parametrize("k", [3, 5, 16])
+@pytest.mark.parametrize("name", ["fused_queries_resident", "two_level"])
+def test_v6_v7_with_overflowing_distances(cuda, name, k, m):
+    # As above, for v6 (each pass starts at (inf, its range's first column))
+    # and v7 (each table tile at (inf, the tile's first column)): the even
+    # rows' every distance is +inf, and their answer must be index 0.
+    rng = np.random.default_rng(1300 + k)
+    n = 9001
+    r = rng.random((n, k), dtype=np.float32)
+    r[: n // 2, 0] = -3e19
+    q = rng.random((m, k), dtype=np.float32)
+    q[::2, 0] = 3e19
+    kernel, plain, _ = LADDER[name]
+    refs = _ladder_refs(name, r, cuda)
+    qd = torch.as_tensor(q, device=cuda)
+    before = _cuda.LAUNCHES[name]
+    got = kernel(qd, refs, n)
+    assert _cuda.LAUNCHES[name] == before + 1
+    _assert_same(got, plain(qd, refs, n))
+    assert torch.isinf(got[0][::2]).all() and (got[1][::2] == 0).all()
+    assert torch.isfinite(got[0][1::2]).all() and (got[1][1::2] >= n // 2).all()
+
+
+@pytest.mark.parametrize("m", [20, 300])
+@pytest.mark.parametrize("k", [3, 5, 16])
 @pytest.mark.parametrize("layout", sorted(RING))
 def test_ring_ties_at_stage_and_range_edges(cuda, layout, k, m):
     # Duplicates of the target on both sides of a stage edge and of a range

@@ -421,6 +421,29 @@ def test_point_major_stages_stop_at_n(k, n, splits):
     assert (seen == 1).all()
 
 
+def _overflowing_case(k, m, n=9001, seed=0):
+    """Coordinates of +-3e19: every square overflows to +inf for the even
+    query rows, and for the odd rows against the first half of the refs."""
+    rng = np.random.default_rng(1200 + k + seed)
+    r = rng.random((n, k), dtype=np.float32)
+    r[: n // 2, 0] = -3e19
+    q = rng.random((m, k), dtype=np.float32)
+    q[::2, 0] = 3e19
+    return q, r
+
+
+@pytest.mark.parametrize("m", [20, 300])
+@pytest.mark.parametrize("k", [3, 5, 16])
+@pytest.mark.parametrize("version", [6, 7])
+def test_overflowing_distances_equal_jax(version, k, m):
+    # A row whose every distance is +inf: the JAX package answers the lowest
+    # index, 0, and so must the port's plain v6 and v7 (their kernels are
+    # held to the plain versions on the card).
+    q, r = _overflowing_case(k, m, n=2001)
+    got = _both(q, r, version)
+    assert (got[::2] == 0).all() and (got[1::2] >= 2001 // 2).all()
+
+
 @pytest.mark.parametrize("k", [64, 128])
 def test_streaming_equals_jax_at_high_k(k):
     # The k at which the v5 kernel once ran out of shared memory: the port's
