@@ -507,6 +507,30 @@ struct RingRange {
   }
 };
 
+// Dimensions per stage of a sliced dim-major ring (v5, v7 at a run-time k).
+constexpr int kRingMaxDims = 16;
+
+// Producer warp of a dim-major ring (v5, v7): item it = (stage it / slices,
+// slice it % slices), each dimension row of the slice one copy.
+__device__ __forceinline__ void produce_dim_major(const StageRing& ring, const RingArgs& a,
+                                                  const RingRange& range, int slices) {
+  ring.produce((long long)range.n_tiles * slices,
+               [&](long long it, float* st, unsigned long long* full, int lane) {
+                 long long col0;
+                 const int lim = range.tile(a, (int)(it / slices), col0);
+                 const int d0 = (int)(it % slices) * a.dims;
+                 fill_rows(st, a.cols, a.r + d0 * a.ld + col0, a.ld, min(a.dims, a.k - d0), lim,
+                           a.bulk, full, lane);
+               });
+}
+
+// The row's dimensions d0 .. d0 + dims - 1 (zero past k) into registers.
+__device__ __forceinline__ void load_slice(const float* __restrict__ q_row, int d0, int dims,
+                                           int k, float (&qr)[kRingMaxDims]) {
+#pragma unroll
+  for (int d = 0; d < kRingMaxDims; ++d) qr[d] = d < dims && d0 + d < k ? q_row[d0 + d] : 0.0f;
+}
+
 // Threads per query row that a ring plan may take: a power of two up to a
 // warp, and 1 where a thread holds several rows. Sharing rows needs stages
 // of at least 2 x kRingConsumers words in all for `fold_parts`.

@@ -52,29 +52,8 @@
 
 namespace {
 
-constexpr int kMaxDims = 16;  // sliced: dimensions per stage
 constexpr int kGroups = 8;    // sliced: four-column groups per thread and column block
 constexpr int kMaxStages = 8;
-
-// Producer warp: item it = (tile it / slices, slice it % slices).
-__device__ __forceinline__ void produce_tiles(const nns::StageRing& ring, const nns::RingArgs& a,
-                                              const nns::RingRange& range, int slices) {
-  ring.produce((long long)range.n_tiles * slices,
-               [&](long long it, float* st, unsigned long long* full, int lane) {
-                 long long col0;
-                 const int lim = range.tile(a, (int)(it / slices), col0);
-                 const int d0 = (int)(it % slices) * a.dims;
-                 nns::fill_rows(st, a.cols, a.r + d0 * a.ld + col0, a.ld,
-                                min(a.dims, a.k - d0), lim, a.bulk, full, lane);
-               });
-}
-
-// The row's dimensions d0 .. d0 + dims - 1 (zero past k) into registers.
-__device__ __forceinline__ void load_slice(const float* __restrict__ q_row, int d0, int dims,
-                                           int k, float (&qr)[kMaxDims]) {
-#pragma unroll
-  for (int d = 0; d < kMaxDims; ++d) qr[d] = d < dims && d0 + d < k ? q_row[d0 + d] : 0.0f;
-}
 
 // k = kK, kQ rows per consumer thread, all kK dims in each stage.
 template <int kK, int kQ>
@@ -85,7 +64,7 @@ streaming_kernel(const nns::RingArgs a) {
   const nns::RingRange range(a);
   ring.start(a.bulk);
   if (threadIdx.x >= nns::kRingConsumers) {
-    produce_tiles(ring, a, range, 1);
+    nns::produce_dim_major(ring, a, range, 1);
     return;
   }
   const int tpr = kQ == 1 ? a.tpr : 1;
@@ -127,15 +106,15 @@ streaming_sliced_kernel(const nns::RingArgs a) {
   const int slices = (a.k + a.dims - 1) / a.dims;
   ring.start(a.bulk);
   if (threadIdx.x >= nns::kRingConsumers) {
-    produce_tiles(ring, a, range, slices);
+    nns::produce_dim_major(ring, a, range, slices);
     return;
   }
   const int tpr = kShared ? a.tpr : 1;
   const nns::RingRows rows(1, tpr);
   const int step = 4 * tpr;  // between a thread's four-column groups
   const float* q_row = a.q + (long long)min(rows.row(0), a.m - 1) * a.k;
-  float qr[kMaxDims];
-  if (slices == 1) load_slice(q_row, 0, a.dims, a.k, qr);
+  float qr[nns::kRingMaxDims];
+  if (slices == 1) nns::load_slice(q_row, 0, a.dims, a.k, qr);
   float best_d[1];
   int best_i[1];
   nns::init_best(best_d, best_i, (int)range.lo);
@@ -147,7 +126,7 @@ streaming_sliced_kernel(const nns::RingArgs a) {
     for (int s = 0; s < slices; ++s, pos.next(a.stages)) {
       const int d0 = s * a.dims;
       const int nd = min(a.dims, a.k - d0);
-      if (slices > 1) load_slice(q_row, d0, a.dims, a.k, qr);
+      if (slices > 1) nns::load_slice(q_row, d0, a.dims, a.k, qr);
       const float* st = ring.acquire(pos);
       for (int cb = 4 * rows.part; cb < lim; cb += kGroups * step) {
         if (s == 0) {
@@ -158,7 +137,7 @@ streaming_sliced_kernel(const nns::RingArgs a) {
           }
         }
 #pragma unroll
-        for (int d = 0; d < kMaxDims; ++d) {
+        for (int d = 0; d < nns::kRingMaxDims; ++d) {
           if (d < nd) {
 #pragma unroll
             for (int j = 0; j < kGroups; ++j) {
@@ -203,7 +182,7 @@ nns::RingKernel instance(int k, int q_rows, int tpr, int cols, int dims, int sta
   if (k < 1 || cols < 4 || cols % 4 || stages < 2 || stages > kMaxStages) return nullptr;
   if (dims == k && k == 3) return templated<3>(q_rows);
   if (dims == k && k == 16) return templated<16>(q_rows);
-  if (q_rows != 1 || dims < 1 || dims > kMaxDims || dims > k) return nullptr;
+  if (q_rows != 1 || dims < 1 || dims > nns::kRingMaxDims || dims > k) return nullptr;
   if (dims < k && cols > kGroups * 4 * tpr) return nullptr;
   return tpr > 1 ? streaming_sliced_kernel<true> : streaming_sliced_kernel<false>;
 }

@@ -128,7 +128,9 @@ SIGNATURES = {
     "nns_fused_queries_resident":
         [_vp, _vp, _ci, _ci, _ci, _cll, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp],
     "nns_fused_queries_resident_smem": [_ci, _ci, _ci, _ci, _ci, _vp, _vp],
-    "nns_two_level": [_vp, _vp, _ci, _ci, _ci, _cll, _ci, _vp, _vp, _vp],
+    "nns_two_level":
+        [_vp, _vp, _ci, _ci, _ci, _cll, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp],
+    "nns_two_level_smem": [_ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp],
     "nns_expansion_phase1": _PHASE1,
     "nns_expansion_phase1_wgmma": _PHASE1,
     "nns_expansion_phase1_blocks_per_sm": [_ci, _vp],

@@ -15,8 +15,9 @@ CUDA kernel of its own under ``csrc/``:
   slices of at most 16 dims where k is not a template parameter) through a
   bulk-copy ring, and the v4 fallback above the JAX package's 4 MB query
   budget;
-- v7 ``two_level``: one partial winner per (query tile, ref tile) in an
-  (n_tiles, m) table, then a second reduce over the tiles.
+- v7 ``two_level``: v5's ring, walked in segments cut at ``tile_n``
+  boundaries, writes one winner per (table tile, row) to an (n_tiles, m)
+  table, then a second reduce over the tiles.
 
 Each ``*_min_idx`` wrapper returns (min_d2 (m,) f32, idx (m,) i32) and
 dispatches on its tensors' device through ``fused.run_kernel``: CPU tensors
@@ -45,7 +46,7 @@ from nns_tpu_torch.kernels.fused import (
     run_kernel,
 )
 
-# CUDA grids allow at most 65535 blocks along y (two_level's ref-tile axis).
+# CUDA grids allow at most 65535 blocks along y (the ring kernels' ref ranges).
 _MAX_GRID_Y = 65535
 
 
@@ -463,19 +464,49 @@ def two_level_plain(queries: torch.Tensor, r_dm: torch.Tensor, n: int | None = N
     return _second_reduce(*two_level_table_plain(queries, r_dm, n, tile_n))
 
 
+def two_level_plan(m: int, k: int, smem_optin: int) -> RingPlan:
+    """The v7 plan for m k-dimensional queries on a card whose blocks get
+    ``smem_optin`` bytes of shared memory: v5's dim-major ring stages
+    (``ring_plan``'s "dim_major" plan: rows per thread, threads per row,
+    stage columns, dims per stage, stages), which csrc/two_level.cu walks
+    in segments cut at the table's tile boundaries. Its rows differ from
+    v5's only where threads share them: the threads_per_row ADJACENT lanes
+    t of a row hold row x * rows_per_tile + q * stride + t // threads_per_row
+    and take part t % threads_per_row of the columns, so that they fold by
+    shuffles at each boundary. Raises ValueError when nothing fits
+    ``smem_optin``."""
+    return ring_plan("dim_major", m, k, smem_optin)
+
+
+def two_level_launch_shape(m: int, k: int, device) -> tuple[RingPlan, int]:
+    """(plan, grid slots) of the v7 kernel for m k-dimensional queries on
+    CUDA ``device``."""
+    index = _device_index(device)
+    plan = two_level_plan(m, k, _smem_optin(index))
+    return plan, _ring_setup("two_level", k, plan, index)
+
+
+def two_level_splits(plan: RingPlan, m: int, n_tiles: int, slots: int) -> int:
+    """The most ref ranges of whole table tiles the kernel may cut
+    ``n_tiles`` tiles into: as many as fill the grid slots in one wave
+    beside the query tiles, at most one per tile. csrc/two_level.cu gives
+    each range ceil(n_tiles / splits) tiles."""
+    return max(1, min(slots // plan.q_tiles(m), n_tiles, _MAX_GRID_Y))
+
+
 def _two_level_cuda(queries, r_dm, n, tile_n):
     m, k = queries.shape
     dev = queries.device
     n_tiles = -(-n // tile_n)
-    if n_tiles > _MAX_GRID_Y:
-        raise ValueError(f"two_level: {n_tiles} ref tiles exceed the grid's {_MAX_GRID_Y}; "
-                         "use a larger tile_n")
+    plan, slots = two_level_launch_shape(m, k, dev)
     part_d, part_i = partials(n_tiles, m, dev)
     lib = _cuda.library()
     with torch.cuda.device(dev):
         rc = lib.nns_two_level(
             queries.data_ptr(), r_dm.data_ptr(), m, k, n, r_dm.shape[1], tile_n,
-            part_d.data_ptr(), part_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            two_level_splits(plan, m, n_tiles, slots), plan.q_rows, plan.threads_per_row,
+            plan.cols, plan.dims, plan.stages, part_d.data_ptr(), part_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(lib, rc, "two_level")
     _cuda.LAUNCHES["two_level"] += 1
     return _second_reduce(part_d, part_i)

@@ -51,8 +51,12 @@ from nns_tpu_torch.kernels.fused_ladder import (
     ring_launch_shape,
     ring_plan,
     ring_splits,
+    two_level_launch_shape,
     two_level_min_idx,
     two_level_plain,
+    two_level_plan,
+    two_level_splits,
+    two_level_table_plain,
 )
 from nns_tpu_torch.kernels.mxu_expansion import (
     MXUExpansion,
@@ -366,6 +370,95 @@ def test_two_level_small_tiles_equal_plain(cuda):
     got = two_level_min_idx(qd, r_dm, 5000, tile_n=128)
     _assert_same(got, two_level_plain(qd, r_dm, 5000, tile_n=128))
     assert int(got[1][0]) == 3
+
+
+# v7 on v5's ring, walked in segments cut at the table's tile boundaries:
+# every k from 1 to 40 (3 and 16 the template instances, the rest sliced, 16
+# dims per stage, past 16 in several slices) and 56, 300 and 1500; m past a
+# query tile; 4096-column tiles and the callers' 128 and 300 (300 cuts
+# stages and groups of four).
+@pytest.mark.parametrize("tile_n", [128, 300, 4096])
+@pytest.mark.parametrize("k", [*range(1, 41), 56, 300, 1500])
+def test_two_level_kernel_equals_plain(cuda, k, tile_n):
+    m, n = (300, 9001) if k <= 56 else (270, 2001)
+    q, r = make_dataset(k, m, n, seed=1400 + k)
+    plan, _ = two_level_launch_shape(m, k, cuda)
+    assert plan.q_tiles(m) > 1
+    r_dm, _ = prepare_refs(r, 4096, cuda)
+    qd = torch.as_tensor(q, device=cuda)
+    before = _cuda.LAUNCHES["two_level"]
+    got = two_level_min_idx(qd, r_dm, n, tile_n=tile_n)
+    assert _cuda.LAUNCHES["two_level"] == before + 1
+    _assert_same(got, two_level_plain(qd, r_dm, n, tile_n=tile_n))
+    assert recall_at_1(got[1].cpu().numpy(), q, r) == 1.0
+
+
+@pytest.mark.parametrize("m,k", [(2000, 3), (2000, 16), (1030, 5), (64, 4096), (5, 3),
+                                 (16, 16), (100, 40)])
+@pytest.mark.parametrize("tile_n", [128, 300])
+def test_two_level_kernel_rows_and_high_k(cuda, m, k, tile_n):
+    # Two 1024-row tiles (4 rows per thread), several 256-row tiles of a
+    # sliced k, rows shared by 2-32 lanes, and k = 4096 (256 slices), where
+    # the kernel before this ring needed 16 k 4 bytes of shared memory and
+    # raised from k = 3633.
+    n = 3001 if k == 4096 else 20_001
+    q, r = make_dataset(k, m, n, seed=1500 + k + m)
+    r_dm, _ = prepare_refs(r, 4096, cuda)
+    qd = torch.as_tensor(q, device=cuda)
+    got = two_level_min_idx(qd, r_dm, n, tile_n=tile_n)
+    _assert_same(got, two_level_plain(qd, r_dm, n, tile_n=tile_n))
+    assert recall_at_1(got[1].cpu().numpy(), q, r) == 1.0
+
+
+@pytest.mark.parametrize("m", [20, 300])
+@pytest.mark.parametrize("k", [3, 5, 16])
+@pytest.mark.parametrize("tile_n", [128, 300])
+def test_two_level_ties_at_stage_tile_and_range_edges(cuda, tile_n, k, m):
+    # Duplicates of the target on both sides of a stage edge, a table-tile
+    # edge and a range edge, as the launch cuts them: the lowest index must
+    # win inside each tile (the table) and across tiles (the second reduce),
+    # at m = 20 also across the lanes that share a row.
+    rng = np.random.default_rng(60 + k + tile_n)
+    n = 60_000
+    plan, slots = two_level_launch_shape(m, k, cuda)
+    n_tiles = -(-n // tile_n)
+    per = -(-n_tiles // two_level_splits(plan, m, n_tiles, slots)) * tile_n
+    assert per < n
+    r = rng.random((n, k), dtype=np.float32)
+    target = rng.random(k, dtype=np.float32)
+    edges = sorted({plan.cols - 1, plan.cols, tile_n - 1, tile_n, per - 1, per, n - 1})
+    for c in edges:
+        r[c] = target
+    q = np.concatenate([np.repeat(target[None], 20, 0), rng.random((m - 20, k), dtype=np.float32)])
+    qd = torch.as_tensor(q, device=cuda)
+    for lowest in edges[:-1]:
+        r_dm, _ = prepare_refs(r, 4096, cuda)
+        got = two_level_min_idx(qd, r_dm, n, tile_n=tile_n)
+        table = two_level_table_plain(qd, r_dm, n, tile_n)
+        _assert_same(got, two_level_plain(qd, r_dm, n, tile_n=tile_n))
+        assert (got[1][:20].cpu().numpy() == lowest).all()
+        assert int(table[1][lowest // tile_n, 0]) == lowest
+        r[lowest] = rng.random(k, dtype=np.float32) + 2.0  # the next edge wins now
+
+
+def test_two_level_plan_agrees_with_the_kernel_library(cuda):
+    # two_level_plan (host) and the library state one rule: the library
+    # takes every plan the host makes, with the same shared memory, and
+    # refuses a plan it has no instance for.
+    lib = _cuda.library()
+    optin = _cuda.smem_optin(lib)
+    smem, slots = ctypes.c_longlong(), ctypes.c_int()
+    for k in [*range(1, 81), 100, 300, 1000, 3633, 4096, 20000]:
+        for m in (1, 16, 64, 300, 1024, 10000):
+            plan = two_level_plan(m, k, optin)
+            rc = lib.nns_two_level_smem(k, plan.q_rows, plan.threads_per_row, plan.cols,
+                                        plan.dims, plan.stages, ctypes.byref(smem),
+                                        ctypes.byref(slots))
+            assert rc == 0 and smem.value == plan.smem_bytes and slots.value >= 1, (k, m, rc)
+    for bad in [(5, 3, 1, 256, 5, 4), (3, 4, 1, 512, 3, 1), (16, 1, 1, 0, 16, 4),
+                (5, 4, 1, 256, 5, 4), (40, 1, 1, 32, 17, 4), (40, 1, 2, 128, 14, 4),
+                (3, 4, 2, 512, 3, 4), (3, 1, 3, 512, 3, 4), (3, 1, 1, 4096, 3, 8)]:
+        assert lib.nns_two_level_smem(*bad, ctypes.byref(smem), ctypes.byref(slots)) != 0, bad
 
 
 # ---------------------------------------------------------------------------

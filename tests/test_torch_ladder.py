@@ -453,6 +453,104 @@ def test_streaming_equals_jax_at_high_k(k):
     assert_exact(_both(q, r, 5), q, r)
 
 
+@pytest.mark.parametrize("k", [64, 128])
+def test_two_level_equals_jax_at_high_k(k):
+    # v7 at a k past the template ones (its kernel's sliced instance): the
+    # port's plain version on the CPU against the JAX package's, whose
+    # Pallas kernel runs in interpret mode.
+    q, r = make_dataset(k, 33, 777, seed=k + 1)
+    assert_exact(_both(q, r, 7), q, r)
+
+
+def _two_level_walk(plan, m, k, n, tile_n, slots):
+    """A Python mirror of csrc/two_level.cu's walk: the grid of query tiles
+    and ranges of whole table tiles, each range's stages of plan.cols
+    columns, each stage cut into segments at the tile boundaries (the
+    sliced instance first into blocks of 8 groups of four per thread of a
+    row), and the groups of four each part of a row folds inside a segment.
+    Returns (writes, folds): how often each (tile, row) cell of the table is
+    written, and how often each column is folded, per part of a row (the
+    same for every row), into the tile that holds it."""
+    n_tiles = -(-n // tile_n)
+    per = -(-n_tiles // fused_ladder.two_level_splits(plan, m, n_tiles, slots))
+    tpr = plan.threads_per_row
+    sliced = k not in fused_ladder.RING_TEMPLATE_KS
+    folds = np.zeros((tpr, n), np.int64)
+    written = []
+    for y in range(-(-n_tiles // per)):
+        lo, hi = y * per * tile_n, min(n, (y + 1) * per * tile_n)
+        tile, end = lo // tile_n, min(lo + tile_n, hi)
+        for col0 in range(lo, hi, plan.cols):
+            lim = min(plan.cols, hi - col0)
+            span = 32 * tpr if sliced else lim
+            for b0 in range(0, lim, span):
+                s0, bend = b0, min(lim, b0 + span)
+                while s0 < bend:
+                    s1 = min(bend, end - col0)
+                    for p in range(tpr):
+                        if sliced:
+                            groups = b0 + 4 * p + 4 * tpr * np.arange(8)
+                        else:
+                            g0 = s0 // 4
+                            groups = np.arange(4 * (g0 + ((p - g0) & (tpr - 1))), s1, 4 * tpr)
+                        for c in groups:
+                            cols = np.arange(max(c, s0), min(c + 4, s1))
+                            assert ((col0 + cols) // tile_n == tile).all()
+                            folds[p, col0 + cols] += 1
+                    s0 = s1
+                    if col0 + s1 == end:
+                        written.append(tile)
+                        tile, end = tile + 1, min(end + tile_n, hi)
+    rows = (np.arange(plan.q_tiles(m))[:, None] * plan.rows_per_tile
+            + (np.arange(plan.q_rows)[:, None] * (256 // tpr)
+               + np.arange(0, 256, tpr) // tpr).ravel()).ravel()
+    rows = rows[rows < m]
+    writes = np.zeros((n_tiles, m), np.int64)
+    for tile in written:
+        writes[tile, rows] += 1
+    return writes, folds
+
+
+@pytest.mark.parametrize("m", [1, 20, 300, 1500])
+@pytest.mark.parametrize("k", [3, 5, 16, 64])
+@pytest.mark.parametrize("tile_n", [128, 300, 4096])
+def test_two_level_walk_writes_every_cell_once(tile_n, k, m):
+    # Every (tile, row) of the table is written exactly once, and every
+    # column is folded exactly once by each part of a row, into its own
+    # tile, whatever the boundaries do to the plan's stages (300-column
+    # tiles cut stages and groups of four; a ragged last tile and range).
+    plan = fused_ladder.two_level_plan(m, k, 232448)
+    for n in (20_003, 4 * tile_n):
+        writes, folds = _two_level_walk(plan, m, k, n, tile_n, slots=264)
+        assert (writes == 1).all(), (n, np.unique(writes))
+        assert (folds.sum(axis=0) == 1).all(), n
+
+
+@pytest.mark.parametrize("m", [1, 20, 1024])
+def test_two_level_plan_fits_every_k(m):
+    # v7's plan exists at every k from 1 to 20000 within the H100's opt-in
+    # shared memory, and its stages do not grow with k (16 dims at most).
+    optin = 232448
+    for k in range(1, 20001):
+        plan = fused_ladder.two_level_plan(m, k, optin)
+        assert plan.smem_bytes == fused_ladder.ring_smem_bytes(
+            "dim_major", k, plan.cols, plan.dims, plan.stages) <= optin, k
+        assert plan.dims == k if k in fused_ladder.RING_TEMPLATE_KS else plan.dims <= 16
+        assert plan.smem_bytes <= 65600 and plan.cols % 4 == 0
+
+
+def test_two_level_ranges_past_the_grid_limit():
+    # More table tiles than a CUDA grid has rows (65535): the kernel's grid
+    # runs over ranges of whole tiles, at most one wave of them, so the
+    # wrapper no longer refuses a small tile_n; the table keeps one row per
+    # tile.
+    plan = fused_ladder.two_level_plan(1024, 3, 232448)
+    splits = fused_ladder.two_level_splits(plan, 1024, 1_000_000, 264)
+    assert splits == 264 and -(-1_000_000 // -(-1_000_000 // splits)) <= 65535
+    writes, folds = _two_level_walk(plan, 20, 3, 70_001, 1, slots=264)
+    assert writes.shape == (70_001, 20) and (writes == 1).all() and (folds.sum(0) == 1).all()
+
+
 def test_library_signatures_match_the_c_sources():
     # Every extern "C" entry point under csrc/ is bound with one ctypes type
     # per C parameter (pointers as void*), in order: a wrong count or type
