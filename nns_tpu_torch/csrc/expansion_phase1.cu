@@ -121,6 +121,23 @@ __host__ __device__ constexpr size_t wg_smem(int kp, int bn) {
   return (size_t)kBM * 6 * kp * 2 + (size_t)kStages * wg_stage_bytes(kp, bn);
 }
 
+// The sliced wgmma kernel's stage: a (kBM, 6 ds) query slice, a (bn, 3 ds)
+// rc_t slice and bn half-norms; kStages of them.
+__host__ __device__ constexpr int wg_slice_stage_bytes(int ds, int bn) {
+  return kBM * 6 * ds * 2 + bn * 3 * ds * 2 + bn * 4;
+}
+__host__ __device__ constexpr size_t wg_sliced_smem(int ds, int bn) {
+  return (size_t)kStages * wg_slice_stage_bytes(ds, bn);
+}
+
+// The wgmma instances compiled: those whose shared memory fits an H100
+// block's opt-in (a smaller card refuses the rest at run time). A resident
+// query tile takes kp up to 16 kMaxResidentSteps; past that the
+// contraction goes in slices of 16 ds16 dims, ds16 <= kMaxSliceSteps.
+constexpr size_t kInstanceSmem = 232448;
+constexpr int kMaxResidentSteps = 6;
+constexpr int kMaxSliceSteps = 3;
+
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -489,6 +506,34 @@ __device__ __forceinline__ void stage_canonical(const uint16_t* __restrict__ src
   }
 }
 
+// Copy dims [d0, d0 + dn) of the kBlocks blocks of rows [0, rows) of a
+// row-major bf16 source (block b of a row at column b kp_src, rows `pitch`
+// elements apart) into a K-major (rows, kBlocks kDS) tile in the canonical
+// layout at dst, block b at column b kDS: zeros past dn (a block padded to
+// whole k16 steps) and from row `valid` on. d0, dn and kp_src are
+// multiples of 8. The warps and lanes split the tile as in
+// stage_canonical.
+template <int kDS, int kBlocks>
+__device__ __forceinline__ void stage_slice(const uint16_t* __restrict__ src, long long pitch,
+                                            int kp_src, int d0, int dn, int rows, int valid,
+                                            unsigned char* dst) {
+  constexpr int kSegs = kDS / 8;             // 16-byte segments of a block
+  constexpr int kRowSegs = kBlocks * kSegs;  // of a staged row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r8 = lane & 7, s0 = lane >> 3;
+  for (int grp = warp; grp < rows / 8; grp += kWgThreads / nns::kWarp) {
+    const int row = grp * 8 + r8;
+    const bool ok = row < valid;
+    const uint16_t* s = ok ? src + (long long)row * pitch + d0 : src;
+    unsigned char* d = dst + grp * kRowSegs * 128 + r8 * 16;
+    for (int seg = s0; seg < kRowSegs; seg += 4) {
+      const int b = seg / kSegs, w = seg - b * kSegs;
+      const bool real = ok && 8 * w < dn;
+      cp_async16(d + seg * 128, real ? s + b * kp_src + 8 * w : src, real);
+    }
+  }
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -567,17 +612,23 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// Shared memory: the query tile (kBM, 6 kp), then kStages ring stages, each
-// [(BN, 3 kp) rows of rc_t][BN half-norms]; both tiles in the canonical
-// layout. KP16 = kp / 16; BN ref columns a chunk.
-template <int KP16, int BN>
+// Shared memory: the query tile (kBM, 6 kp16), then kStages ring stages,
+// each [(BN, 3 kp16) rows of rc_t][BN half-norms]; both tiles in the
+// canonical layout. KP16 = kp16 / 16, the k16 steps of a contraction
+// block; BN ref columns a chunk. kPad: kp = kp16 - 8 (kp % 16 == 8), each
+// block staged padded with 8 zero dims, which add exact zeros to the
+// products; else kp = kp16. The run-time kp and nsl are the sliced
+// kernel's (one launch signature for both): here kp is the template's and
+// nsl 1.
+template <int KP16, int BN, bool kPad>
 __global__ void __launch_bounds__(kWgThreads, 2)
 phase1_wgmma_kernel(const uint16_t* __restrict__ qc, const uint16_t* __restrict__ rc_t,
-                    const float* __restrict__ r2h, int m, long long n_pad, int tile_n, int ts,
-                    int tiles_per_split, int splits, float* __restrict__ part_f,
-                    int* __restrict__ part_i) {
-  constexpr int kp = 16 * KP16, kc_a = 6 * kp, kc_b = 3 * kp;
-  constexpr int stage_bytes = wg_stage_bytes(kp, BN);
+                    const float* __restrict__ r2h, int m, int, int, long long n_pad,
+                    int tile_n, int ts, int tiles_per_split, int splits,
+                    float* __restrict__ part_f, int* __restrict__ part_i) {
+  constexpr int kp16 = 16 * KP16, kp = kPad ? kp16 - 8 : kp16;
+  constexpr int kc_a = 6 * kp16, kc_b = 3 * kp16;
+  constexpr int stage_bytes = wg_stage_bytes(kp16, BN);
   constexpr int NT = BN / 8;                       // n8 tiles of a chunk
   extern __shared__ __align__(128) unsigned char wsmem[];
   unsigned char* ring = wsmem + kBM * kc_a * 2;
@@ -600,13 +651,21 @@ phase1_wgmma_kernel(const uint16_t* __restrict__ qc, const uint16_t* __restrict_
     if (q < nq) {
       unsigned char* dst = ring + (q % kStages) * stage_bytes;
       const long long col0 = col_base + (long long)q * BN;
-      stage_canonical(rc_t + col0 * kc_b, BN, BN, kc_b, dst);
+      if constexpr (kPad) {
+        stage_slice<kp16, 3>(rc_t + col0 * 3 * kp, 3 * kp, kp, 0, kp, BN, BN, dst);
+      } else {
+        stage_canonical(rc_t + col0 * kc_b, BN, BN, kc_b, dst);
+      }
       if (threadIdx.x < BN / 4)
         cp_async16(dst + BN * kc_b * 2 + threadIdx.x * 16, r2h + col0 + threadIdx.x * 4);
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
-  stage_canonical(qc + (long long)q0 * kc_a, kBM, m - q0, kc_a, wsmem);  // lands with chunk 0
+  if constexpr (kPad) {  // lands with chunk 0
+    stage_slice<kp16, 6>(qc + (long long)q0 * 6 * kp, 6 * kp, kp, 0, kp, kBM, m - q0, wsmem);
+  } else {
+    stage_canonical(qc + (long long)q0 * kc_a, kBM, m - q0, kc_a, wsmem);
+  }
   stage_chunk(0);
 
   const uint64_t da0 = smem_desc(smem_addr(wsmem) + wg * 64 * kc_a * 2, 16 * kc_a);
@@ -628,8 +687,8 @@ phase1_wgmma_kernel(const uint16_t* __restrict__ qc, const uint16_t* __restrict_
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
     stage_chunk(q + 1);
-    // Contraction block b, k16 step kk reads columns b kp + kk of the query
-    // tile and split(b) kp + kk of the chunk.
+    // Contraction block b, k16 step kk reads columns b kp16 + kk of the
+    // query tile and split(b) kp16 + kk of the chunk.
     const int stage = (q % kStages) * stage_bytes;
     const uint64_t db0 = smem_desc(ring_addr + stage, 16 * kc_b);
     fence_acc(acc);
@@ -637,8 +696,8 @@ phase1_wgmma_kernel(const uint16_t* __restrict__ qc, const uint16_t* __restrict_
 #pragma unroll
     for (int b = 0; b < 6; ++b) {
 #pragma unroll
-      for (int kk = 0; kk < kp; kk += 16) {
-        wgmma_ss(acc, da0 + (b * kp + kk), db0 + ((b == 3 ? 2 : (b & 1)) * kp + kk),
+      for (int kk = 0; kk < kp16; kk += 16) {
+        wgmma_ss(acc, da0 + (b * kp16 + kk), db0 + ((b == 3 ? 2 : (b & 1)) * kp16 + kk),
                  b > 0 || kk > 0);
       }
     }
@@ -646,6 +705,109 @@ phase1_wgmma_kernel(const uint16_t* __restrict__ qc, const uint16_t* __restrict_
     wgmma_wait<0>();
     fence_acc(acc);
     chunk_min(acc, reinterpret_cast<const float*>(ring + stage + BN * kc_b * 2), t, st, 0);
+    end_chunk(st, walk, cps, ns);
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  if (t != 0) return;  // the 4 lanes of a row group hold the same state
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wg * 64 + warp * 16 + h * 8 + g;
+    if (row < m) st.store(h, split, splits, m, row, part_f, part_i);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// phase1_wgmma_sliced_kernel: wgmma, kp past a resident query tile
+// ---------------------------------------------------------------------------
+
+// Each ring unit is (chunk, dimension slice): slice s holds dims [s ds, s ds
+// + ds) of the six query blocks and of the three rc splits, padded with
+// zeros past kp, and the accumulators carry across a chunk's nsl slices;
+// the epilogue runs after the last. Shared memory: kStages stages, each
+// [(kBM, 6 ds) query slice][(BN, 3 ds) rc_t slice][BN half-norms, staged
+// with a chunk's last slice], both slices canonical. DS16 = ds / 16.
+template <int DS16, int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+phase1_wgmma_sliced_kernel(const uint16_t* __restrict__ qc, const uint16_t* __restrict__ rc_t,
+                           const float* __restrict__ r2h, int m, int kp, int nsl,
+                           long long n_pad, int tile_n, int ts, int tiles_per_split, int splits,
+                           float* __restrict__ part_f, int* __restrict__ part_i) {
+  constexpr int ds = 16 * DS16, kc_a = 6 * ds, kc_b = 3 * ds;
+  constexpr int a_bytes = kBM * kc_a * 2, b_bytes = BN * kc_b * 2;
+  constexpr int stage_bytes = wg_slice_stage_bytes(ds, BN);
+  constexpr int NT = BN / 8;
+  extern __shared__ __align__(128) unsigned char wsmem[];
+  const int q0 = blockIdx.x * kBM;
+  const int split = blockIdx.y;
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  const int n_tiles = (int)(n_pad / tile_n);
+  const int j0 = split * tiles_per_split;
+  const int j1 = min(n_tiles, j0 + tiles_per_split);
+  const int nu = max(0, (j1 - j0) * (tile_n / BN)) * nsl;  // units, chunk-major
+  const long long col_base = (long long)j0 * tile_n;
+  const uint16_t* q_src = qc + (long long)q0 * 6 * kp;
+
+  // Unit u into its ring stage, as one commit group (empty past nu).
+  auto stage_unit = [&](int u) {
+    if (u < nu) {
+      const int q = u / nsl, s = u - q * nsl;
+      unsigned char* dst = wsmem + (u % kStages) * stage_bytes;
+      const long long col0 = col_base + (long long)q * BN;
+      const int d0 = s * ds, dn = min(ds, kp - d0);
+      stage_slice<ds, 6>(q_src, 6 * kp, kp, d0, dn, kBM, m - q0, dst);
+      stage_slice<ds, 3>(rc_t + col0 * 3 * kp, 3 * kp, kp, d0, dn, BN, BN, dst + a_bytes);
+      if (s == nsl - 1 && threadIdx.x < BN / 4)
+        cp_async16(dst + a_bytes + b_bytes + threadIdx.x * 16, r2h + col0 + threadIdx.x * 4);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  stage_unit(0);
+
+  const unsigned ring_addr = smem_addr(wsmem);
+  RowState<2> st;  // rows 64 wg + 16 warp + 8 h + g, index h
+  st.init();
+  Walk walk{j0, 0, 0};
+  const int cps = ts / BN, ns = tile_n / ts;
+  float acc[NT][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  int s = 0;  // unit u's slice, stepped without dividing
+  for (int u = 0; u < nu; ++u) {
+    // As in phase1_wgmma_kernel: unit u has landed and is visible to the
+    // async proxy, and no warp still reads the stage unit u + 1 refills.
+    cp_async_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    stage_unit(u + 1);
+    const int stage = (u % kStages) * stage_bytes;
+    const uint64_t da0 = smem_desc(ring_addr + stage + wg * 64 * kc_a * 2, 16 * kc_a);
+    const uint64_t db0 = smem_desc(ring_addr + stage + a_bytes, 16 * kc_b);
+    // Every slice runs all DS16 steps: a last slice with fewer real dims
+    // reads zeros past them (a conditional step made the compiler serialize
+    // the wgmma issue).
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int b = 0; b < 6; ++b) {
+#pragma unroll
+      for (int kk = 0; kk < DS16; ++kk) {
+        wgmma_ss(acc, da0 + (b * ds + 16 * kk), db0 + ((b == 3 ? 2 : (b & 1)) * ds + 16 * kk),
+                 s > 0 || b > 0 || kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (++s < nsl) continue;  // the chunk's cross terms are not complete
+    s = 0;
+    chunk_min(acc, reinterpret_cast<const float*>(wsmem + stage + a_bytes + b_bytes), t, st, 0);
     end_chunk(st, walk, cps, ns);
   }
   cp_async_wait<0>();  // no copy outlives the block
@@ -745,28 +907,55 @@ cudaError_t plan_for(int kp, Plan* plan) {
   return nns::allow_smem(phase1_kernel, plan->smem);
 }
 
-// phase1_wgmma_kernel's instance for kp and ts, with its chunk width bn
-// (128 columns where ts allows, else 64) and shared memory, requested from
-// the card; or cudaErrorInvalidValue where the kernel does not take them:
-// kp % 16 != 0 or past 80 (the instances), ts % 64 != 0, or the query
-// tile and ring past the card's opt-in shared memory. mxu_expansion.phase1_route
+// The wgmma plan for kp and ts: the kernel instance, its shared memory and
+// the slices of the contraction (1: the query tile resident), requested
+// from the card; or cudaErrorInvalidValue where there is none (kp % 8 !=
+// 0, ts % 64 != 0, or nothing fits the card's opt-in shared memory). The
+// rule, tried in order: chunks of bn = 128 columns where ts % 128 == 0,
+// then 64; the query tile resident (kp16 = kp rounded up to 16, at most
+// 16 kMaxResidentSteps) for the first bn whose tile and ring fit; else
+// slices of ds = 16 ds16 dims, ds16 the largest (at most kMaxSliceSteps)
+// whose ring fits, for the first bn that has one. mxu_expansion.phase1_plan
 // states the same rule on the host (a GPU test holds the two together).
-using WgmmaKernel = void (*)(const uint16_t*, const uint16_t*, const float*, int, long long,
-                             int, int, int, int, float*, int*);
+using WgmmaKernel = void (*)(const uint16_t*, const uint16_t*, const float*, int, int, int,
+                             long long, int, int, int, int, float*, int*);
 
 struct WgmmaPlan {
   WgmmaKernel kernel;
   size_t smem;
+  int nsl;
 };
 
+template <int KP16, int BN, bool kPad>
+WgmmaKernel resident_kernel() {
+  if constexpr (wg_smem(16 * KP16, BN) <= kInstanceSmem) {
+    return phase1_wgmma_kernel<KP16, BN, kPad>;
+  } else {
+    return nullptr;
+  }
+}
+
+template <int BN, bool kPad>
+WgmmaKernel resident_instance(int steps) {
+  static_assert(kMaxResidentSteps == 6, "one case per resident step count");
+  switch (steps) {
+    case 1: return resident_kernel<1, BN, kPad>();
+    case 2: return resident_kernel<2, BN, kPad>();
+    case 3: return resident_kernel<3, BN, kPad>();
+    case 4: return resident_kernel<4, BN, kPad>();
+    case 5: return resident_kernel<5, BN, kPad>();
+    case 6: return resident_kernel<6, BN, kPad>();
+    default: return nullptr;
+  }
+}
+
 template <int BN>
-WgmmaKernel wgmma_instance(int kp16) {
-  switch (kp16) {
-    case 1: return phase1_wgmma_kernel<1, BN>;
-    case 2: return phase1_wgmma_kernel<2, BN>;
-    case 3: return phase1_wgmma_kernel<3, BN>;
-    case 4: return phase1_wgmma_kernel<4, BN>;
-    case 5: return phase1_wgmma_kernel<5, BN>;
+WgmmaKernel sliced_instance(int ds16) {
+  static_assert(kMaxSliceSteps == 3, "one case per slice width");
+  switch (ds16) {
+    case 1: return phase1_wgmma_sliced_kernel<1, BN>;
+    case 2: return phase1_wgmma_sliced_kernel<2, BN>;
+    case 3: return phase1_wgmma_sliced_kernel<3, BN>;
     default: return nullptr;
   }
 }
@@ -775,11 +964,28 @@ cudaError_t wgmma_setup(int kp, int ts, WgmmaPlan* plan) {
   int optin = 0;
   cudaError_t e = smem_optin(&optin);
   if (e != cudaSuccess) return e;
-  const int bn = ts % 128 == 0 ? 128 : 64;
-  plan->kernel = bn == 128 ? wgmma_instance<128>(kp / 16) : wgmma_instance<64>(kp / 16);
-  plan->smem = wg_smem(kp, bn);
-  if (kp % 16 || plan->kernel == nullptr || ts % bn || plan->smem > (size_t)optin)
-    return cudaErrorInvalidValue;
+  *plan = {nullptr, 0, 0};
+  if (kp < 8 || kp % 8 || ts < 64 || ts % 64) return cudaErrorInvalidValue;
+  const size_t cap = optin < (int)kInstanceSmem ? (size_t)optin : kInstanceSmem;
+  const int steps = (kp + 15) / 16;
+  const bool pad = kp % 16 != 0;
+  const int bns[2] = {ts % 128 == 0 ? 128 : 64, 64};
+  for (int bn : bns) {
+    if (plan->kernel || steps > kMaxResidentSteps || wg_smem(16 * steps, bn) > cap) continue;
+    const WgmmaKernel kernel =
+        bn == 128 ? (pad ? resident_instance<128, true>(steps) : resident_instance<128, false>(steps))
+                  : (pad ? resident_instance<64, true>(steps) : resident_instance<64, false>(steps));
+    *plan = {kernel, wg_smem(16 * steps, bn), 1};
+  }
+  for (int bn : bns) {
+    for (int ds16 = kMaxSliceSteps; ds16 >= 1 && plan->kernel == nullptr; --ds16) {
+      if (wg_sliced_smem(16 * ds16, bn) <= cap) {
+        *plan = {bn == 128 ? sliced_instance<128>(ds16) : sliced_instance<64>(ds16),
+                 wg_sliced_smem(16 * ds16, bn), (steps + ds16 - 1) / ds16};
+      }
+    }
+  }
+  if (plan->kernel == nullptr) return cudaErrorInvalidValue;
   return nns::allow_smem(plan->kernel, plan->smem);
 }
 
@@ -841,11 +1047,10 @@ extern "C" int nns_expansion_phase1(const uint16_t* qc, const uint16_t* rc,
   return (int)launch_merge(part_f, part_i, m, splits, tile_n / ts, out_f, out_i, st);
 }
 
-// As nns_expansion_phase1, on phase1_wgmma_kernel: rc_t is (n_pad, 3 kp)
-// bf16 row-major (rc transposed), kp % 16 == 0, and the query tile plus
-// the ring must fit the card's opt-in shared memory (else
-// cudaErrorInvalidValue, and nothing is launched). Chunks are 128 columns
-// where ts % 128 == 0, else 64.
+// As nns_expansion_phase1, on the wgmma kernel `wgmma_setup` plans for kp
+// and ts (the query tile resident, or the contraction in slices): rc_t is
+// (n_pad, 3 kp) bf16 row-major (rc transposed). Where there is no plan it
+// returns cudaErrorInvalidValue and launches nothing.
 extern "C" int nns_expansion_phase1_wgmma(const uint16_t* qc, const uint16_t* rc_t,
                                           const float* r2h, int m, int kp, long long n_pad,
                                           int tile_n, int ts, int tiles_per_split, int splits,
@@ -856,7 +1061,8 @@ extern "C" int nns_expansion_phase1_wgmma(const uint16_t* qc, const uint16_t* rc
   cudaError_t e = wgmma_setup(kp, ts, &plan);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((m + kBM - 1) / kBM, splits);
-  plan.kernel<<<grid, kWgThreads, plan.smem, st>>>(qc, rc_t, r2h, m, n_pad, tile_n, ts,
-                                                    tiles_per_split, splits, part_f, part_i);
+  plan.kernel<<<grid, kWgThreads, plan.smem, st>>>(qc, rc_t, r2h, m, kp, plan.nsl, n_pad,
+                                                    tile_n, ts, tiles_per_split, splits, part_f,
+                                                    part_i);
   return (int)launch_merge(part_f, part_i, m, splits, tile_n / ts, out_f, out_i, st);
 }

@@ -53,6 +53,7 @@ launch raises instead of answering with the fused scan.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -74,11 +75,16 @@ _DELTA_REL_PER_K = 2.0 ** -21
 # kBN in csrc/expansion_phase1.cu).
 _KERNEL_BM = 128
 _KERNEL_BN = 64
-# The wgmma kernel's ring stages (kStages), contraction step, and largest
-# kp (its instances in wgmma_instance).
+# The wgmma kernels' ring stages (kStages) and contraction step; a
+# resident query tile up to this many k16 steps per contraction block
+# (kMaxResidentSteps), else slices of up to this many (kMaxSliceSteps); the
+# instances compiled are those whose shared memory fits an H100 block
+# (kInstanceSmem), in csrc/expansion_phase1.cu.
 _WGMMA_STAGES = 2
 _WGMMA_K = 16
-_WGMMA_MAX_KP = 80
+_WGMMA_MAX_RESIDENT_STEPS = 6
+_WGMMA_MAX_SLICE_STEPS = 3
+_WGMMA_INSTANCE_SMEM = 232_448
 # Split rows of rc feeding the six blocks of the contraction: [h, m, h, l, h, m].
 _SPLIT_OF_BLOCK = (0, 1, 0, 2, 0, 1)
 # Rows of a phase-2 or band-refine gather step: ~2^21 gathered points.
@@ -195,26 +201,69 @@ def wgmma_chunk(ts: int) -> int:
 
 
 def wgmma_smem_bytes(kp: int, ts: int) -> int:
-    """Shared memory of the wgmma kernel at kp and ts (wg_smem in
-    csrc/expansion_phase1.cu): the resident (128, 6 kp) bf16 query tile and
-    a ring of stages, each ``wgmma_chunk(ts)`` bf16 rows of ``rc_t`` (3 kp
-    wide) and their f32 half-norms."""
-    bn = wgmma_chunk(ts)
-    return _KERNEL_BM * 6 * kp * 2 + _WGMMA_STAGES * (bn * 3 * kp * 2 + bn * 4)
+    """Shared memory of the wgmma kernel with its query tile resident, at kp
+    and ts (wg_smem in csrc/expansion_phase1.cu): the (128, 6 kp16) bf16
+    query tile, kp16 = kp rounded up to 16, and a ring of stages, each
+    ``wgmma_chunk(ts)`` bf16 rows of ``rc_t`` (3 kp16 wide) and their f32
+    half-norms."""
+    bn, kp16 = wgmma_chunk(ts), layouts.round_up(kp, _WGMMA_K)
+    return _resident_smem(kp16, bn)
+
+
+def _resident_smem(kp16: int, bn: int) -> int:
+    return _KERNEL_BM * 6 * kp16 * 2 + _WGMMA_STAGES * (bn * 3 * kp16 * 2 + bn * 4)
+
+
+def _sliced_smem(ds: int, bn: int) -> int:
+    """The sliced kernel's ring: stages of a (128, 6 ds) query slice, a
+    (bn, 3 ds) rc_t slice and bn half-norms (wg_sliced_smem)."""
+    return _WGMMA_STAGES * (_KERNEL_BM * 6 * ds * 2 + bn * 3 * ds * 2 + bn * 4)
+
+
+@dataclass(frozen=True)
+class Phase1Plan:
+    """How the wgmma kernel runs phase 1 at kp: chunks of ``bn`` ref
+    columns, the contraction in ``slices`` slices of ``ds`` dims (a multiple
+    of 16, each of the six query blocks and three rc splits padded with
+    zeros past kp; one slice: the (128, 6 ds) query tile stays resident),
+    ``smem_bytes`` of shared memory."""
+
+    bn: int
+    ds: int
+    slices: int
+    smem_bytes: int
+
+
+def phase1_plan(kp: int, ts: int, smem_optin: int) -> Phase1Plan | None:
+    """The wgmma kernel's plan for kp and ts on a card whose blocks get
+    ``smem_optin`` bytes of shared memory, or None where it has none (kp %
+    8 != 0, ts % 64 != 0, or nothing fits). Chunks of 128 columns where ts
+    % 128 == 0, then 64; the query tile resident (kp16 = kp rounded up to
+    16, at most 96) for the first chunk width whose tile and ring fit; else
+    slices of 16, 32 or 48 dims (the widest whose ring fits), for the first
+    chunk width that has one. ``wgmma_setup`` in csrc/expansion_phase1.cu
+    states the same rule (a GPU test holds the two together)."""
+    if kp < _SUBLANE or kp % _SUBLANE or ts < _KERNEL_BN or ts % _KERNEL_BN:
+        return None
+    cap = min(smem_optin, _WGMMA_INSTANCE_SMEM)
+    steps = -(-kp // _WGMMA_K)
+    widths = (wgmma_chunk(ts), _KERNEL_BN)
+    for bn in widths:
+        if steps <= _WGMMA_MAX_RESIDENT_STEPS and _resident_smem(16 * steps, bn) <= cap:
+            return Phase1Plan(bn, 16 * steps, 1, _resident_smem(16 * steps, bn))
+    for bn in widths:
+        for ds16 in range(_WGMMA_MAX_SLICE_STEPS, 0, -1):
+            if _sliced_smem(16 * ds16, bn) <= cap:
+                return Phase1Plan(bn, 16 * ds16, -(-steps // ds16), _sliced_smem(16 * ds16, bn))
+    return None
 
 
 def phase1_route(kp: int, ts: int, smem_optin: int) -> str:
     """The phase-1 kernel for these shapes, by shape alone: ``"wgmma"``
-    (``phase1_wgmma_kernel``) when ``kp % 16 == 0``, ``kp <= 80``, ``ts %
-    64 == 0`` and the resident query tile plus the ring fit the card's
-    opt-in shared memory per block, ``smem_optin`` bytes; else
-    ``"mma_sync"`` (``phase1_kernel``, any kp, in dimension slices past kp
-    = 88). ``wgmma_setup`` in csrc/expansion_phase1.cu refuses exactly the
-    shapes sent elsewhere."""
-    if (kp % _WGMMA_K == 0 and kp <= _WGMMA_MAX_KP and ts % _KERNEL_BN == 0
-            and wgmma_smem_bytes(kp, ts) <= smem_optin):
-        return "wgmma"
-    return "mma_sync"
+    wherever ``phase1_plan`` has a plan, else ``"none"`` (phase 1 on the
+    card then raises). ``phase1_kernel`` (mma.sync) is no route: it is the
+    yardstick, reached only through ``_phase1_cuda(..., "mma_sync")``."""
+    return "wgmma" if phase1_plan(kp, ts, smem_optin) is not None else "none"
 
 
 def device_route(kp: int, ts: int, device) -> str:
@@ -294,12 +343,13 @@ def phase1(qc: torch.Tensor, rc: torch.Tensor, r2h: torch.Tensor, tile_n: int, t
     (m, 6 kp) bf16 queries ``qc`` (``_cat_q`` layout) against the (3 kp,
     n_pad) bf16 split stack ``rc`` and the (n_pad,) or (1, n_pad) f32
     half-norms ``r2h``. CPU tensors take ``phase1_plain``; CUDA tensors
-    launch the kernel ``device_route`` picks in csrc/expansion_phase1.cu
-    (or raise RuntimeError), counted in ``_cuda.LAUNCHES["expansion_phase1"]``
-    and, for the wgmma kernel, also ``["expansion_phase1_wgmma"]``. That
-    kernel reads ``rc_t``, the contiguous (n_pad, 3 kp) transpose of rc,
-    which the caller must pass on that route (``MXUExpansion.rc_t``); ``rc``
-    may then be any view of the same values."""
+    launch the wgmma kernel of csrc/expansion_phase1.cu on the plan
+    ``phase1_plan`` states (or raise: RuntimeError where the kernel has no
+    plan or fails), counted in ``_cuda.LAUNCHES["expansion_phase1"]`` and
+    ``["expansion_phase1_wgmma"]``. It reads ``rc_t``, the contiguous
+    (n_pad, 3 kp) transpose of rc, which the caller must pass
+    (``MXUExpansion.rc_t``); ``rc`` may then be any view of the same
+    values."""
     m, kp, _ = _check_phase1(qc, rc, r2h, tile_n, ts)
     if qc.device.type == "cpu":
         return phase1_plain(qc, rc, r2h, tile_n, ts)
@@ -307,9 +357,7 @@ def phase1(qc: torch.Tensor, rc: torch.Tensor, r2h: torch.Tensor, tile_n: int, t
         raise ValueError(f"unsupported device {qc.device}")
     if m == 0:
         return _carries(*_empty_carries(0, qc.device))
-    route = device_route(kp, ts, qc.device)
-    return _phase1_cuda(qc.contiguous(), rc.contiguous() if route == "mma_sync" else rc,
-                        r2h.contiguous(), tile_n, ts, rc_t, route)
+    return _phase1_cuda(qc.contiguous(), rc, r2h.contiguous(), tile_n, ts, rc_t, "wgmma")
 
 
 def _sq_dist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

@@ -34,9 +34,12 @@ import torch
 
 
 def _kernel_name(mangled: str) -> str:
-    wg = re.search(r"phase1_wgmma_kernelILi(\d+)ELi(\d+)E", mangled)
+    wg = re.search(r"phase1_wgmma_kernelILi(\d+)ELi(\d+)ELb([01])E", mangled)
     if wg:
-        return f"phase1_wgmma_kernel<{wg.group(1)}, {wg.group(2)}>"
+        return f"phase1_wgmma_kernel<{wg.group(1)}, {wg.group(2)}, {wg.group(3)}>"
+    sliced = re.search(r"phase1_wgmma_sliced_kernelILi(\d+)ELi(\d+)E", mangled)
+    if sliced:
+        return f"phase1_wgmma_sliced_kernel<{sliced.group(1)}, {sliced.group(2)}>"
     for name in ("phase1_merge_kernel", "phase1_kernel"):
         if name in mangled:
             return name
@@ -72,8 +75,9 @@ def _sass(_cuda) -> None:
             counts[fn] += 1
     for name, count in sorted(counts.items()):
         print(f"[sass] {name}: {count} HGMMA instructions", flush=True)
-    if not any(c for name, c in counts.items() if name.startswith("phase1_wgmma_kernel")):
-        raise RuntimeError("no HGMMA instruction in phase1_wgmma_kernel's SASS")
+    for name, count in counts.items():
+        if name.startswith("phase1_wgmma") and not count:
+            raise RuntimeError(f"no HGMMA instruction in {name}'s SASS")
 
 
 def main() -> int:

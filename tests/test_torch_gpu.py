@@ -7,8 +7,8 @@ halo tiles, padded and repeated slots, unaligned rows, exact ties).
 Tolerance: indices exactly equal and min_d2 bit-equal — kernel and plain
 version both round each sub, mul and add to nearest in the same order (the
 kernels are built with -fmad=false), so there is nothing to tolerate.
-The one exception is ``expansion_phase1`` (v9, both its kernels: wgmma for
-kp % 16 == 0, mma.sync for every other kp): its tensor cores sum the
+The one exception is ``expansion_phase1`` (v9, both its kernels: wgmma, the
+route at every kp, and mma.sync, the yardstick): its tensor cores sum the
 bf16 products in their own order and may truncate, so its values (min1,
 m2x, t2v, t3v) are held within the engine's delta of the plain version, and
 its ids (tid, tid2) equal wherever the plain runner-up lies more than
@@ -711,7 +711,8 @@ def assert_phase1_close(kernel, plain, delta):
                                              (300, 9000, 96, 1024, 256),
                                              (301, 9000, 96, 1024, 64),
                                              (130, 5000, 128, 512, 128),
-                                             (64, 3000, 200, 1024, 256)])
+                                             (64, 3000, 200, 1024, 256),
+                                             (100, 9000, 40, 1024, 256)])
 def test_phase1_kernel_within_delta_of_plain(cuda, m, n, k, tile_n, ts):
     q, r = make_dataset(k, m, n, seed=300 + m)
     eng, delta, args = _phase1_args(q, r, tile_n, ts, cuda)
@@ -724,9 +725,22 @@ def test_phase1_kernel_within_delta_of_plain(cuda, m, n, k, tile_n, ts):
 @pytest.mark.parametrize("m,n,k,tile_n,ts", [(1, 300, 16, 128, 64), (33, 777, 16, 128, 128),
                                              (1000, 70000, 16, 4096, 256),
                                              (300, 9000, 32, 1024, 256),
-                                             (129, 20000, 48, 1024, 256)])
+                                             (129, 20000, 48, 1024, 256),
+                                             (129, 20000, 8, 1024, 256),
+                                             (300, 9000, 24, 1024, 256),
+                                             (33, 777, 24, 128, 64),
+                                             (200, 9000, 40, 1024, 128),
+                                             (200, 9000, 88, 1024, 256),
+                                             (130, 9000, 96, 1024, 256),
+                                             (300, 9000, 128, 1024, 256),
+                                             (129, 5000, 128, 512, 64),
+                                             (64, 3000, 200, 1024, 256),
+                                             (64, 3000, 200, 1024, 64)])
 def test_phase1_wgmma_kernel_within_delta_of_plain(cuda, m, n, k, tile_n, ts):
-    q, r = make_dataset(k, m, n, seed=400 + m)
+    # Every kp: 16-aligned with the query tile resident, 8 more than a
+    # multiple of 16 (8, 24, 40, 88: each block padded with zero dims), and
+    # past a resident tile (128, 200: dimension slices of up to 48).
+    q, r = make_dataset(k, m, n, seed=400 + m + k)
     eng, delta, args = _phase1_args(q, r, tile_n, ts, cuda)
     assert _route(eng.kp, ts) == "wgmma"
     before = _counts()
@@ -736,18 +750,20 @@ def test_phase1_wgmma_kernel_within_delta_of_plain(cuda, m, n, k, tile_n, ts):
 
 
 def test_phase1_mma_sync_kernel_where_kp_is_not_16_aligned(cuda):
-    # k = 24: kp = 24 takes phase1_kernel; the wgmma kernel refuses it and
-    # raises (no fallback) when asked directly.
+    # k = 24: kp = 24 now takes the wgmma kernel (blocks padded to 32 dims);
+    # the mma.sync kernel, no route any more, still answers through its own
+    # entry point (the yardstick), and both stay within delta of the plain
+    # version. The engine keeps rc_t alone.
     q, r = make_dataset(24, 200, 9000, seed=24)
     eng, delta, args = _phase1_args(q, r, 1024, 256, cuda)
-    assert _route(eng.kp, eng.ts) == "mma_sync"
+    assert _route(eng.kp, eng.ts) == "wgmma" and eng.rc_t is not None
     before = _counts()
     got = phase1(*args, rc_t=eng.rc_t)
-    assert _counts() == (before[0] + 1, before[1])
+    assert _counts() == (before[0] + 1, before[1] + 1)
     assert_phase1_close(got, phase1_plain(*args), delta)
-    assert eng.rc_t is None and eng.rc.is_contiguous()
-    with pytest.raises(RuntimeError, match="expansion_phase1"):
-        _phase1_cuda(*args, eng.rc.t().contiguous(), "wgmma")
+    yard = _phase1_cuda(args[0], eng.rc.contiguous(), *args[2:], None, "mma_sync")
+    assert _counts() == (before[0] + 2, before[1] + 1)
+    assert_phase1_close(yard, phase1_plain(*args), delta)
 
 
 def test_phase1_mma_sync_kernel_at_kp16(cuda):
@@ -785,17 +801,25 @@ def test_phase1_route_agrees_with_the_kernel_library(cuda, ts):
         rc = lib.nns_expansion_phase1_wgmma_blocks_per_sm(kp, ts, ctypes.byref(blocks))
         assert (rc == 0) == (_route(kp, ts) == "wgmma"), (kp, ts, rc)
         assert rc != 0 or blocks.value >= 1
+    # Every kp the engine makes has a plan; none where kp % 8 != 0 or
+    # ts % 64 != 0, and the route says so.
+    assert all(_route(kp, ts) == "wgmma" for kp in range(8, 265, 8))
+    for kp, bad_ts in ((12, ts), (16, ts + 32)):
+        rc = lib.nns_expansion_phase1_wgmma_blocks_per_sm(kp, bad_ts, ctypes.byref(blocks))
+        assert rc != 0 and _route(kp, bad_ts) == "none", (kp, bad_ts)
 
 
 @pytest.mark.parametrize("m,tile_n,ts,k", [(40, 512, 128, 16), (300, 256, 64, 16),
-                                            (7, 4096, 256, 16), (64, 512, 128, 100)])
+                                            (7, 4096, 256, 16), (64, 512, 128, 100),
+                                            (40, 512, 128, 24), (64, 512, 64, 200)])
 def test_phase1_kernel_merges_ranges_per_query(cuda, m, tile_n, ts, k):
     # Integer coordinates make every sum exact in any order, so all six
     # outputs must equal the plain version's. Exact duplicates of each
     # query's nearest point sit in other ref ranges, and two whole tiles
-    # are identical: every merge rule meets a tie. At k = 16 the wgmma
-    # kernel runs; at k = 100 (kp = 104) the mma.sync kernel, with the
-    # contraction in dimension slices of 32, 32, 32 and 8.
+    # are identical: every merge rule meets a tie. The wgmma kernel runs
+    # with its query tile resident at k = 16 and 24 (padded to 32 dims), and
+    # in dimension slices of 48 at k = 100 (kp = 104: 48, 48, 16 with 8 of
+    # padding) and k = 200.
     rng = np.random.default_rng(m + tile_n)
     n = 200_000
     r = rng.integers(0, 4, (n, k)).astype(np.float32)
@@ -807,13 +831,13 @@ def test_phase1_kernel_merges_ranges_per_query(cuda, m, tile_n, ts, k):
     r[tile_n:2 * tile_n] = r[:tile_n]
     kp = -(-k // 8) * 8
     route = _route(kp, ts)
-    assert route == ("wgmma" if k == 16 else "mma_sync")
+    assert route == "wgmma"
     slots = _phase1_slots(_cuda.library(), kp, cuda, route, ts)
     assert phase1_splits(m, -(-n // tile_n), slots) > 1
     eng, _, args = _phase1_args(q, r, tile_n, ts, cuda)
     before = _counts()
     got, want = phase1(*args, rc_t=eng.rc_t), phase1_plain(*args)
-    assert _counts()[1] == before[1] + (route == "wgmma")
+    assert _counts() == (before[0] + 1, before[1] + 1)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -851,29 +875,30 @@ def test_v9_engine_equals_v4_kernel(cuda):
 
 
 def test_v9_engine_at_kp96_with_64_column_subtiles(cuda):
-    # kp = 96 is a multiple of 16 whose query tile and a 64-column ring would
-    # fit, but past the wgmma kernel's instances: the mma.sync kernel runs.
+    # kp = 96: the wgmma kernel keeps its query tile resident beside a ring
+    # of 64-column chunks (221,696 bytes of shared memory).
     q, r = make_dataset(96, 300, 20_000, seed=96)
     eng = MXUExpansion(r, tile_s=64, device=cuda)
-    assert (eng.kp, eng.ts, eng.route) == (96, 64, "mma_sync") and eng.rc_t is None
+    assert (eng.kp, eng.ts, eng.route) == (96, 64, "wgmma") and eng._rc is None
     before = _counts()
     got = eng.query(q)
-    assert _counts() == (before[0] + 1, before[1])
+    assert _counts() == (before[0] + 1, before[1] + 1)
     r_dm, _ = prepare_refs(r, 4096, cuda)
     _, want = fused_min_idx(torch.as_tensor(q, device=cuda), r_dm, r.shape[0])
     np.testing.assert_array_equal(got, want.cpu().numpy())
 
 
-@pytest.mark.parametrize("k", [96, 128])
+@pytest.mark.parametrize("k", [24, 96, 128])
 def test_auto_engine_at_high_k_on_card(cuda, k):
-    # NNEngine("auto") picks v9 for k >= 8; past kp = 88 the query tile no
-    # longer fits in shared memory and phase 1 runs in dimension slices.
+    # NNEngine("auto") picks v9 for k >= 8, and phase 1 runs on the wgmma
+    # kernel at every kp: padded blocks at k = 24, the query tile resident
+    # at 96, dimension slices at 128.
     q, r = make_dataset(k, 500, 20_000, seed=k)
     eng = NNEngine(device="cuda").build(r)
     assert eng.spec.num == 9 and isinstance(eng._built, MXUExpansion)
-    before = _cuda.LAUNCHES["expansion_phase1"]
+    before = _counts()
     got = eng.query(q)
-    assert _cuda.LAUNCHES["expansion_phase1"] == before + 1
+    assert _counts() == (before[0] + 1, before[1] + 1)
     r_dm, _ = prepare_refs(r, 4096, cuda)
     _, want = fused_min_idx(torch.as_tensor(q, device=cuda), r_dm, r.shape[0])
     np.testing.assert_array_equal(got, want.cpu().numpy())

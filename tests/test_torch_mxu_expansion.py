@@ -210,17 +210,47 @@ _H100_OPTIN = 232_448
     (16, 256, _H100_OPTIN, "wgmma"), (16, 64, _H100_OPTIN, "wgmma"),
     (32, 256, _H100_OPTIN, "wgmma"), (48, 1024, _H100_OPTIN, "wgmma"),
     (64, 256, _H100_OPTIN, "wgmma"),
-    (8, 256, _H100_OPTIN, "mma_sync"), (24, 256, _H100_OPTIN, "mma_sync"),
-    (80, 256, _H100_OPTIN, "mma_sync"),    # 16 | 80, but 246,784 bytes
+    (8, 256, _H100_OPTIN, "wgmma"), (24, 256, _H100_OPTIN, "wgmma"),  # padded to kp16
+    (80, 256, _H100_OPTIN, "wgmma"),       # 128-column chunks 246,784 bytes; 64: 184,832
     (80, 64, _H100_OPTIN, "wgmma"),        # 64-column chunks: 184,832 bytes
-    (96, 64, _H100_OPTIN, "mma_sync"),     # 221,696 bytes fit, but no kp = 96 instance
-    (96, 192, _H100_OPTIN, "mma_sync"), (96, 256, _H100_OPTIN, "mma_sync"),
-    (128, 256, _H100_OPTIN, "mma_sync"),   # the sliced case
-    (16, 640, _H100_OPTIN, "wgmma"), (16, 100, _H100_OPTIN, "mma_sync"),
-    (16, 256, 48 * 1024, "mma_sync"),      # 50,176 bytes over a 48 KB card
+    (96, 64, _H100_OPTIN, "wgmma"),        # resident, 221,696 bytes
+    (96, 192, _H100_OPTIN, "wgmma"), (96, 256, _H100_OPTIN, "wgmma"),
+    (128, 256, _H100_OPTIN, "wgmma"),      # the sliced case
+    (16, 640, _H100_OPTIN, "wgmma"), (16, 100, _H100_OPTIN, "none"),  # ts % 64 != 0
+    (16, 256, 48 * 1024, "wgmma"),         # 64-column chunks fit a 48 KB card: 37,376 bytes
+    (12, 256, _H100_OPTIN, "none"),        # kp % 8 != 0 (the engine pads k to 8)
 ])
 def test_phase1_route_by_shape(kp, ts, optin, route):
+    # Every kp the engine makes (a multiple of 8) takes the wgmma kernel
+    # wherever ts % 64 == 0; the mma.sync kernel is no route any more.
     assert P.phase1_route(kp, ts, optin) == route
+
+
+@pytest.mark.parametrize("kp,ts,plan", [
+    (16, 256, (128, 16, 1, 50_176)), (24, 256, (128, 32, 1, 99_328)),
+    (40, 64, (64, 48, 1, 111_104)),
+    (80, 256, (64, 80, 1, 184_832)), (88, 256, (64, 96, 1, 221_696)),
+    (96, 256, (64, 96, 1, 221_696)), (104, 256, (128, 48, 3, 222_208)),
+    (128, 256, (128, 48, 3, 222_208)), (200, 256, (128, 48, 5, 222_208)),
+    (200, 64, (64, 48, 5, 184_832)),
+])
+def test_phase1_plan_by_shape(kp, ts, plan):
+    # The resident query tile up to kp16 = 96 where it fits beside the
+    # ring; past it slices of 48 dims, whose ring fits at either chunk
+    # width; chunks of 128 columns where ts allows and the plan fits.
+    got = P.phase1_plan(kp, ts, _H100_OPTIN)
+    assert (got.bn, got.ds, got.slices, got.smem_bytes) == plan
+    assert got.smem_bytes <= _H100_OPTIN and got.ds % 16 == 0 and got.ds * got.slices >= kp
+
+
+def test_phase1_plan_covers_every_kp():
+    # Every kp the engine makes, up to k = 4096, has a plan at the engine's
+    # subtile widths, and at most 16 dims of padding per slice.
+    for kp in range(8, 4097, 8):
+        for ts in (64, 128, 192, 256):
+            plan = P.phase1_plan(kp, ts, _H100_OPTIN)
+            assert plan is not None and plan.smem_bytes <= _H100_OPTIN, (kp, ts)
+            assert plan.slices * plan.ds - kp < 16 + plan.ds, (kp, ts)
 
 
 def test_wgmma_chunk_and_smem_bytes():
@@ -309,6 +339,76 @@ def test_wgmma_addressing_reads_phase1_plain_cross(monkeypatch, k, m, n, ts):
                         acc += a @ bt.t()
                 r0 = q0 + 64 * wg
                 got[r0:min(m, r0 + 64), c0:c0 + bn] = acc[:max(0, min(64, m - r0))]
+    assert torch.equal(got, want)
+
+
+def _stage_slice(src, blocks, kp, d0, dn, ds, rows):
+    """csrc/expansion_phase1.cu stage_slice, mirrored: dims [d0, d0 + dn)
+    of the ``blocks`` blocks (block b at column b kp) of the bf16 rows of
+    ``src`` into a K-major (rows, blocks ds) canonical tile, block b at
+    column b ds, 16-byte segment by segment; zeros past dn and past the
+    rows of ``src``. Returns the tile as int16 words."""
+    words = _bits(src)
+    seg_count = ds // 8
+    buf = np.zeros(rows * blocks * ds, np.int16)
+    r = np.arange(rows)
+    for seg in range(blocks * seg_count):
+        b, w = divmod(seg, seg_count)
+        if 8 * w >= dn:
+            continue  # a zero segment: cp.async with no source bytes
+        off = (r // 8) * blocks * seg_count * 128 + seg * 128 + (r % 8) * 16
+        for e in range(8):
+            col = b * kp + d0 + 8 * w + e
+            buf[(off[:len(words)] + 2 * e) // 2] = words[:, col]
+    return buf
+
+
+@pytest.mark.parametrize("k,m,n,ts,sliced", [(24, 130, 300, 256, False), (40, 70, 200, 64, False),
+                                             (96, 9, 130, 256, True), (128, 40, 200, 128, True),
+                                             (200, 9, 130, 64, True)])
+def test_wgmma_padded_and_sliced_staging_reads_phase1_plain_cross(monkeypatch, k, m, n, ts,
+                                                                  sliced):
+    # The wgmma kernels' staging of padded blocks (kp % 16 == 8: each block
+    # and split padded with zeros to whole k16 steps) and of dimension
+    # slices (units of (chunk, slice) holding the query slice and the rc
+    # slice, the accumulator carried across slices), mirrored on integer
+    # data: every product and sum is exact in any order, so the cross terms
+    # read through the descriptors must equal qc @ [rh; rm; rh; rl; rh; rm]
+    # exactly. kp = 96 is resident on the H100 (64-column chunks); here it
+    # also runs the sliced layout, as a smaller card would.
+    rng = np.random.default_rng(k + m)
+    refs = rng.integers(-3, 4, (n, k)).astype(np.float32)
+    q = rng.integers(-3, 4, (m, k)).astype(np.float32)
+    monkeypatch.setattr(P, "device_route", lambda kp, ts, device: "wgmma")
+    eng = P.MXUExpansion(refs, tile_n=128, tile_s=ts, device="cpu")
+    kp, n_pad, rc_t = eng.kp, eng.rc.shape[1], eng.rc_t
+    plan = P.phase1_plan(kp, eng.ts, _H100_OPTIN)
+    if sliced and plan.slices == 1:
+        plan = P.Phase1Plan(plan.bn, 48, -(-kp // 48), 0)
+    assert (plan.slices > 1) == sliced and (kp % 16 == 8) == (k % 16 in (1, 2, 3, 4, 5, 6, 7, 8))
+    ds, bn = plan.ds, plan.bn
+    qc = P._cat_q(*P.split_bf16x3(eng.stage_queries(q).q_dev))
+    rows = torch.cat([eng.rc[s * kp:(s + 1) * kp] for s in P._SPLIT_OF_BLOCK]).float()
+    with P.full_fp32_matmul():
+        want = (qc.float() @ rows).double()
+    got = torch.zeros((m, n_pad), dtype=torch.float64)
+    for q0 in range(0, m, P._KERNEL_BM):
+        for c0 in range(0, n_pad, bn):
+            acc = torch.zeros((P._KERNEL_BM, bn), dtype=torch.float64)
+            for s in range(plan.slices):
+                d0 = s * ds
+                dn = min(ds, kp - d0)
+                a_buf = _stage_slice(qc[q0:q0 + P._KERNEL_BM], 6, kp, d0, dn, ds, P._KERNEL_BM)
+                b_buf = _stage_slice(rc_t[c0:c0 + bn], 3, kp, d0, dn, ds, bn)
+                for wg in range(2):
+                    for b in range(6):
+                        for kk in range(ds // 16):  # every step, zeros past dn
+                            a = _read(a_buf, wg * 64 * 6 * ds * 2 + 16 * (b * ds + 16 * kk), 64,
+                                      6 * ds)
+                            bt = _read(b_buf, 16 * (P._SPLIT_OF_BLOCK[b] * ds + 16 * kk), bn,
+                                       3 * ds)
+                            acc[64 * wg:64 * wg + 64] += a @ bt.t()
+            got[q0:q0 + P._KERNEL_BM, c0:c0 + bn] = acc[:min(P._KERNEL_BM, m - q0)]
     assert torch.equal(got, want)
 
 
