@@ -121,7 +121,8 @@ def _compare(name, kernel_fn, plain_fn, args, expect_idx=None):
         raise AssertionError(f"{name}: min_d2 not bit-equal between kernel and plain")
     if expect_idx is not None:
         expect_idx(ki)
-    err = float((kd.double() - pd.double()).abs().max()) if kd.numel() else 0.0
+    fin = torch.isfinite(pd)  # inf on rows whose every distance overflows
+    err = float((kd[fin].double() - pd[fin].double()).abs().max()) if fin.any() else 0.0
     _log(f"[kernel] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
          f"indices equal, max_abs_err {err}")
     return err, k_ms, p_ms
@@ -441,6 +442,35 @@ def main() -> int:
         fl.fused_streaming_plain,
         (torch.as_tensor(q128s, device=dev), prepare_refs(r128s, 4096, dev)[0], 65536)))
     del q128s, r128s
+    # v7 at a k whose whole-k query tile once outgrew the opt-in shared
+    # memory (from k = 3633): the sliced instance, 256 slices of 16 dims.
+    q4k, r4k = make_dataset(4096, 64, 65536, SEED)
+    results["two_level"].append(_compare(
+        "two_level 64 x 65536 k=4096 (sliced)", fl.two_level_min_idx, fl.two_level_plain,
+        (torch.as_tensor(q4k, device=dev), prepare_refs(r4k, 4096, dev)[0], 65536)))
+    del q4k, r4k
+    # Rows whose every distance overflows to +inf (coordinates of +-3e19):
+    # v6 and v7 must answer the lowest index, 0, as the plain versions do.
+    for k_o, m_o, n_o in ((3, 1024, N_REFS), (5, 256, 65536)):
+        rng_o = np.random.default_rng(SEED + 3 + k_o)
+        r_o = rng_o.random((n_o, k_o), dtype=np.float32)
+        r_o[: n_o // 2, 0] = -3e19
+        q_o = rng_o.random((m_o, k_o), dtype=np.float32)
+        q_o[::2, 0] = 3e19
+        r_o_dm, _ = prepare_refs(r_o, 4096, dev)
+
+        def _overflow_ok(idx, n_o=n_o):
+            if not bool((idx[::2] == 0).all()) or not bool((idx[1::2] >= n_o // 2).all()):
+                raise AssertionError("overflowing rows: expected index 0 on every even row")
+
+        for name, kernel_fn, plain_fn in (
+                ("fused_queries_resident", fl.fused_queries_resident_min_idx,
+                 fl.fused_queries_resident_plain),
+                ("two_level", fl.two_level_min_idx, fl.two_level_plain)):
+            results[name].append(_compare(
+                f"{name} {m_o} x {n_o} k={k_o} +-3e19 (all-inf rows)", kernel_fn, plain_fn,
+                (torch.as_tensor(q_o, device=dev), r_o_dm, n_o), _overflow_ok))
+        del r_o, r_o_dm
 
     # 6. The ladder through the public entry point.
     ladder_launches = {name: 0 for name, *_ in LADDER_KERNELS}
@@ -496,24 +526,32 @@ def main() -> int:
     q16_dev10k = torch.as_tensor(q16_10k, device=dev)
     results["expansion_phase1"], results["expansion_phase1_wgmma"] = [], []
 
-    def _phase1_case(name, eng, q, want_key, exact=False, yardstick=False):
-        # The dispatched kernel, and with ``yardstick`` the mma.sync kernel
-        # through its own entry point, against one plain run. Returns the
+    def _phase1_case(name, eng, q, row_key, exact=False, yardstick=False):
+        # The dispatched kernel (always the wgmma kernel), and with
+        # ``yardstick`` the mma.sync kernel through its own entry point,
+        # against one plain run. The dispatched row goes to results[row_key]
+        # (the wgmma kernel's own row at kp % 16 == 0 up to 80 with the
+        # query tile resident, else the padded and sliced shapes' row),
+        # the yardstick's to the padded and sliced row. Returns the
         # dispatched kernel's (max_abs_err, kernel_ms, plain_ms).
         st = eng.stage_queries(q)
         args = (_cat_q(*split_bf16x3(st.q_dev)), eng.rc, eng.r2h, eng.tile_n, eng.ts)
         key, row, plain = _phase1_compare(f"phase 1 {name}", args, eng.rc_t, st.delta, exact)
-        if key != want_key:
-            raise AssertionError(f"phase 1 {name}: {key} ran, {want_key} expected")
-        results[key].append(row)
+        if key != WG:
+            raise AssertionError(f"phase 1 {name}: {key} ran, {WG} expected")
+        results[row_key].append(row)
         if yardstick:
             args = (args[0], eng.rc.contiguous(), *args[2:])
-            _, y_row, _ = _phase1_compare(f"phase 1 {name}", args, None, st.delta, exact,
-                                          "mma_sync", plain)
-            results["expansion_phase1"].append(y_row)
+            _, y_row, _ = _phase1_compare(f"phase 1 {name} (mma.sync yardstick)", args, None,
+                                          st.delta, exact, "mma_sync", plain)
+            results[P1B].append(y_row)
+            yardsticks[name] = y_row
         return row
 
-    WG, MMA = "expansion_phase1_wgmma", "expansion_phase1"
+    # WG: the wgmma kernel's row (the drain's launch); P1B: phase 1 at the
+    # padded and sliced kp (the k = 128 path), with the mma.sync yardstick.
+    WG, P1B = "expansion_phase1_wgmma", "expansion_phase1"
+    yardsticks = {}
     _phase1_case("10000 x 1M k=16", mx16, q16_10k, WG, yardstick=True)
     _phase1_case("1024 x 1M k=16", mx16, q16_1m, WG)
     rng_int = np.random.default_rng(SEED + 2)
@@ -525,24 +563,29 @@ def main() -> int:
     mx_int = MXUExpansion(r_int, device=dev)
     _phase1_case("64 x 1M k=16 integer duplicate ties (exact)", mx_int, q_int, WG, exact=True)
     del mx_int, r_int
-    for k_u, key in ((16, WG), (10, WG), (24, MMA)):
+    for k_u, key in ((16, WG), (10, WG), (24, P1B)):
         q_u, r_u = make_dataset(k_u, 33, 777, SEED)
         _phase1_case(f"33 x 777 k={k_u} unaligned", MXUExpansion(r_u, device=dev), q_u, key)
+    q24, r24 = make_dataset(24, 1024, N_REFS, SEED)
+    p1b_k24 = _phase1_case("1024 x 1M k=24 (blocks padded to 32 dims)",
+                           MXUExpansion(r24, device=dev), q24, P1B, yardstick=True)
+    del q24, r24
     q128, r128 = make_dataset(128, 1024, 65536, SEED)
-    mma_row = _phase1_case("1024 x 65536 k=128 (dimension slices)",
-                           MXUExpansion(r128, device=dev), q128, MMA)
-    # The path that launches the mma.sync kernel: v9 at k = 128.
+    p1b_row = _phase1_case("1024 x 65536 k=128 (dimension slices)",
+                           MXUExpansion(r128, device=dev), q128, P1B, yardstick=True)
+    # The path that runs phase 1 at a kp past a resident query tile: v9 at
+    # k = 128, now on the wgmma kernel's dimension slices.
     _cuda.reset_launches()
     idx128 = nns(q128, r128, version=9, device="cuda")
-    mma_launches = _cuda.LAUNCHES[MMA] - _cuda.LAUNCHES[WG]
-    if mma_launches < 1 or _cuda.LAUNCHES[WG]:
+    p1b_launches = _cuda.LAUNCHES[P1B]
+    if _cuda.LAUNCHES[WG] < 1 or p1b_launches != _cuda.LAUNCHES[WG]:
         raise AssertionError(f"nns(version=9) at k=128 launched {dict(_cuda.LAUNCHES)}")
     r128_dm, _ = prepare_refs(r128, 4096, dev)
     want128 = fused_min_idx(torch.as_tensor(q128, device=dev), r128_dm, 65536)[1].cpu().numpy()
     if not np.array_equal(idx128, want128):
         raise AssertionError("nns(version=9) at k=128 differs from the v4 kernel")
-    _log(f"[kernel] nns(version=9) 1024 x 65536 k=128: {mma_launches} mma.sync phase-1 "
-         f"launch(es), no wgmma; answers equal the v4 kernel's")
+    _log(f"[kernel] nns(version=9) 1024 x 65536 k=128: {p1b_launches} wgmma phase-1 "
+         f"launch(es), no mma.sync; answers equal the v4 kernel's")
     del r128_dm
     v4_16_ms, _ = cuda_ms(fused_min_idx, q16_dev10k, r16_dm, N_REFS)
     _log(f"[kernel] fused_argmin 10000 x 1M k=16 (v4, same call): {v4_16_ms:.4f} ms")
@@ -584,7 +627,7 @@ def main() -> int:
         launches["expansion_phase1_wgmma"] = _cuda.LAUNCHES["expansion_phase1_wgmma"]
     finally:
         mxe.phase1, mxe._full_scan_rows = phase1, full_scan
-    launches["expansion_phase1"] = mma_launches  # the v9 path at k = 128, phase 7
+    launches["expansion_phase1"] = p1b_launches  # the v9 path at k = 128, phase 7
     _log(f"[v9] launches during query_many: {dict(_cuda.LAUNCHES)}; full scans of "
          f"{full_scan_rows} rows")
     if launches["expansion_phase1_wgmma"] < 1:
@@ -673,15 +716,17 @@ def main() -> int:
     # 9. Results, each kernel at its main path's shape: one 10K batch for
     # the scan, the 8-query fallback bucket for the fused kernel, 1024 x 1M
     # k=3 for the ladder's kernels, the drain's 640K x 1M k=16 launch for
-    # the wgmma kernel, and for the mma.sync kernel the v9 path that
-    # dispatches to it, 1024 x 65536 k=128, with its time on the drain's
-    # k=16 launch as a separate yardstick.
+    # the wgmma kernel's row, and for phase 1 at the padded and sliced kp
+    # (the "expansion_phase1" row, counting every phase-1 launch) the v9
+    # path at 1024 x 65536 k=128, with 1024 x 1M k=24 beside it and the
+    # mma.sync kernel's times on the same inputs and on the drain's launch
+    # as yardsticks.
     main_rows = {
         "cell_scan": (results["cell_scan"][0], cell_bounds[0], "one 10K batch, k=3"),
         "fused_argmin": (results["fused_argmin"][0], fused_bound(8, N_REFS, K),
                          "8 x 1M k=3 (the fallback bucket)"),
-        "expansion_phase1": (mma_row, phase1_bound(1024, 65536, 128),
-                             "1024 x 65536 k=128 (nns(version=9))"),
+        "expansion_phase1": (p1b_row, phase1_bound(1024, 65536, 128),
+                             "1024 x 65536 k=128 (nns(version=9), dimension slices)"),
         "expansion_phase1_wgmma": (results["expansion_phase1_wgmma"][0], main_bound,
                                    f"{m_main} x 1M k=16 (the v9 drain's launch)"),
         **{name: (results[name][1], fused_bound(1024, N_REFS, K), "1024 x 1M k=3")
@@ -726,9 +771,19 @@ def main() -> int:
             kernels[-1].update(ms_k16=ms, plain_ms_k16=p_ms,
                                bound_ms_k16=fused_bound(1024, N_REFS, K16)[0])
         if name == "expansion_phase1":
-            kernels[-1]["yardstick"] = {
-                "shape": f"{m_main} x 1M k=16 (the v9 drain's launch, forced to this kernel)",
-                "ms": mma_ms_main, "plain_ms": plain_ms_main, "bound_ms": main_bound[0]}
+            # phase1_kernel (mma.sync), no route any more, on the same inputs.
+            y128, y24 = (yardsticks[n] for n in (
+                "1024 x 65536 k=128 (dimension slices)", "1024 x 1M k=24 (blocks padded to 32 dims)"))
+            kernels[-1].update(
+                yardstick={"shape": "1024 x 65536 k=128, forced to phase1_kernel (mma.sync)",
+                           "ms": y128[1], "plain_ms": y128[2], "bound_ms": bound_ms},
+                yardstick_drain={
+                    "shape": f"{m_main} x 1M k=16 (the v9 drain's launch, forced to "
+                             "phase1_kernel)",
+                    "ms": mma_ms_main, "plain_ms": plain_ms_main, "bound_ms": main_bound[0]},
+                shape_k24="1024 x 1M k=24 (blocks padded to 32 dims)", ms_k24=p1b_k24[1],
+                plain_ms_k24=p1b_k24[2], bound_ms_k24=phase1_bound(1024, N_REFS, 24)[0],
+                yardstick_ms_k24=y24[1])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

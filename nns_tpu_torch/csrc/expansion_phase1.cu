@@ -1,6 +1,8 @@
 // v9 phase 1: split-bf16 expansion products on the tensor cores, with the
-// six per-row carries of the band certificate. Two kernels compute it; the
-// host picks one by shape alone (kernels/mxu_expansion.py, phase1_route).
+// six per-row carries of the band certificate. The wgmma kernels compute it
+// at every kp (kernels/mxu_expansion.py, phase1_plan, states which one);
+// phase1_kernel (mma.sync) stays as the yardstick that chip_smoke.py and
+// utils/phase1_report.py time through its own entry point.
 //
 // Replaces: nns_tpu/kernels/mxu_expansion.py:126 `_phase1_kernel` (launched by
 // `_phase12`): per (query tile, ref tile) one bf16 product of the queries
@@ -25,7 +27,8 @@
 // exactly the JAX kernel's rules. Padded columns have r2h = +inf, so they
 // never win; nothing is masked to 0.
 //
-// phase1_kernel (any kp % 8 == 0): mma.sync m16n8k16. The contraction is
+// phase1_kernel (any kp % 8 == 0, no route; the yardstick): mma.sync
+// m16n8k16. The contraction is
 // cut into dimension slices: slice s holds dims [d0, d0 + dn) of all six
 // blocks of qc, (128, 6 dn), and the same dims of the three splits of rc,
 // (3 dn, 64) per chunk. When the whole query tile fits beside two rc
@@ -40,8 +43,8 @@
 // split [h, m, h, l, h, m][b] of the staged rc slice for contraction block
 // b (the 6-block partner is never stored).
 //
-// phase1_wgmma_kernel (kp % 16 == 0, the query tile resident; the host
-// takes it where it fits): at kp = 16 a 128 x 64 chunk is only 6 k16 steps
+// phase1_wgmma_kernel (the query tile resident): at kp = 16 a 128 x 64
+// chunk is only 6 k16 steps
 // deep, and phase1_kernel spends it on instruction issue (A and B fragment
 // loads, index arithmetic, the epilogue) and a barrier with one copy in
 // flight: about 1,500 SM cycles a chunk against about 370 at the tensor
@@ -61,10 +64,28 @@
 // happen once per 128 columns. The ring has two stages: chunk q + 1 is
 // copied while chunk q is multiplied, and chunk q's epilogue runs after its
 // products (deeper rings and an epilogue overlapped with the next chunk's
-// products measured no faster on the H100; PERF.md). Instances exist for
-// kp = 16 .. 80; larger kp take phase1_kernel. The accumulator fragment of
-// m64nNk16 is, per warp, the C fragment of mma.sync m16n8 per n8 tile, so
-// the epilogue is the one phase1_kernel calls.
+// products measured no faster on the H100; PERF.md). The accumulator
+// fragment of m64nNk16 is, per warp, the C fragment of mma.sync m16n8 per
+// n8 tile, so the epilogue is the one phase1_kernel calls.
+//
+// Every kp. kp is a multiple of 8 (the engine pads k), so where kp % 16 ==
+// 8 each of the six query blocks and the three rc splits is staged padded
+// to kp16 = kp + 8 dims with zeros (stage_slice): zero columns add exact
+// zeros to the products, so no k16 step crosses a block, and qc and rc_t
+// keep their global layouts. The instances for kp % 16 == 0 (kPad false)
+// keep their staging and schedule. The query tile stays resident up to
+// kp16 = 96 (64-column chunks where 128 do not fit). Past that,
+// phase1_wgmma_sliced_kernel makes each ring unit (chunk, dimension slice):
+// the unit holds the rc slice (BN, 3 ds), ds = 16, 32 or 48, the
+// accumulators carry across a chunk's slices, and the epilogue runs after
+// the last. Where the (128, 6 kp16) query tile still fits beside two such
+// units (kp16 = 112 and 128 on the H100) it stays resident and each unit
+// reads its slice of it; otherwise each unit also holds the query slice
+// (128, 6 ds), restaged from L2 once per chunk: per chunk 128 x 6 kp + BN
+// x 3 kp bf16 for 2 x 128 x BN x 6 kp operations, about 85 operations per
+// byte at BN = 128, against 256 with the query tile resident. Every slice
+// runs all its k16 steps (the last one's padding is zeros), so the wgmma
+// issue has no branch.
 //
 // Blocks run in no order, so each range writes its six carries to an
 // (S, m) scratch and a second kernel merges the ranges of each query in
@@ -128,6 +149,11 @@ __host__ __device__ constexpr int wg_slice_stage_bytes(int ds, int bn) {
 }
 __host__ __device__ constexpr size_t wg_sliced_smem(int ds, int bn) {
   return (size_t)kStages * wg_slice_stage_bytes(ds, bn);
+}
+// With the query tile resident: the (kBM, 6 kd) tile, kd = ds x slices,
+// then kStages stages of a (bn, 3 ds) rc_t slice and bn half-norms.
+__host__ __device__ constexpr size_t wg_qres_smem(int kd, int ds, int bn) {
+  return (size_t)kBM * 6 * kd * 2 + (size_t)kStages * (bn * 3 * ds * 2 + bn * 4);
 }
 
 // The wgmma instances compiled: those whose shared memory fits an H100
@@ -506,19 +532,19 @@ __device__ __forceinline__ void stage_canonical(const uint16_t* __restrict__ src
   }
 }
 
-// Copy dims [d0, d0 + dn) of the kBlocks blocks of rows [0, rows) of a
+// Copy dims [d0, d0 + dn) of the `blocks` blocks of rows [0, rows) of a
 // row-major bf16 source (block b of a row at column b kp_src, rows `pitch`
-// elements apart) into a K-major (rows, kBlocks kDS) tile in the canonical
-// layout at dst, block b at column b kDS: zeros past dn (a block padded to
-// whole k16 steps) and from row `valid` on. d0, dn and kp_src are
+// elements apart) into a K-major (rows, blocks ds) tile in the canonical
+// layout at dst, block b at column b ds: zeros past dn (a block padded to
+// whole k16 steps) and from row `valid` on. d0, dn, ds and kp_src are
 // multiples of 8. The warps and lanes split the tile as in
-// stage_canonical.
-template <int kDS, int kBlocks>
+// stage_canonical. Callers on the hot path pass ds and blocks as
+// constants (stage_slice<kDS, kBlocks>), so the divisions fold.
 __device__ __forceinline__ void stage_slice(const uint16_t* __restrict__ src, long long pitch,
-                                            int kp_src, int d0, int dn, int rows, int valid,
-                                            unsigned char* dst) {
-  constexpr int kSegs = kDS / 8;             // 16-byte segments of a block
-  constexpr int kRowSegs = kBlocks * kSegs;  // of a staged row
+                                            int kp_src, int d0, int dn, int ds, int blocks,
+                                            int rows, int valid, unsigned char* dst) {
+  const int kSegs = ds / 8;             // 16-byte segments of a block
+  const int kRowSegs = blocks * kSegs;  // of a staged row
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r8 = lane & 7, s0 = lane >> 3;
   for (int grp = warp; grp < rows / 8; grp += kWgThreads / nns::kWarp) {
@@ -532,6 +558,13 @@ __device__ __forceinline__ void stage_slice(const uint16_t* __restrict__ src, lo
       cp_async16(d + seg * 128, real ? s + b * kp_src + 8 * w : src, real);
     }
   }
+}
+
+template <int kDS, int kBlocks>
+__device__ __forceinline__ void stage_slice(const uint16_t* __restrict__ src, long long pitch,
+                                            int kp_src, int d0, int dn, int rows, int valid,
+                                            unsigned char* dst) {
+  stage_slice(src, pitch, kp_src, d0, dn, kDS, kBlocks, rows, valid, dst);
 }
 
 template <int N>
@@ -722,22 +755,30 @@ phase1_wgmma_kernel(const uint16_t* __restrict__ qc, const uint16_t* __restrict_
 // ---------------------------------------------------------------------------
 
 // Each ring unit is (chunk, dimension slice): slice s holds dims [s ds, s ds
-// + ds) of the six query blocks and of the three rc splits, padded with
-// zeros past kp, and the accumulators carry across a chunk's nsl slices;
-// the epilogue runs after the last. Shared memory: kStages stages, each
-// [(kBM, 6 ds) query slice][(BN, 3 ds) rc_t slice][BN half-norms, staged
-// with a chunk's last slice], both slices canonical. DS16 = ds / 16.
-template <int DS16, int BN>
+// + ds) of the three rc splits and (unless kQRes) of the six query blocks,
+// padded with zeros past kp, and the accumulators carry across a chunk's
+// nsl slices; the epilogue runs after the last. kQRes: the query tile stays
+// resident, (kBM, 6 nsl ds) with each block padded to nsl ds dims, and a
+// unit holds the rc slice alone, where that fits (kp16 = 112 or 128 on the
+// H100); else the unit restages its query slice from L2. Shared memory:
+// [the resident query tile (kQRes)] then kStages stages, each [(kBM, 6 ds)
+// query slice (not kQRes)][(BN, 3 ds) rc_t slice][BN half-norms, staged
+// with a chunk's last slice], all canonical. DS16 = ds / 16.
+template <int DS16, int BN, bool kQRes>
 __global__ void __launch_bounds__(kWgThreads, 1)
 phase1_wgmma_sliced_kernel(const uint16_t* __restrict__ qc, const uint16_t* __restrict__ rc_t,
                            const float* __restrict__ r2h, int m, int kp, int nsl,
                            long long n_pad, int tile_n, int ts, int tiles_per_split, int splits,
                            float* __restrict__ part_f, int* __restrict__ part_i) {
-  constexpr int ds = 16 * DS16, kc_a = 6 * ds, kc_b = 3 * ds;
-  constexpr int a_bytes = kBM * kc_a * 2, b_bytes = BN * kc_b * 2;
-  constexpr int stage_bytes = wg_slice_stage_bytes(ds, BN);
+  constexpr int ds = 16 * DS16, kc_b = 3 * ds;
+  constexpr int a_bytes = kQRes ? 0 : kBM * 6 * ds * 2;  // a stage's query slice
+  constexpr int b_bytes = BN * kc_b * 2;
+  constexpr int stage_bytes = a_bytes + b_bytes + BN * 4;
   constexpr int NT = BN / 8;
   extern __shared__ __align__(128) unsigned char wsmem[];
+  const int kd = kQRes ? nsl * ds : ds;  // dims per block of the query tile read
+  const int kc_a = 6 * kd;
+  unsigned char* ring = wsmem + (kQRes ? kBM * kc_a * 2 : 0);
   const int q0 = blockIdx.x * kBM;
   const int split = blockIdx.y;
   const int wg = threadIdx.x >> 7;
@@ -756,19 +797,21 @@ phase1_wgmma_sliced_kernel(const uint16_t* __restrict__ qc, const uint16_t* __re
   auto stage_unit = [&](int u) {
     if (u < nu) {
       const int q = u / nsl, s = u - q * nsl;
-      unsigned char* dst = wsmem + (u % kStages) * stage_bytes;
+      unsigned char* dst = ring + (u % kStages) * stage_bytes;
       const long long col0 = col_base + (long long)q * BN;
       const int d0 = s * ds, dn = min(ds, kp - d0);
-      stage_slice<ds, 6>(q_src, 6 * kp, kp, d0, dn, kBM, m - q0, dst);
+      if (!kQRes) stage_slice<ds, 6>(q_src, 6 * kp, kp, d0, dn, kBM, m - q0, dst);
       stage_slice<ds, 3>(rc_t + col0 * 3 * kp, 3 * kp, kp, d0, dn, BN, BN, dst + a_bytes);
       if (s == nsl - 1 && threadIdx.x < BN / 4)
         cp_async16(dst + a_bytes + b_bytes + threadIdx.x * 16, r2h + col0 + threadIdx.x * 4);
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
+  if (kQRes) stage_slice(q_src, 6 * kp, kp, 0, kp, kd, 6, kBM, m - q0, wsmem);  // with unit 0
   stage_unit(0);
 
-  const unsigned ring_addr = smem_addr(wsmem);
+  const unsigned ring_addr = smem_addr(ring);
+  const uint64_t dq = smem_desc(smem_addr(wsmem) + wg * 64 * kc_a * 2, 16 * kc_a);
   RowState<2> st;  // rows 64 wg + 16 warp + 8 h + g, index h
   st.init();
   Walk walk{j0, 0, 0};
@@ -787,7 +830,9 @@ phase1_wgmma_sliced_kernel(const uint16_t* __restrict__ qc, const uint16_t* __re
     __syncthreads();
     stage_unit(u + 1);
     const int stage = (u % kStages) * stage_bytes;
-    const uint64_t da0 = smem_desc(ring_addr + stage + wg * 64 * kc_a * 2, 16 * kc_a);
+    // The query operand: slice s of the resident tile, or the stage's.
+    const uint64_t da0 = kQRes ? dq + s * ds
+                               : smem_desc(ring_addr + stage + wg * 64 * kc_a * 2, 16 * kc_a);
     const uint64_t db0 = smem_desc(ring_addr + stage + a_bytes, 16 * kc_b);
     // Every slice runs all DS16 steps: a last slice with fewer real dims
     // reads zeros past them (a conditional step made the compiler serialize
@@ -798,7 +843,7 @@ phase1_wgmma_sliced_kernel(const uint16_t* __restrict__ qc, const uint16_t* __re
     for (int b = 0; b < 6; ++b) {
 #pragma unroll
       for (int kk = 0; kk < DS16; ++kk) {
-        wgmma_ss(acc, da0 + (b * ds + 16 * kk), db0 + ((b == 3 ? 2 : (b & 1)) * ds + 16 * kk),
+        wgmma_ss(acc, da0 + (b * kd + 16 * kk), db0 + ((b == 3 ? 2 : (b & 1)) * ds + 16 * kk),
                  s > 0 || b > 0 || kk > 0);
       }
     }
@@ -807,7 +852,7 @@ phase1_wgmma_sliced_kernel(const uint16_t* __restrict__ qc, const uint16_t* __re
     fence_acc(acc);
     if (++s < nsl) continue;  // the chunk's cross terms are not complete
     s = 0;
-    chunk_min(acc, reinterpret_cast<const float*>(wsmem + stage + a_bytes + b_bytes), t, st, 0);
+    chunk_min(acc, reinterpret_cast<const float*>(ring + stage + a_bytes + b_bytes), t, st, 0);
     end_chunk(st, walk, cps, ns);
   }
   cp_async_wait<0>();  // no copy outlives the block
@@ -913,9 +958,12 @@ cudaError_t plan_for(int kp, Plan* plan) {
 // 0, ts % 64 != 0, or nothing fits the card's opt-in shared memory). The
 // rule, tried in order: chunks of bn = 128 columns where ts % 128 == 0,
 // then 64; the query tile resident (kp16 = kp rounded up to 16, at most
-// 16 kMaxResidentSteps) for the first bn whose tile and ring fit; else
+// 16 kMaxResidentSteps) for the first bn whose tile and ring fit; else the
+// query tile resident (padded to nsl ds dims a block) with the rc splits in
 // slices of ds = 16 ds16 dims, ds16 the largest (at most kMaxSliceSteps)
-// whose ring fits, for the first bn that has one. mxu_expansion.phase1_plan
+// that fits, for the first bn that has one; else query and rc slices
+// together, the widest whose ring fits, for the first bn that has one.
+// mxu_expansion.phase1_plan
 // states the same rule on the host (a GPU test holds the two together).
 using WgmmaKernel = void (*)(const uint16_t*, const uint16_t*, const float*, int, int, int,
                              long long, int, int, int, int, float*, int*);
@@ -949,13 +997,13 @@ WgmmaKernel resident_instance(int steps) {
   }
 }
 
-template <int BN>
+template <int BN, bool kQRes>
 WgmmaKernel sliced_instance(int ds16) {
   static_assert(kMaxSliceSteps == 3, "one case per slice width");
   switch (ds16) {
-    case 1: return phase1_wgmma_sliced_kernel<1, BN>;
-    case 2: return phase1_wgmma_sliced_kernel<2, BN>;
-    case 3: return phase1_wgmma_sliced_kernel<3, BN>;
+    case 1: return phase1_wgmma_sliced_kernel<1, BN, kQRes>;
+    case 2: return phase1_wgmma_sliced_kernel<2, BN, kQRes>;
+    case 3: return phase1_wgmma_sliced_kernel<3, BN, kQRes>;
     default: return nullptr;
   }
 }
@@ -977,10 +1025,20 @@ cudaError_t wgmma_setup(int kp, int ts, WgmmaPlan* plan) {
                   : (pad ? resident_instance<64, true>(steps) : resident_instance<64, false>(steps));
     *plan = {kernel, wg_smem(16 * steps, bn), 1};
   }
-  for (int bn : bns) {
+  for (int bn : bns) {  // the query tile resident, the rc splits in slices
+    for (int ds16 = kMaxSliceSteps; ds16 >= 1 && plan->kernel == nullptr; --ds16) {
+      const int nsl = (steps + ds16 - 1) / ds16;
+      const size_t smem = wg_qres_smem(16 * ds16 * nsl, 16 * ds16, bn);
+      if (smem <= cap) {
+        *plan = {bn == 128 ? sliced_instance<128, true>(ds16) : sliced_instance<64, true>(ds16),
+                 smem, nsl};
+      }
+    }
+  }
+  for (int bn : bns) {  // both in slices
     for (int ds16 = kMaxSliceSteps; ds16 >= 1 && plan->kernel == nullptr; --ds16) {
       if (wg_sliced_smem(16 * ds16, bn) <= cap) {
-        *plan = {bn == 128 ? sliced_instance<128>(ds16) : sliced_instance<64>(ds16),
+        *plan = {bn == 128 ? sliced_instance<128, false>(ds16) : sliced_instance<64, false>(ds16),
                  wg_sliced_smem(16 * ds16, bn), (steps + ds16 - 1) / ds16};
       }
     }

@@ -23,9 +23,11 @@
 //   block-wide barrier after the start. A pitch that is not a multiple of 4
 //   floats, a misaligned base or a range that is not a multiple of 4
 //   columns takes the plain-load path (the producer lanes load the stage).
-// - Query rows in registers. At k = 3 and 16 (template parameters) each
-//   consumer thread holds 4 (or 1) rows for the whole range. Every other k
-//   runs one sliced instance: a stage holds at most 16 of the k dimensions,
+// - Query rows in registers. At k = 3 and 16 (template parameters), and at
+//   any other k up to 8 (run time, the rows zero-padded to 8 dims), each
+//   consumer thread holds 4 (or 1) rows for the whole range, so 4 rows
+//   share each column's shared-memory loads. Every other k runs one sliced
+//   instance: a stage holds at most 16 of the k dimensions,
 //   the thread's row slice waits in registers, and with several slices the
 //   columns' sums (8 groups of four columns per thread, so a stage is at
 //   most 32 columns per thread of a row) carry across the slices. Its shared
@@ -59,6 +61,7 @@ namespace {
 
 constexpr int kGroups = 8;  // sliced: four-column groups per thread and column block
 constexpr int kMaxStages = 8;
+constexpr int kRunKMax = 8;  // run-time k with whole-k stages and 4 rows per thread
 
 using Kernel = void (*)(nns::RingArgs, int);
 
@@ -77,15 +80,38 @@ struct Rows {
   __device__ int row(int qi) const { return row0 + qi * stride + lane_row; }
 };
 
-// The thread's rows of the (m, kK) queries (clamped to the last row).
+// The thread's rows of the (m, k) queries (clamped to the last row), zero
+// past k <= kK.
 template <int kK, int kQ>
 __device__ __forceinline__ void load_rows(const float* __restrict__ q, const Rows& rows, int m,
-                                          float (&qr)[kQ][kK]) {
+                                          int k, float (&qr)[kQ][kK]) {
 #pragma unroll
   for (int qi = 0; qi < kQ; ++qi) {
     const long long row = min(rows.row(qi), m - 1);
 #pragma unroll
-    for (int d = 0; d < kK; ++d) qr[qi][d] = q[row * kK + d];
+    for (int d = 0; d < kK; ++d) qr[qi][d] = d < k ? q[row * k + d] : 0.0f;
+  }
+}
+
+// common.cuh score4 (dim-major) over the first k <= kK dimensions, k at
+// run time: the same rounding, d2 = 0 + diff^2 + ... in ascending order.
+template <int kK, int kQ>
+__device__ __forceinline__ void score4_k(const float* g, int pitch, int k,
+                                         const float (&qr)[kQ][kK], float (&acc)[kQ][4]) {
+#pragma unroll
+  for (int d = 0; d < kK; ++d) {
+    if (d < k) {
+      const float4 r = *reinterpret_cast<const float4*>(g + d * pitch);
+      const float rv[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int qi = 0; qi < kQ; ++qi) {
+          const float diff = __fsub_rn(qr[qi][d], rv[e]);
+          acc[qi][e] = d == 0 ? __fmul_rn(diff, diff) : __fadd_rn(acc[qi][e], __fmul_rn(diff, diff));
+        }
+      }
+    }
   }
 }
 
@@ -148,8 +174,9 @@ __device__ __forceinline__ void end_tile(float (&best_d)[kQ], int (&best_i)[kQ],
   w.end = min(w.end + tile_n, hi);
 }
 
-// k = kK, kQ rows per consumer thread, all kK dims in each stage.
-template <int kK, int kQ>
+// k = kK (or, kRunK, any k <= kK at run time), kQ rows per consumer
+// thread, all k dims in each stage.
+template <int kK, int kQ, bool kRunK>
 __global__ void __launch_bounds__(nns::kRingThreads, 2)
 two_level_kernel(const nns::RingArgs a, int tile_n) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -163,7 +190,7 @@ two_level_kernel(const nns::RingArgs a, int tile_n) {
   const int tpr = kQ == 1 ? a.tpr : 1;
   const Rows rows(kQ, tpr);
   float qr[kQ][kK];
-  load_rows(a.q, rows, a.m, qr);
+  load_rows(a.q, rows, a.m, kRunK ? a.k : kK, qr);
   float best_d[kQ];
   int best_i[kQ];
   nns::init_best(best_d, best_i, (int)range.lo);
@@ -179,8 +206,16 @@ two_level_kernel(const nns::RingArgs a, int tile_n) {
       const int g0 = s0 / 4;  // the group of four holding column s0
       for (int c = 4 * (g0 + ((rows.part - g0) & (tpr - 1))); c < s1; c += 4 * tpr) {
         float acc[kQ][4];
-        nns::score4<kK, kQ, false>(st + c, a.cols, qr, acc);
-        fold_window(acc, best_d, best_i, (int)(col0 + c), s0 - c, s1 - c);
+        if (kRunK) {
+          score4_k(st + c, a.cols, a.k, qr, acc);
+        } else {
+          nns::score4<kK, kQ, false>(st + c, a.cols, qr, acc);
+        }
+        if (c >= s0) {
+          nns::fold4(acc, best_d, best_i, (int)(col0 + c), s1 - c);
+        } else {  // the group holding s0, where a boundary cuts a group
+          fold_window(acc, best_d, best_i, (int)(col0 + c), s0 - c, s1 - c);
+        }
       }
       s0 = s1;
       if (col0 + s1 == w.end) end_tile(best_d, best_i, rows, tpr, a, tile_n, range.hi, w);
@@ -253,8 +288,17 @@ two_level_sliced_kernel(const nns::RingArgs a, int tile_n) {
           }
         }
         if (s == slices - 1) {
-          // The block's sums are complete: fold them segment by segment.
+          // The block's sums are complete: fold them, segment by segment
+          // where the block reaches the table tile's end.
           const int bend = min(lim, b0 + span);
+          if (col0 + bend < w.end) {
+#pragma unroll
+            for (int j = 0; j < kGroups; ++j) {
+              const int c = cb + step * j;
+              nns::fold4(acc[j], best_d, best_i, (int)(col0 + c), lim - c);
+            }
+            continue;
+          }
           for (int s0 = b0; s0 < bend;) {
             const int s1 = (int)min((long long)bend, w.end - col0);
 #pragma unroll
@@ -272,15 +316,17 @@ two_level_sliced_kernel(const nns::RingArgs a, int tile_n) {
   }
 }
 
-template <int kK>
+template <int kK, bool kRunK = false>
 Kernel templated(int q_rows) {
-  if (q_rows == 4) return two_level_kernel<kK, 4>;
-  if (q_rows == 1) return two_level_kernel<kK, 1>;
+  if (q_rows == 4) return two_level_kernel<kK, 4, kRunK>;
+  if (q_rows == 1) return two_level_kernel<kK, 1, kRunK>;
   return nullptr;
 }
 
-// The instance for the plan, or none: k = 3 and 16 with all k dims per
-// stage and 4 or 1 rows per thread; any k sliced, one row per thread, 1-16
+// The instance for the plan, or none: k = 3 and 16, and any other k up to
+// kRunKMax at run time, with all k dims per stage and 4 or 1 rows per
+// thread (several rows share each column's loads, as the template k's
+// do); any k sliced, one row per thread, 1-16
 // dims per stage and, with more than one slice, at most kGroups four-column
 // groups per thread of a row and stage. Stage columns a multiple of 4, 2-8
 // stages. `setup` checks the threads per row.
@@ -288,6 +334,7 @@ Kernel instance(int k, int q_rows, int tpr, int cols, int dims, int stages) {
   if (k < 1 || cols < 4 || cols % 4 || stages < 2 || stages > kMaxStages) return nullptr;
   if (dims == k && k == 3) return templated<3>(q_rows);
   if (dims == k && k == 16) return templated<16>(q_rows);
+  if (dims == k && k <= kRunKMax) return templated<kRunKMax, true>(q_rows);
   if (q_rows != 1 || dims < 1 || dims > nns::kRingMaxDims || dims > k) return nullptr;
   if (dims < k && cols > kGroups * 4 * tpr) return nullptr;
   return tpr > 1 ? two_level_sliced_kernel<true> : two_level_sliced_kernel<false>;

@@ -135,12 +135,7 @@ def ring_plan(layout: str, m: int, k: int, smem_optin: int) -> RingPlan:
     if layout not in RING_LAYOUTS:
         raise ValueError(f"layout {layout!r} not in {RING_LAYOUTS}")
     four = k in RING_TEMPLATE_KS or (layout == "point_major" and k <= _RING_PM_ROWS4_MAX_K)
-    # The most rows per thread that scores no more rows (idle ones included).
-    q_rows = min((RING_ROWS_PER_THREAD, 1) if four else (1,),
-                 key=lambda q: -(-m // (RING_CONSUMERS * q)) * RING_CONSUMERS * q)
-    tpr = 1
-    while q_rows == 1 and tpr < _RING_MAX_TPR and RING_CONSUMERS // (2 * tpr) >= m:
-        tpr *= 2
+    q_rows, tpr = _ring_rows(m, four)
     if k in RING_TEMPLATE_KS:
         shapes = [(_RING_COLS[layout, k], k, _RING_STAGES)]
     elif layout == "dim_major":
@@ -158,6 +153,19 @@ def ring_plan(layout: str, m: int, k: int, smem_optin: int) -> RingPlan:
         raise ValueError(f"{_RING_KEYS[layout]}: k={k} leaves no plan within {smem_optin} "
                          "bytes of shared memory")
     return RingPlan(q_rows, tpr, *fits[0])
+
+
+def _ring_rows(m: int, four: bool) -> tuple[int, int]:
+    """(rows per thread, threads per row) of a ring plan for m rows: 4 rows
+    per thread where ``four`` and that scores no more rows (idle ones
+    included), else 1; below one tile of rows, the fewest rows (a power of
+    two, at least 8) that hold m, 2-32 threads sharing each."""
+    q_rows = min((RING_ROWS_PER_THREAD, 1) if four else (1,),
+                 key=lambda q: -(-m // (RING_CONSUMERS * q)) * RING_CONSUMERS * q)
+    tpr = 1
+    while q_rows == 1 and tpr < _RING_MAX_TPR and RING_CONSUMERS // (2 * tpr) >= m:
+        tpr *= 2
+    return q_rows, tpr
 
 
 @functools.lru_cache(maxsize=None)
@@ -464,18 +472,33 @@ def two_level_plain(queries: torch.Tensor, r_dm: torch.Tensor, n: int | None = N
     return _second_reduce(*two_level_table_plain(queries, r_dm, n, tile_n))
 
 
+# v7 at a k that is not a template one, up to this k: whole-k stages and 4
+# rows per thread (csrc/two_level.cu kRunKMax), as at the template k.
+TWO_LEVEL_ROWS4_MAX_K = 8
+
+
 def two_level_plan(m: int, k: int, smem_optin: int) -> RingPlan:
     """The v7 plan for m k-dimensional queries on a card whose blocks get
     ``smem_optin`` bytes of shared memory: v5's dim-major ring stages
     (``ring_plan``'s "dim_major" plan: rows per thread, threads per row,
     stage columns, dims per stage, stages), which csrc/two_level.cu walks
-    in segments cut at the table's tile boundaries. Its rows differ from
-    v5's only where threads share them: the threads_per_row ADJACENT lanes
-    t of a row hold row x * rows_per_tile + q * stride + t // threads_per_row
-    and take part t % threads_per_row of the columns, so that they fold by
-    shuffles at each boundary. Raises ValueError when nothing fits
-    ``smem_optin``."""
-    return ring_plan("dim_major", m, k, smem_optin)
+    in segments cut at the table's tile boundaries; but up to k =
+    TWO_LEVEL_ROWS4_MAX_K every k runs as the template k do, 4 rows per
+    thread unless 1 leaves fewer idle rows, all k dims in a stage of 256
+    columns. Its rows differ from v5's only where threads share them: the
+    threads_per_row ADJACENT lanes t of a row hold row x * rows_per_tile +
+    q * stride + t // threads_per_row and take part t % threads_per_row of
+    the columns, so that they fold by shuffles at each boundary. Raises
+    ValueError when nothing fits ``smem_optin``."""
+    plan = ring_plan("dim_major", m, k, smem_optin)
+    if k in RING_TEMPLATE_KS or k > TWO_LEVEL_ROWS4_MAX_K:
+        return plan
+    q_rows, tpr = _ring_rows(m, True)
+    smem = ring_smem_bytes("dim_major", k, _RING_SLICED_COLS, k, _RING_STAGES)
+    if smem > smem_optin:
+        raise ValueError(f"two_level: k={k} leaves no plan within {smem_optin} bytes of "
+                         "shared memory")
+    return RingPlan(q_rows, tpr, _RING_SLICED_COLS, k, _RING_STAGES, smem)
 
 
 def two_level_launch_shape(m: int, k: int, device) -> tuple[RingPlan, int]:

@@ -220,17 +220,27 @@ def _sliced_smem(ds: int, bn: int) -> int:
     return _WGMMA_STAGES * (_KERNEL_BM * 6 * ds * 2 + bn * 3 * ds * 2 + bn * 4)
 
 
+def _qres_smem(kd: int, ds: int, bn: int) -> int:
+    """The sliced kernel with its query tile resident (wg_qres_smem): the
+    (128, 6 kd) query tile, then stages of a (bn, 3 ds) rc_t slice and bn
+    half-norms."""
+    return _KERNEL_BM * 6 * kd * 2 + _WGMMA_STAGES * (bn * 3 * ds * 2 + bn * 4)
+
+
 @dataclass(frozen=True)
 class Phase1Plan:
     """How the wgmma kernel runs phase 1 at kp: chunks of ``bn`` ref
     columns, the contraction in ``slices`` slices of ``ds`` dims (a multiple
     of 16, each of the six query blocks and three rc splits padded with
-    zeros past kp; one slice: the (128, 6 ds) query tile stays resident),
-    ``smem_bytes`` of shared memory."""
+    zeros past kp), the (128, 6 slices ds) query tile resident in shared
+    memory or (``query_resident`` False) restaged slice by slice with the
+    rc slices, ``smem_bytes`` of shared memory. One slice is
+    phase1_wgmma_kernel, more phase1_wgmma_sliced_kernel."""
 
     bn: int
     ds: int
     slices: int
+    query_resident: bool
     smem_bytes: int
 
 
@@ -240,8 +250,10 @@ def phase1_plan(kp: int, ts: int, smem_optin: int) -> Phase1Plan | None:
     8 != 0, ts % 64 != 0, or nothing fits). Chunks of 128 columns where ts
     % 128 == 0, then 64; the query tile resident (kp16 = kp rounded up to
     16, at most 96) for the first chunk width whose tile and ring fit; else
-    slices of 16, 32 or 48 dims (the widest whose ring fits), for the first
-    chunk width that has one. ``wgmma_setup`` in csrc/expansion_phase1.cu
+    the same with the rc splits in slices of 48, 32 or 16 dims (the widest
+    that fits), for the first chunk width that has one; else query and rc
+    slices together, the widest whose ring fits, for the first chunk width
+    that has one. ``wgmma_setup`` in csrc/expansion_phase1.cu
     states the same rule (a GPU test holds the two together)."""
     if kp < _SUBLANE or kp % _SUBLANE or ts < _KERNEL_BN or ts % _KERNEL_BN:
         return None
@@ -250,11 +262,18 @@ def phase1_plan(kp: int, ts: int, smem_optin: int) -> Phase1Plan | None:
     widths = (wgmma_chunk(ts), _KERNEL_BN)
     for bn in widths:
         if steps <= _WGMMA_MAX_RESIDENT_STEPS and _resident_smem(16 * steps, bn) <= cap:
-            return Phase1Plan(bn, 16 * steps, 1, _resident_smem(16 * steps, bn))
+            return Phase1Plan(bn, 16 * steps, 1, True, _resident_smem(16 * steps, bn))
+    for bn in widths:
+        for ds16 in range(_WGMMA_MAX_SLICE_STEPS, 0, -1):
+            slices = -(-steps // ds16)
+            smem = _qres_smem(16 * ds16 * slices, 16 * ds16, bn)
+            if smem <= cap:
+                return Phase1Plan(bn, 16 * ds16, slices, True, smem)
     for bn in widths:
         for ds16 in range(_WGMMA_MAX_SLICE_STEPS, 0, -1):
             if _sliced_smem(16 * ds16, bn) <= cap:
-                return Phase1Plan(bn, 16 * ds16, -(-steps // ds16), _sliced_smem(16 * ds16, bn))
+                return Phase1Plan(bn, 16 * ds16, -(-steps // ds16), False,
+                                  _sliced_smem(16 * ds16, bn))
     return None
 
 

@@ -16,7 +16,14 @@ and power limit, then
    with 64-column chunks (ts = 64) and ``phase1_kernel`` (mma.sync) at ts =
    256, each through its own entry point, in that order and again reversed.
    ts = 64 closes a subtile after every chunk, so its epilogue does a little
-   more work; the products are the same.
+   more work; the products are the same;
+4. the wgmma kernel at the kp that are not 16-aligned or past a resident
+   query tile, beside ``phase1_kernel`` (mma.sync, the yardstick) on the
+   same inputs, each through its own entry point, in order and reversed,
+   with each shape's bound (``utils/bounds.phase1_bound``) and the plan
+   (``mxu_expansion.phase1_plan``): 1024 x 1M at k = 24 and 40 (kp padded
+   to 32 and 48) and 1024 x 65536 at k = 96 (resident, 64-column chunks)
+   and 128 (dimension slices), seed 1000.
 
 It fails without a card.
 """
@@ -117,7 +124,37 @@ def main() -> int:
     for name, (first, second) in times.items():
         print(f"[time] 10000 x 1M k=16 {name}: {first:.4f} / {second:.4f} ms "
               f"(in order / reversed)", flush=True)
+    del mx, qc, rc, runs
+    for k, n in ((24, 1_000_000), (40, 1_000_000), (96, 65536), (128, 65536)):
+        _beside_yardstick(k, n)
     return 0
+
+
+def _beside_yardstick(k: int, n: int) -> None:
+    """The wgmma kernel and the mma.sync yardstick at 1024 x n and k, in
+    turns (wgmma, mma.sync, mma.sync, wgmma)."""
+    from nns_tpu_torch.data import make_dataset
+    from nns_tpu_torch.kernels.mxu_expansion import (
+        MXUExpansion, _cat_q, _phase1_cuda, phase1_plan, split_bf16x3)
+    from nns_tpu_torch.utils.bounds import phase1_bound
+    from nns_tpu_torch.utils.timing import cuda_ms
+
+    q, refs = make_dataset(k, 1024, n, 1000)
+    mx = MXUExpansion(refs, device="cuda")
+    qc = _cat_q(*split_bf16x3(mx.stage_queries(q).q_dev))
+    rc = mx.rc.contiguous()
+    runs = {"wgmma": lambda: _phase1_cuda(qc, rc, mx.r2h, mx.tile_n, mx.ts, mx.rc_t, "wgmma"),
+            "mma.sync": lambda: _phase1_cuda(qc, rc, mx.r2h, mx.tile_n, mx.ts, None,
+                                             "mma_sync")}
+    times = {name: [] for name in runs}
+    for name in ("wgmma", "mma.sync", "mma.sync", "wgmma"):
+        times[name].append(cuda_ms(runs[name])[0])
+    bound, by = phase1_bound(1024, n, mx.kp)
+    plan = phase1_plan(mx.kp, mx.ts, 232448)
+    for name, (first, second) in times.items():
+        print(f"[time] 1024 x {n} k={k} (kp={mx.kp}) {name}: {first:.4f} / {second:.4f} ms "
+              f"(in turns); bound {bound:.4f} ms ({by}), {bound / ((first + second) / 2):.1%}"
+              f"{'; plan ' + str(plan) if name == 'wgmma' else ''}", flush=True)
 
 
 if __name__ == "__main__":

@@ -393,14 +393,14 @@ def test_two_level_kernel_equals_plain(cuda, k, tile_n):
     assert recall_at_1(got[1].cpu().numpy(), q, r) == 1.0
 
 
-@pytest.mark.parametrize("m,k", [(2000, 3), (2000, 16), (1030, 5), (64, 4096), (5, 3),
-                                 (16, 16), (100, 40)])
+@pytest.mark.parametrize("m,k", [(2000, 3), (2000, 16), (2000, 5), (1030, 7), (64, 4096),
+                                 (5, 3), (16, 16), (8, 6), (100, 40)])
 @pytest.mark.parametrize("tile_n", [128, 300])
 def test_two_level_kernel_rows_and_high_k(cuda, m, k, tile_n):
-    # Two 1024-row tiles (4 rows per thread), several 256-row tiles of a
-    # sliced k, rows shared by 2-32 lanes, and k = 4096 (256 slices), where
-    # the kernel before this ring needed 16 k 4 bytes of shared memory and
-    # raised from k = 3633.
+    # Two 1024-row tiles (4 rows per thread, at k = 5 the run-time-k
+    # instance), several 256-row tiles, rows shared by 2-32 lanes, and
+    # k = 4096 (256 slices), where the kernel before this ring needed
+    # 16 k 4 bytes of shared memory and raised from k = 3633.
     n = 3001 if k == 4096 else 20_001
     q, r = make_dataset(k, m, n, seed=1500 + k + m)
     r_dm, _ = prepare_refs(r, 4096, cuda)
@@ -456,7 +456,7 @@ def test_two_level_plan_agrees_with_the_kernel_library(cuda):
                                         ctypes.byref(slots))
             assert rc == 0 and smem.value == plan.smem_bytes and slots.value >= 1, (k, m, rc)
     for bad in [(5, 3, 1, 256, 5, 4), (3, 4, 1, 512, 3, 1), (16, 1, 1, 0, 16, 4),
-                (5, 4, 1, 256, 5, 4), (40, 1, 1, 32, 17, 4), (40, 1, 2, 128, 14, 4),
+                (9, 4, 1, 256, 9, 4), (40, 1, 1, 32, 17, 4), (40, 1, 2, 128, 14, 4),
                 (3, 4, 2, 512, 3, 4), (3, 1, 3, 512, 3, 4), (3, 1, 1, 4096, 3, 8)]:
         assert lib.nns_two_level_smem(*bad, ctypes.byref(smem), ctypes.byref(slots)) != 0, bad
 

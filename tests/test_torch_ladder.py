@@ -474,7 +474,7 @@ def _two_level_walk(plan, m, k, n, tile_n, slots):
     n_tiles = -(-n // tile_n)
     per = -(-n_tiles // fused_ladder.two_level_splits(plan, m, n_tiles, slots))
     tpr = plan.threads_per_row
-    sliced = k not in fused_ladder.RING_TEMPLATE_KS
+    sliced = k not in fused_ladder.RING_TEMPLATE_KS and k > fused_ladder.TWO_LEVEL_ROWS4_MAX_K
     folds = np.zeros((tpr, n), np.int64)
     written = []
     for y in range(-(-n_tiles // per)):
@@ -535,8 +535,10 @@ def test_two_level_plan_fits_every_k(m):
         plan = fused_ladder.two_level_plan(m, k, optin)
         assert plan.smem_bytes == fused_ladder.ring_smem_bytes(
             "dim_major", k, plan.cols, plan.dims, plan.stages) <= optin, k
-        assert plan.dims == k if k in fused_ladder.RING_TEMPLATE_KS else plan.dims <= 16
+        assert plan.dims == k if k <= 8 or k in fused_ladder.RING_TEMPLATE_KS else plan.dims <= 16
         assert plan.smem_bytes <= 65600 and plan.cols % 4 == 0
+        # 4 rows per thread where k runs whole-k stages (k <= 8 and 16)
+        assert plan.q_rows == (4 if k <= 8 or k == 16 else 1) or m < 1024
 
 
 def test_two_level_ranges_past_the_grid_limit():

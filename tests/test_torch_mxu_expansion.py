@@ -227,19 +227,22 @@ def test_phase1_route_by_shape(kp, ts, optin, route):
 
 
 @pytest.mark.parametrize("kp,ts,plan", [
-    (16, 256, (128, 16, 1, 50_176)), (24, 256, (128, 32, 1, 99_328)),
-    (40, 64, (64, 48, 1, 111_104)),
-    (80, 256, (64, 80, 1, 184_832)), (88, 256, (64, 96, 1, 221_696)),
-    (96, 256, (64, 96, 1, 221_696)), (104, 256, (128, 48, 3, 222_208)),
-    (128, 256, (128, 48, 3, 222_208)), (200, 256, (128, 48, 5, 222_208)),
-    (200, 64, (64, 48, 5, 184_832)),
+    (16, 256, (128, 16, 1, True, 50_176)), (24, 256, (128, 32, 1, True, 99_328)),
+    (40, 64, (64, 48, 1, True, 111_104)),
+    (80, 256, (64, 80, 1, True, 184_832)), (88, 256, (64, 96, 1, True, 221_696)),
+    (96, 256, (64, 96, 1, True, 221_696)), (104, 256, (128, 16, 7, True, 197_632)),
+    (128, 256, (128, 16, 8, True, 222_208)), (128, 64, (64, 32, 4, True, 221_696)),
+    (136, 256, (128, 48, 3, False, 222_208)), (200, 256, (128, 48, 5, False, 222_208)),
+    (200, 64, (64, 48, 5, False, 184_832)),
 ])
 def test_phase1_plan_by_shape(kp, ts, plan):
     # The resident query tile up to kp16 = 96 where it fits beside the
-    # ring; past it slices of 48 dims, whose ring fits at either chunk
-    # width; chunks of 128 columns where ts allows and the plan fits.
+    # ring; then the query tile still resident with the rc splits in slices
+    # (kp16 = 112 and 128); past it query and rc slices of 48 dims, whose
+    # ring fits at either chunk width; chunks of 128 columns where ts
+    # allows and the plan fits.
     got = P.phase1_plan(kp, ts, _H100_OPTIN)
-    assert (got.bn, got.ds, got.slices, got.smem_bytes) == plan
+    assert (got.bn, got.ds, got.slices, got.query_resident, got.smem_bytes) == plan
     assert got.smem_bytes <= _H100_OPTIN and got.ds % 16 == 0 and got.ds * got.slices >= kp
 
 
@@ -365,13 +368,14 @@ def _stage_slice(src, blocks, kp, d0, dn, ds, rows):
 
 @pytest.mark.parametrize("k,m,n,ts,sliced", [(24, 130, 300, 256, False), (40, 70, 200, 64, False),
                                              (96, 9, 130, 256, True), (128, 40, 200, 128, True),
-                                             (200, 9, 130, 64, True)])
+                                             (104, 20, 130, 64, True), (200, 9, 130, 64, True)])
 def test_wgmma_padded_and_sliced_staging_reads_phase1_plain_cross(monkeypatch, k, m, n, ts,
                                                                   sliced):
     # The wgmma kernels' staging of padded blocks (kp % 16 == 8: each block
     # and split padded with zeros to whole k16 steps) and of dimension
-    # slices (units of (chunk, slice) holding the query slice and the rc
-    # slice, the accumulator carried across slices), mirrored on integer
+    # slices (units of (chunk, slice) holding the rc slice and, unless the
+    # query tile stays resident, the query slice; the accumulator carried
+    # across slices), mirrored on integer
     # data: every product and sum is exact in any order, so the cross terms
     # read through the descriptors must equal qc @ [rh; rm; rh; rl; rh; rm]
     # exactly. kp = 96 is resident on the H100 (64-column chunks); here it
@@ -384,9 +388,10 @@ def test_wgmma_padded_and_sliced_staging_reads_phase1_plain_cross(monkeypatch, k
     kp, n_pad, rc_t = eng.kp, eng.rc.shape[1], eng.rc_t
     plan = P.phase1_plan(kp, eng.ts, _H100_OPTIN)
     if sliced and plan.slices == 1:
-        plan = P.Phase1Plan(plan.bn, 48, -(-kp // 48), 0)
-    assert (plan.slices > 1) == sliced and (kp % 16 == 8) == (k % 16 in (1, 2, 3, 4, 5, 6, 7, 8))
+        plan = P.Phase1Plan(plan.bn, 48, -(-kp // 48), False, 0)
+    assert (plan.slices > 1) == sliced
     ds, bn = plan.ds, plan.bn
+    kd = ds * plan.slices if plan.query_resident else ds  # query dims per block staged
     qc = P._cat_q(*P.split_bf16x3(eng.stage_queries(q).q_dev))
     rows = torch.cat([eng.rc[s * kp:(s + 1) * kp] for s in P._SPLIT_OF_BLOCK]).float()
     with P.full_fp32_matmul():
@@ -395,16 +400,21 @@ def test_wgmma_padded_and_sliced_staging_reads_phase1_plain_cross(monkeypatch, k
     for q0 in range(0, m, P._KERNEL_BM):
         for c0 in range(0, n_pad, bn):
             acc = torch.zeros((P._KERNEL_BM, bn), dtype=torch.float64)
+            if plan.query_resident:
+                a_buf = _stage_slice(qc[q0:q0 + P._KERNEL_BM], 6, kp, 0, kp, kd, P._KERNEL_BM)
             for s in range(plan.slices):
                 d0 = s * ds
                 dn = min(ds, kp - d0)
-                a_buf = _stage_slice(qc[q0:q0 + P._KERNEL_BM], 6, kp, d0, dn, ds, P._KERNEL_BM)
+                if not plan.query_resident:
+                    a_buf = _stage_slice(qc[q0:q0 + P._KERNEL_BM], 6, kp, d0, dn, ds,
+                                         P._KERNEL_BM)
+                a0 = d0 if plan.query_resident else 0  # slice s of the resident tile
                 b_buf = _stage_slice(rc_t[c0:c0 + bn], 3, kp, d0, dn, ds, bn)
                 for wg in range(2):
                     for b in range(6):
                         for kk in range(ds // 16):  # every step, zeros past dn
-                            a = _read(a_buf, wg * 64 * 6 * ds * 2 + 16 * (b * ds + 16 * kk), 64,
-                                      6 * ds)
+                            a = _read(a_buf, wg * 64 * 6 * kd * 2 + 16 * (a0 + b * kd + 16 * kk),
+                                      64, 6 * kd)
                             bt = _read(b_buf, 16 * (P._SPLIT_OF_BLOCK[b] * ds + 16 * kk), bn,
                                        3 * ds)
                             acc[64 * wg:64 * wg + 64] += a @ bt.t()
