@@ -25,9 +25,14 @@ result) without them. Phases, each raising on failure:
 4. the one-shot ``nns(version=4)`` and ``nns(version="cells")`` at 1M x 10K;
 5. the ladder's kernels (v3 point-major, v5 streaming, v6 queries-resident,
    v7 two-level) against their plain versions at 10000 x 1M k=3, 1024 x 1M
-   k=3, 1024 x 1M k=16, duplicate ties and an unaligned 33 x 777 k=5, and
-   v5 at 1024 x 65536 k=128 (where a whole-k stage once outgrew shared
-   memory), with the same tolerance 0 and timing as phase 2. v6 runs its
+   k=3, 1024 x 1M k=16, duplicate ties and an unaligned 33 x 777 k=5, v5
+   at 1024 x 65536 k=128 (where a whole-k stage once outgrew shared
+   memory), v7 at 64 x 65536 k=4096 (where its whole-k query tile once
+   did), and v6 and v7 on rows whose every distance overflows to +inf
+   (+-3e19; 1024 x 1M k=3 and 256 x 65536 k=5), which must answer index
+   0, with the same tolerance 0 and timing as phase 2. v7 runs v5's ring,
+   its walk cut at the table's tile boundaries (one winner per tile and
+   row, then the second reduce). v6 runs its
    Hopper design: each thread's query rows in registers (k = 3 and 16 as
    template parameters; k = 5 at run time, the contraction in slices of at
    most 16 dims), the refs through a two-stage ring of bulk asynchronous
@@ -49,17 +54,19 @@ result) without them. Phases, each raising on failure:
    must grow during it (v9: ``fused_argmin`` at k = 3, ``expansion_phase1``
    at k = 16); and v6 under a query budget below m * k * 4 must launch the
    v4 kernel instead;
-7. v9's two phase-1 kernels against ``phase1_plain``: the dispatched
-   kernel at 10000 x 1M and 1024 x 1M k=16, unaligned 33 x 777 at k=16,
-   10 and 24, and 1024 x 65536 k=128 (kp % 16 == 0 takes the wgmma kernel,
-   other kp the mma.sync kernel, past kp = 88 in dimension slices), plus the
-   mma.sync kernel through its own entry point at 10000 x 1M k=16 as the
+7. v9's phase-1 kernels against ``phase1_plain``: the wgmma kernel, the
+   route at every kp, at 10000 x 1M and 1024 x 1M k=16, unaligned 33 x 777
+   at k=16, 10 and 24, 1024 x 1M k=24 (blocks padded to 32 dims) and 1024 x
+   65536 k=128 (dimension slices, the query tile resident), plus the
+   mma.sync kernel, no route any more, through its own entry point at
+   10000 x 1M k=16, 1024 x 1M k=24 and 1024 x 65536 k=128 as the
    yardstick: values within the engine's delta, ids equal wherever the
    plain runner-up is more than 2 delta away (tensor cores sum in their own
    order, so no bit equality); and 64 x 1M integer-valued k=16 refs with
    exact duplicates, where every sum is exact and all six outputs must be
    equal. Then ``nns(version=9)`` at 1024 x 65536 k=128, the path that
-   launches the mma.sync kernel, with its launch count zeroed just before;
+   runs phase 1 past a resident kp, with the launch counts zeroed just
+   before: it must launch the wgmma kernel and answer as the v4 kernel;
 8. the v9 main path: ``NNEngine(9, device="cuda").build`` over the 1M 16-D
    refs (seed 1000) and ``query_many`` over W=64 distinct 10K batches. The
    ``expansion_phase1_wgmma`` count must grow; the drain's own phase-1
@@ -72,10 +79,11 @@ result) without them. Phases, each raising on failure:
 9. one JSON line of per-kernel results, each row with the shape its ms,
    plain_ms and bound come from (the scan also on the skewed batch,
    ``*_skewed``; the ladder's kernels and v4 also at 1024 x 1M k=16,
-   ``*_k16``): each kernel's main path (for the wgmma
-   kernel the drain's 640K-row launch; for the mma.sync kernel v9 at
-   1024 x 65536 k=128, with its time on the drain's launch as a separate
-   ``yardstick``), then the device line last. ``ms`` brackets each wrapper
+   ``*_k16``): each kernel's main path (for the wgmma kernel's row the
+   drain's 640K-row launch; for the ``expansion_phase1`` row, phase 1 at
+   the padded and sliced kp, v9 at 1024 x 65536 k=128 and 1024 x 1M k=24
+   (``*_k24``), with the mma.sync kernel's times on the same inputs and on
+   the drain's launch as ``yardstick``s), then the device line last. ``ms`` brackets each wrapper
    call with CUDA events, so a launch shorter than its wrapper's host time
    reads the host time; the scan's and v4's rows, whose launches are that
    short, also give ``device_ms`` (``utils/timing.cuda_device_ms``: the

@@ -180,7 +180,7 @@ template <int kK, int kQ, bool kRunK>
 __global__ void __launch_bounds__(nns::kRingThreads, 2)
 two_level_kernel(const nns::RingArgs a, int tile_n) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const nns::StageRing ring(smem, a.stages, (long long)kK * a.cols);
+  const nns::StageRing ring(smem, a.stages, (long long)(kRunK ? a.k : kK) * a.cols);
   const nns::RingRange range(a);
   ring.start(a.bulk);
   if (threadIdx.x >= nns::kRingConsumers) {
