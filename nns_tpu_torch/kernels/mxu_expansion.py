@@ -200,17 +200,11 @@ def wgmma_chunk(ts: int) -> int:
     return 128 if ts % 128 == 0 else _KERNEL_BN
 
 
-def wgmma_smem_bytes(kp: int, ts: int) -> int:
-    """Shared memory of the wgmma kernel with its query tile resident, at kp
-    and ts (wg_smem in csrc/expansion_phase1.cu): the (128, 6 kp16) bf16
-    query tile, kp16 = kp rounded up to 16, and a ring of stages, each
-    ``wgmma_chunk(ts)`` bf16 rows of ``rc_t`` (3 kp16 wide) and their f32
-    half-norms."""
-    bn, kp16 = wgmma_chunk(ts), layouts.round_up(kp, _WGMMA_K)
-    return _resident_smem(kp16, bn)
-
-
-def _resident_smem(kp16: int, bn: int) -> int:
+def wgmma_smem_bytes(kp16: int, bn: int) -> int:
+    """Shared memory of the wgmma kernel with its query tile resident
+    (wg_smem in csrc/expansion_phase1.cu): the (128, 6 kp16) bf16 query
+    tile, kp16 = kp rounded up to 16, and a ring of stages, each ``bn``
+    bf16 rows of ``rc_t`` (3 kp16 wide) and their f32 half-norms."""
     return _KERNEL_BM * 6 * kp16 * 2 + _WGMMA_STAGES * (bn * 3 * kp16 * 2 + bn * 4)
 
 
@@ -261,8 +255,8 @@ def phase1_plan(kp: int, ts: int, smem_optin: int) -> Phase1Plan | None:
     steps = -(-kp // _WGMMA_K)
     widths = (wgmma_chunk(ts), _KERNEL_BN)
     for bn in widths:
-        if steps <= _WGMMA_MAX_RESIDENT_STEPS and _resident_smem(16 * steps, bn) <= cap:
-            return Phase1Plan(bn, 16 * steps, 1, True, _resident_smem(16 * steps, bn))
+        if steps <= _WGMMA_MAX_RESIDENT_STEPS and wgmma_smem_bytes(16 * steps, bn) <= cap:
+            return Phase1Plan(bn, 16 * steps, 1, True, wgmma_smem_bytes(16 * steps, bn))
     for bn in widths:
         for ds16 in range(_WGMMA_MAX_SLICE_STEPS, 0, -1):
             slices = -(-steps // ds16)
@@ -488,12 +482,13 @@ class StagedQueries:
 class MXUExpansion:
     """Prepare-once / query-many engine for v9. Staging, on ``device``: the
     bf16 split stack in the layout its phase-1 route reads (``route``, from
-    ``device_route``): ``rc_t`` (n_pad, 3 kp) for the wgmma kernel, else
-    ``rc`` (3 kp, n_pad), with the other a view of it (``rc`` is then
-    ``rc_t.t()``, and ``rc_t`` None); the (1, n_pad) f32 half-norms ``r2h``
-    (+inf past n); and for phase 2 the zero-padded f32 refs ``refs_t``
-    (n_sub, ts, kp) with their half-norms ``r2h_t`` (n_sub, ts). The CUDA
-    kernel picks its own query tile, so there is no ``tile_m``."""
+    ``device_route``): on the wgmma route (the card, wherever
+    ``phase1_plan`` has a plan) ``rc_t`` (n_pad, 3 kp), with ``rc`` a
+    transposed view of it; else ``rc`` (3 kp, n_pad) alone, ``rc_t`` None;
+    the (1, n_pad) f32 half-norms ``r2h`` (+inf past n); and for phase 2
+    the zero-padded f32 refs ``refs_t`` (n_sub, ts, kp) with their
+    half-norms ``r2h_t`` (n_sub, ts). The CUDA kernel picks its own query
+    tile, so there is no ``tile_m``."""
 
     def __init__(self, refs, tile_n: int | None = None, tile_s: int | None = None,
                  device="cuda"):

@@ -44,9 +44,9 @@ def _kernel_name(mangled: str) -> str:
     wg = re.search(r"phase1_wgmma_kernelILi(\d+)ELi(\d+)ELb([01])E", mangled)
     if wg:
         return f"phase1_wgmma_kernel<{wg.group(1)}, {wg.group(2)}, {wg.group(3)}>"
-    sliced = re.search(r"phase1_wgmma_sliced_kernelILi(\d+)ELi(\d+)E", mangled)
+    sliced = re.search(r"phase1_wgmma_sliced_kernelILi(\d+)ELi(\d+)ELb([01])E", mangled)
     if sliced:
-        return f"phase1_wgmma_sliced_kernel<{sliced.group(1)}, {sliced.group(2)}>"
+        return f"phase1_wgmma_sliced_kernel<{sliced.group(1)}, {sliced.group(2)}, {sliced.group(3)}>"
     for name in ("phase1_merge_kernel", "phase1_kernel"):
         if name in mangled:
             return name

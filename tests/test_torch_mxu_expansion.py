@@ -260,9 +260,9 @@ def test_wgmma_chunk_and_smem_bytes():
     # 128-column chunks where ts allows; query tile 128 x 6 kp bf16, then 2
     # stages of (chunk, 3 kp) bf16 rows + chunk f32 half-norms.
     assert [P.wgmma_chunk(ts) for ts in (64, 128, 192, 256, 640)] == [64, 128, 64, 128, 128]
-    assert P.wgmma_smem_bytes(16, 256) == 24_576 + 2 * (12_288 + 512) == 50_176
+    assert P.wgmma_smem_bytes(16, 128) == 24_576 + 2 * (12_288 + 512) == 50_176
     assert P.wgmma_smem_bytes(16, 64) == 24_576 + 2 * (6_144 + 256) == 37_376
-    assert P.wgmma_smem_bytes(64, 256) <= _H100_OPTIN < P.wgmma_smem_bytes(80, 256)
+    assert P.wgmma_smem_bytes(64, 128) <= _H100_OPTIN < P.wgmma_smem_bytes(80, 128)
 
 
 # The wgmma kernel's addressing, mirrored (csrc/expansion_phase1.cu,
