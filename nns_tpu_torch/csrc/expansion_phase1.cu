@@ -85,7 +85,7 @@
 // x 3 kp bf16 for 2 x 128 x BN x 6 kp operations, about 85 operations per
 // byte at BN = 128, against 256 with the query tile resident. Every slice
 // runs all its k16 steps (the last one's padding is zeros), so the wgmma
-// issue has no branch.
+// instruction stream has no branch.
 //
 // Blocks run in no order, so each range writes its six carries to an
 // (S, m) scratch and a second kernel merges the ranges of each query in
@@ -836,7 +836,7 @@ phase1_wgmma_sliced_kernel(const uint16_t* __restrict__ qc, const uint16_t* __re
     const uint64_t db0 = smem_desc(ring_addr + stage + a_bytes, 16 * kc_b);
     // Every slice runs all DS16 steps: a last slice with fewer real dims
     // reads zeros past them (a conditional step made the compiler serialize
-    // the wgmma issue).
+    // the wgmma instructions).
     fence_acc(acc);
     wgmma_fence();
 #pragma unroll
