@@ -14,7 +14,10 @@ result) without them. Phases, each raising on failure:
    (median of 5). The scan runs its Hopper design (persistent blocks, each
    group's distinct slots scored once, the halo through a two-stage ring of
    bulk asynchronous copies) on one uniform 10K batch and on a skewed one
-   (QM >= 512);
+   (QM >= 512). v4 runs its own (query rows in registers on the
+   producer/consumer ring, ref boxes by tensor-map copies, the ranges'
+   winners folded inside its one launch) on the 8 x 1M fallback bucket,
+   10000 x 1M, 1024 x 65536 k=16 and the duplicate ties;
 3. the main path: ``NNEngine("cells", device="cuda").build`` over 1M uniform
    3-D refs (seed 1000) and ``query_many`` over W=64 distinct 10K-query
    batches drawn as bench.py draws them, plus one batch drawn over
@@ -24,11 +27,12 @@ result) without them. Phases, each raising on failure:
    to 512 queries each) must read recall 1.0;
 4. the one-shot ``nns(version=4)`` and ``nns(version="cells")`` at 1M x 10K;
 5. the ladder's kernels (v3 point-major, v5 streaming, v6 queries-resident,
-   v7 two-level) against their plain versions at 10000 x 1M k=3, 1024 x 1M
-   k=3, 1024 x 1M k=16, duplicate ties and an unaligned 33 x 777 k=5, v5
-   at 1024 x 65536 k=128 (where a whole-k stage once outgrew shared
-   memory), v7 at 64 x 65536 k=4096 (where its whole-k query tile once
-   did), and v6 and v7 on rows whose every distance overflows to +inf
+   v7 two-level, and v4 beside them) against their plain versions at
+   10000 x 1M k=3, 1024 x 1M k=3, 1024 x 1M k=16, duplicate ties and an
+   unaligned 33 x 777 k=5 (v4's plain-load producer), v5 at 1024 x 65536
+   k=128 (where a whole-k stage once outgrew shared memory), v7 and v4 at
+   64 x 65536 k=4096 (where their whole-k query tiles once did), and v6
+   and v7 on rows whose every distance overflows to +inf
    (+-3e19; 1024 x 1M k=3 and 256 x 65536 k=5), which must answer index
    0, with the same tolerance 0 and timing as phase 2. v7 runs v5's ring,
    its walk cut at the table's tile boundaries (one winner per tile and
@@ -87,7 +91,8 @@ result) without them. Phases, each raising on failure:
    call with CUDA events, so a launch shorter than its wrapper's host time
    reads the host time; the scan's and v4's rows, whose launches are that
    short, also give ``device_ms`` (``utils/timing.cuda_device_ms``: the
-   device held busy while the calls are enqueued).
+   device held busy while the calls are enqueued), v4's also at 1024 x 1M
+   k=3 (``*_1024``) and k=16.
 """
 
 from __future__ import annotations
@@ -442,6 +447,11 @@ def main() -> int:
             results[name].append(_compare(f"{name} {case}", kernel_fn, plain_fn,
                                           (qc, rc_pm if pm else rc_dm, n), expect))
     del ladder_cases
+    # v4's device time alone at the ladder's 1024 x 1M, k = 3 and 16.
+    v4_device_1024 = {k: cuda_device_ms(fused_min_idx, qc, rc, N_REFS)[0]
+                      for k, qc, rc in ((3, q1k, r_dm), (16, q16_dev, r16_dm))}
+    _log(f"[kernel] fused_argmin 1024 x 1M device ms: k=3 {v4_device_1024[3]:.4f}, "
+         f"k=16 {v4_device_1024[16]:.4f}")
     # v5 where a whole-k stage outgrew the opt-in shared memory (k >= 56):
     # the sliced instance, 16 dims per stage.
     q128s, r128s = make_dataset(128, 1024, 65536, SEED)
@@ -450,13 +460,16 @@ def main() -> int:
         fl.fused_streaming_plain,
         (torch.as_tensor(q128s, device=dev), prepare_refs(r128s, 4096, dev)[0], 65536)))
     del q128s, r128s
-    # v7 at a k whose whole-k query tile once outgrew the opt-in shared
-    # memory (from k = 3633): the sliced instance, 256 slices of 16 dims.
+    # v7 and v4 at a k whose whole-k query tiles once outgrew the opt-in
+    # shared memory (from k = 3633): the sliced instances, 256 slices of 16
+    # dims.
     q4k, r4k = make_dataset(4096, 64, 65536, SEED)
-    results["two_level"].append(_compare(
-        "two_level 64 x 65536 k=4096 (sliced)", fl.two_level_min_idx, fl.two_level_plain,
-        (torch.as_tensor(q4k, device=dev), prepare_refs(r4k, 4096, dev)[0], 65536)))
-    del q4k, r4k
+    args4k = (torch.as_tensor(q4k, device=dev), prepare_refs(r4k, 4096, dev)[0], 65536)
+    for name, kernel_fn, plain_fn in (("two_level", fl.two_level_min_idx, fl.two_level_plain),
+                                      ("fused_argmin", fused_min_idx, fused_min_idx_plain)):
+        results[name].append(_compare(f"{name} 64 x 65536 k=4096 (sliced)", kernel_fn, plain_fn,
+                                      args4k))
+    del q4k, r4k, args4k
     # Rows whose every distance overflows to +inf (coordinates of +-3e19):
     # v6 and v7 must answer the lowest index, 0, as the plain versions do.
     for k_o, m_o, n_o in ((3, 1024, N_REFS), (5, 256, 65536)):
@@ -778,6 +791,12 @@ def main() -> int:
             _, ms, p_ms = results[name][k16_row[name]]
             kernels[-1].update(ms_k16=ms, plain_ms_k16=p_ms,
                                bound_ms_k16=fused_bound(1024, N_REFS, K16)[0])
+        if name == "fused_argmin":
+            _, ms, p_ms = results[name][k16_row[name] - 1]
+            kernels[-1].update(shape_1024="1024 x 1M k=3", ms_1024=ms, plain_ms_1024=p_ms,
+                               device_ms_1024=v4_device_1024[3],
+                               bound_ms_1024=fused_bound(1024, N_REFS, K)[0],
+                               device_ms_k16=v4_device_1024[16])
         if name == "expansion_phase1":
             # phase1_kernel (mma.sync), no route any more, on the same inputs.
             y128, y24 = (yardsticks[n] for n in (

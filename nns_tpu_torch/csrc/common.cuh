@@ -7,6 +7,7 @@
 #pragma once
 
 #include <climits>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -52,82 +53,6 @@ __device__ __forceinline__ void init_best(float (&best_d)[kQT], int (&best_i)[kQ
     best_d[qi] = CUDART_INF_F;
     best_i[qi] = first;
   }
-}
-
-// Stage kQT query rows q0.. of the (m, k) row-major queries in shared memory
-// as (kQT, k), zero rows past m. The caller synchronizes.
-template <int kQT, int kThreads>
-__device__ __forceinline__ void stage_queries(const float* __restrict__ q, int q0,
-                                              int m, int k, float* q_s) {
-  for (int t = threadIdx.x; t < kQT * k; t += kThreads) {
-    const int row = q0 + t / k;
-    q_s[t] = row < m ? q[(long long)row * k + t % k] : 0.0f;
-  }
-}
-
-// Scan columns lo + threadIdx.x, lo + threadIdx.x + kThreads, ... < hi of
-// the dim-major refs (k, ld) against kQT queries, q_at(qi, d) giving query
-// qi's coordinate d. Each column's k coordinates are read once (coalesced
-// across the warp) and feed kQT register accumulators; the thread folds
-// each column into its running (best_d, best_i) winners.
-template <int kQT, int kThreads, typename QAt>
-__device__ __forceinline__ void scan_dim_major(const float* __restrict__ r_dm,
-                                               long long ld, int k, long long lo,
-                                               long long hi, QAt q_at,
-                                               float (&best_d)[kQT],
-                                               int (&best_i)[kQT]) {
-  for (long long j = lo + threadIdx.x; j < hi; j += kThreads) {
-    float acc[kQT];
-#pragma unroll
-    for (int qi = 0; qi < kQT; ++qi) acc[qi] = 0.0f;
-    for (int d = 0; d < k; ++d) {
-      const float rv = r_dm[(long long)d * ld + j];
-#pragma unroll
-      for (int qi = 0; qi < kQT; ++qi) acc[qi] = add_sq_diff(acc[qi], q_at(qi, d), rv);
-    }
-#pragma unroll
-    for (int qi = 0; qi < kQT; ++qi) {
-      if (lex_less(acc[qi], (int)j, best_d[qi], best_i[qi])) {
-        best_d[qi] = acc[qi];
-        best_i[qi] = (int)j;
-      }
-    }
-  }
-}
-
-// Block-wide winner of each of the kQT queries: a warp butterfly, then
-// thread qi < kQT folds the warps' winners of query qi into (d, i). Every
-// thread of the block must call it; it synchronizes before returning, so it
-// may be called again in a loop.
-template <int kQT, int kThreads>
-__device__ __forceinline__ void block_argmin(float (&best_d)[kQT], int (&best_i)[kQT],
-                                             float& d, int& i) {
-  constexpr int kWarps = kThreads / kWarp;
-  __shared__ float red_d[kWarps][kQT];
-  __shared__ int red_i[kWarps][kQT];
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-#pragma unroll
-  for (int qi = 0; qi < kQT; ++qi) {
-    warp_argmin(best_d[qi], best_i[qi]);
-    if (lane == 0) {
-      red_d[warp][qi] = best_d[qi];
-      red_i[warp][qi] = best_i[qi];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < kQT) {
-    const int qi = threadIdx.x;
-    d = red_d[0][qi];
-    i = red_i[0][qi];
-    for (int w = 1; w < kWarps; ++w) {
-      if (lex_less(red_d[w][qi], red_i[w][qi], d, i)) {
-        d = red_d[w][qi];
-        i = red_i[w][qi];
-      }
-    }
-  }
-  __syncthreads();
 }
 
 // One thread per query: lexicographic min over its S partial winners in the
@@ -240,15 +165,30 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
       : "memory");
 }
 
+// One box of a 2-D tensor map (cp.async.bulk.tensor, tile mode) at
+// element coordinates (x, innermost; y) into dst, completing on `bar` with
+// the box's bytes. The map must lie in parameter, constant or global memory
+// (a __grid_constant__ kernel parameter), dst 128-byte aligned.
+__device__ __forceinline__ void tensor_copy_2d(void* dst, const CUtensorMap& map, int x, int y,
+                                               unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<unsigned long long>(&map)), "r"(x), "r"(y),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
 inline bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
 // ---------------------------------------------------------------------------
-// A producer/consumer ring (v3 and v5): one producer warp fills `stages`
-// shared-memory stages, kRingConsumers threads (8 warps) read them. Each
-// stage has a FULL mbarrier (completed by the producer: the bulk copies'
-// transaction bytes after one arrival, or, on the plain-load path, the 32
+// A producer/consumer ring (v3, v4, v5, v7): one producer warp fills
+// `stages` shared-memory stages, kRingConsumers threads (8 warps) read them.
+// Each stage has a FULL mbarrier (completed by the producer: the bulk or
+// tensor copies' transaction bytes after one arrival, or, on the plain-load
+// path, the 32
 // producer lanes' arrivals after their stores) and an EMPTY mbarrier (one
 // arrival per consumer warp once the warp is done with the stage). No
 // block-wide barrier after the start: the producer runs ahead by up to
@@ -474,10 +414,11 @@ __device__ __forceinline__ void write_rows(const float (&best_d)[kQ], const int 
 }
 
 // A ring kernel's arguments: (m, k) row-major queries q; refs r with n
-// columns (v5: dim-major rows of pitch ld) or n points (v3: point-major, ld
-// = k); the block's range of cols_per_split, in stages of `cols` columns or
-// points and `dims` dimensions; `stages` stages; `tpr` threads per query row;
-// bulk copies or plain loads; the (splits, m) winner tables.
+// columns (v4, v5, v7: dim-major rows of pitch ld) or n points (v3:
+// point-major, ld = k); the block's range of cols_per_split, in stages of
+// `cols` columns or points and `dims` dimensions; `stages` stages; `tpr`
+// threads per query row; bulk copies (v4: tensor copies) or plain loads; the
+// (splits, m) winner tables (v4: the (m,) outputs).
 struct RingArgs {
   const float* q;
   const float* r;
@@ -531,6 +472,209 @@ __device__ __forceinline__ void load_slice(const float* __restrict__ q_row, int 
   for (int d = 0; d < kRingMaxDims; ++d) qr[d] = d < dims && d0 + d < k ? q_row[d0 + d] : 0.0f;
 }
 
+// Four-column groups a sliced dim-major consumer carries across a stage's
+// slices (v5, v4).
+constexpr int kRingGroups = 8;
+
+// Consumer threads of a dim-major ring at k = kK, all kK dims in each stage
+// (v5, v4): the thread's kQ rows in registers; in each stage of the block's
+// range the columns 4 * part, 4 * (part + tpr), ... scored four at a time
+// and folded with a strict < from (inf, the range's first column), so each
+// row keeps its lowest index among equal distances; where tpr threads share
+// a row (one row each), their winners are folded into part 0's at the end.
+template <int kK, int kQ>
+__device__ __forceinline__ void consume_dim_major(const StageRing& ring, const RingArgs& a,
+                                                  const RingRange& range, const RingRows& rows,
+                                                  int tpr, float (&best_d)[kQ],
+                                                  int (&best_i)[kQ]) {
+  float qr[kQ][kK];
+  load_rows(a.q, rows, a.m, qr);
+  init_best(best_d, best_i, (int)range.lo);
+  RingPos pos;
+  for (int t = 0; t < range.n_tiles; ++t, pos.next(a.stages)) {
+    long long col0;
+    const int lim = range.tile(a, t, col0);
+    const float* st = ring.acquire(pos);
+    for (int c = 4 * rows.part; c < lim; c += 4 * tpr) {
+      float acc[kQ][4];
+      score4<kK, kQ, false>(st + c, a.cols, qr, acc);
+      fold4(acc, best_d, best_i, (int)(col0 + c), lim - c);
+    }
+    ring.release(pos);
+  }
+  if (tpr > 1) fold_parts(best_d[0], best_i[0], rows, tpr, ring.stage(0));
+}
+
+// The same at any k, one row per consumer thread, the contraction in
+// `slices` slices of a.dims dimensions (the row's slice in registers).
+// Columns go in blocks of kRingGroups x 4 per thread; with one slice a
+// block folds as soon as it is scored, with several the plan keeps a stage
+// to one block, whose sums carry over the stage's slices. kShared: tpr > 1
+// threads share each row, a thread's groups tpr groups apart (a run-time
+// stride); without, the groups are adjacent and their shared-memory offsets
+// constants.
+template <bool kShared>
+__device__ __forceinline__ void consume_dim_major_sliced(const StageRing& ring, const RingArgs& a,
+                                                         const RingRange& range,
+                                                         const RingRows& rows, int slices,
+                                                         float (&best_d)[1], int (&best_i)[1]) {
+  const int tpr = kShared ? a.tpr : 1;
+  const int step = 4 * tpr;  // between a thread's four-column groups
+  const float* q_row = a.q + (long long)min(rows.row(0), a.m - 1) * a.k;
+  float qr[kRingMaxDims];
+  if (slices == 1) load_slice(q_row, 0, a.dims, a.k, qr);
+  init_best(best_d, best_i, (int)range.lo);
+  RingPos pos;
+  for (int t = 0; t < range.n_tiles; ++t) {
+    long long col0;
+    const int lim = range.tile(a, t, col0);
+    float acc[kRingGroups][1][4];
+    for (int s = 0; s < slices; ++s, pos.next(a.stages)) {
+      const int d0 = s * a.dims;
+      const int nd = min(a.dims, a.k - d0);
+      if (slices > 1) load_slice(q_row, d0, a.dims, a.k, qr);
+      const float* st = ring.acquire(pos);
+      for (int cb = 4 * rows.part; cb < lim; cb += kRingGroups * step) {
+        if (s == 0) {
+#pragma unroll
+          for (int j = 0; j < kRingGroups; ++j) {
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) acc[j][0][cc] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int d = 0; d < kRingMaxDims; ++d) {
+          if (d < nd) {
+#pragma unroll
+            for (int j = 0; j < kRingGroups; ++j) {
+              const int c = cb + step * j;
+              if (c < lim) {
+                const float4 r = *reinterpret_cast<const float4*>(st + d * a.cols + c);
+                acc[j][0][0] = add_sq_diff(acc[j][0][0], qr[d], r.x);
+                acc[j][0][1] = add_sq_diff(acc[j][0][1], qr[d], r.y);
+                acc[j][0][2] = add_sq_diff(acc[j][0][2], qr[d], r.z);
+                acc[j][0][3] = add_sq_diff(acc[j][0][3], qr[d], r.w);
+              }
+            }
+          }
+        }
+        if (s == slices - 1) {
+#pragma unroll
+          for (int j = 0; j < kRingGroups; ++j) {
+            fold4(acc[j], best_d, best_i, (int)(col0 + cb + step * j), lim - cb - step * j);
+          }
+        }
+      }
+      ring.release(pos);
+    }
+  }
+  if (kShared) fold_parts(best_d[0], best_i[0], rows, tpr, ring.stage(0));
+}
+
+// ---------------------------------------------------------------------------
+// v4: the ring fed by tensor-map copies, and the fold of all ranges' winners
+// inside the same launch.
+// ---------------------------------------------------------------------------
+
+// Bytes in front of a StageRing fed by tensor copies, so that its stages
+// start 128-byte aligned after its 2 x stages mbarriers (the dynamic shared
+// memory is 128-byte aligned; every stage is a multiple of 128 bytes).
+__host__ __device__ inline size_t ring_tma_pad(int stages) {
+  return (128 - 16 * (size_t)stages % 128) % 128;
+}
+
+// Producer warp of a dim-major ring fed from the tensor map of the (k, ld)
+// refs: item it = (stage it / slices, slice it % slices) is one box of
+// a.dims x a.cols at (the stage's first column, the slice's first
+// dimension), issued by lane 0. The map is n columns wide and k rows high,
+// so the copy zero-fills the box past either, and the stage's transaction
+// count is the whole box. No consumer scores a column at or past n, and a
+// query's registers past k are zero (a zero dimension adds +0 exactly).
+__device__ __forceinline__ void produce_tensor_tiles(const StageRing& ring, const RingArgs& a,
+                                                     const RingRange& range, int slices,
+                                                     const CUtensorMap& map) {
+  ring.produce((long long)range.n_tiles * slices,
+               [&](long long it, float* st, unsigned long long* full, int lane) {
+                 if (lane != 0) return;
+                 long long col0;
+                 range.tile(a, (int)(it / slices), col0);
+                 fence_proxy_async();
+                 mbar_expect_tx(full, 4u * a.dims * a.cols);
+                 tensor_copy_2d(st, map, (int)col0, (int)(it % slices) * a.dims, full);
+               });
+}
+
+// State that the one-launch fold keeps between launches on a stream:
+// keys[row] holds the row's best (d2, index) so far as one 64-bit word, d2's
+// bits above the index (d2 >= +0, so the words order as the lexicographic
+// (d2, index) pairs), all ones between launches; tickets[tile] counts the
+// blocks of a query tile that are done, 0 between launches.
+struct TicketFold {
+  unsigned long long* keys;
+  unsigned* tickets;
+};
+
+__device__ __forceinline__ unsigned long long winner_key(float d, int i) {
+  return (unsigned long long)__float_as_uint(d) << 32 | (unsigned)i;
+}
+
+// Whether `p` holds in any consumer thread (a named barrier with an OR
+// reduction; the producer warp has left). Every consumer calls it.
+__device__ __forceinline__ bool consumers_any(bool p) {
+  int any;
+  asm volatile(
+      "{\n"
+      ".reg .pred p, q;\n"
+      "setp.ne.s32 p, %1, 0;\n"
+      "bar.red.or.pred q, 1, %2, p;\n"
+      "selp.s32 %0, 1, 0, q;\n"
+      "}\n"
+      : "=r"(any)
+      : "r"((int)p), "n"(kRingConsumers)
+      : "memory");
+  return any != 0;
+}
+
+// The block's rows' winners (part 0's) into the answer, in the launch that
+// scored them. With one range the block writes them to a.part_d/a.part_i,
+// the (m,) outputs. Else each goes into keys[row] by a 64-bit atomicMin;
+// after a __threadfence() the block takes a ticket of its query tile, and
+// the last of the tile's gridDim.y blocks writes each row's (d2, index) to
+// the outputs and resets the rows' keys and the tile's ticket for the next
+// launch. The min is lexicographic, so the order in which the blocks arrive
+// cannot change the answer. Every consumer calls it.
+template <int kQ>
+__device__ __forceinline__ void ticket_fold(const float (&best_d)[kQ], const int (&best_i)[kQ],
+                                            const RingRows& rows, const RingArgs& a,
+                                            const TicketFold& f) {
+  if (gridDim.y == 1) {
+    write_rows(best_d, best_i, rows, a.m, a.part_d, a.part_i);
+    return;
+  }
+  if (rows.part == 0) {
+#pragma unroll
+    for (int qi = 0; qi < kQ; ++qi) {
+      const int row = rows.row(qi);
+      if (row < a.m) atomicMin(f.keys + row, winner_key(best_d[qi], best_i[qi]));
+    }
+  }
+  __threadfence();
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kRingConsumers) : "memory");
+  bool last = false;
+  if (threadIdx.x == 0) last = atomicAdd(f.tickets + blockIdx.x, 1u) == gridDim.y - 1;
+  if (!consumers_any(last)) return;
+  __threadfence();
+  for (int r = threadIdx.x; r < rows.stride * kQ; r += kRingConsumers) {
+    const int row = rows.row0 + r;
+    if (row >= a.m) break;
+    const unsigned long long key = __ldcg(f.keys + row);
+    a.part_d[row] = __uint_as_float((unsigned)(key >> 32));
+    a.part_i[row] = (int)(unsigned)key;
+    f.keys[row] = ~0ull;
+  }
+  if (threadIdx.x == 0) f.tickets[blockIdx.x] = 0;
+}
+
 // Threads per query row that a ring plan may take: a power of two up to a
 // warp, and 1 where a thread holds several rows. Sharing rows needs stages
 // of at least 2 x kRingConsumers words in all for `fold_parts`.
@@ -539,18 +683,27 @@ inline bool ring_tpr_ok(int q_rows, int tpr, size_t smem, int stages) {
   return tpr == 1 || smem - 16 * (size_t)stages >= 8 * (size_t)kRingConsumers;
 }
 
-// Launch `kernel` (dynamic shared memory `smem`) over (query tiles of
-// kRingConsumers x q_rows / tpr rows) x `splits` ref ranges of whole stages,
-// so that every stage starts where a whole stage of a range would, then the
+// The grid of a ring launch: (query tiles of kRingConsumers x q_rows / tpr
+// rows) x `splits` ref ranges of whole stages, so that every stage starts
+// where a whole stage of a range would; sets a.cols_per_split. False for a
+// grid it cannot make.
+inline bool ring_grid(RingArgs& a, int q_rows, int splits, dim3* grid) {
+  if (splits < 1 || splits > 65535 || a.m < 1 || a.n < 1) return false;
+  const int per_split = (a.n + splits - 1) / splits;
+  a.cols_per_split = (per_split + a.cols - 1) / a.cols * a.cols;
+  const int rows = kRingConsumers / a.tpr * q_rows;
+  *grid = dim3((a.m + rows - 1) / rows, splits);
+  return true;
+}
+
+// Launch `kernel` (dynamic shared memory `smem`) over `ring_grid`, then the
 // merge of the (splits, m) table into out_d/out_i. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a grid it cannot make.
 inline cudaError_t ring_launch(RingKernel kernel, size_t smem, RingArgs a, int q_rows, int splits,
                                float* out_d, int* out_i, cudaStream_t st) {
-  if (splits < 1 || splits > 65535 || a.m < 1 || a.n < 1) return cudaErrorInvalidValue;
-  const int per_split = (a.n + splits - 1) / splits;
-  a.cols_per_split = (per_split + a.cols - 1) / a.cols * a.cols;
-  const int rows = kRingConsumers / a.tpr * q_rows;
-  kernel<<<dim3((a.m + rows - 1) / rows, splits), kRingThreads, smem, st>>>(a);
+  dim3 grid;
+  if (!ring_grid(a, q_rows, splits, &grid)) return cudaErrorInvalidValue;
+  kernel<<<grid, kRingThreads, smem, st>>>(a);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return launch_merge(a.part_d, a.part_i, a.m, splits, out_d, out_i, st);

@@ -52,7 +52,6 @@
 
 namespace {
 
-constexpr int kGroups = 8;    // sliced: four-column groups per thread and column block
 constexpr int kMaxStages = 8;
 
 // k = kK, kQ rows per consumer thread, all kK dims in each stage.
@@ -69,34 +68,15 @@ streaming_kernel(const nns::RingArgs a) {
   }
   const int tpr = kQ == 1 ? a.tpr : 1;
   const nns::RingRows rows(kQ, tpr);
-  float qr[kQ][kK];
-  nns::load_rows(a.q, rows, a.m, qr);
   float best_d[kQ];
   int best_i[kQ];
-  nns::init_best(best_d, best_i, (int)range.lo);
-  nns::RingPos pos;
-  for (int t = 0; t < range.n_tiles; ++t, pos.next(a.stages)) {
-    long long col0;
-    const int lim = range.tile(a, t, col0);
-    const float* st = ring.acquire(pos);
-    for (int c = 4 * rows.part; c < lim; c += 4 * tpr) {
-      float acc[kQ][4];
-      nns::score4<kK, kQ, false>(st + c, a.cols, qr, acc);
-      nns::fold4(acc, best_d, best_i, (int)(col0 + c), lim - c);
-    }
-    ring.release(pos);
-  }
-  if (tpr > 1) nns::fold_parts(best_d[0], best_i[0], rows, tpr, ring.stage(0));
+  nns::consume_dim_major<kK, kQ>(ring, a, range, rows, tpr, best_d, best_i);
   nns::write_rows(best_d, best_i, rows, a.m, a.part_d, a.part_i);
 }
 
 // Any k at run time, one row per consumer thread, the contraction in slices
-// of `dims` dimensions (the row's slice in registers). Columns go in blocks
-// of kGroups x 4; with one slice a block folds as soon as it is scored, with
-// several the plan keeps a tile to one block, whose sums carry over the
-// tile's slices. kShared: tpr > 1 threads share each row, a thread's groups
-// tpr groups apart (a run-time stride); without, the groups are adjacent
-// and their shared-memory offsets constants.
+// of `dims` dimensions (common.cuh consume_dim_major_sliced). kShared: tpr >
+// 1 threads share each row.
 template <bool kShared>
 __global__ void __launch_bounds__(nns::kRingThreads, 2)
 streaming_sliced_kernel(const nns::RingArgs a) {
@@ -109,60 +89,10 @@ streaming_sliced_kernel(const nns::RingArgs a) {
     nns::produce_dim_major(ring, a, range, slices);
     return;
   }
-  const int tpr = kShared ? a.tpr : 1;
-  const nns::RingRows rows(1, tpr);
-  const int step = 4 * tpr;  // between a thread's four-column groups
-  const float* q_row = a.q + (long long)min(rows.row(0), a.m - 1) * a.k;
-  float qr[nns::kRingMaxDims];
-  if (slices == 1) nns::load_slice(q_row, 0, a.dims, a.k, qr);
+  const nns::RingRows rows(1, kShared ? a.tpr : 1);
   float best_d[1];
   int best_i[1];
-  nns::init_best(best_d, best_i, (int)range.lo);
-  nns::RingPos pos;
-  for (int t = 0; t < range.n_tiles; ++t) {
-    long long col0;
-    const int lim = range.tile(a, t, col0);
-    float acc[kGroups][1][4];
-    for (int s = 0; s < slices; ++s, pos.next(a.stages)) {
-      const int d0 = s * a.dims;
-      const int nd = min(a.dims, a.k - d0);
-      if (slices > 1) nns::load_slice(q_row, d0, a.dims, a.k, qr);
-      const float* st = ring.acquire(pos);
-      for (int cb = 4 * rows.part; cb < lim; cb += kGroups * step) {
-        if (s == 0) {
-#pragma unroll
-          for (int j = 0; j < kGroups; ++j) {
-#pragma unroll
-            for (int cc = 0; cc < 4; ++cc) acc[j][0][cc] = 0.0f;
-          }
-        }
-#pragma unroll
-        for (int d = 0; d < nns::kRingMaxDims; ++d) {
-          if (d < nd) {
-#pragma unroll
-            for (int j = 0; j < kGroups; ++j) {
-              const int c = cb + step * j;
-              if (c < lim) {
-                const float4 r = *reinterpret_cast<const float4*>(st + d * a.cols + c);
-                acc[j][0][0] = nns::add_sq_diff(acc[j][0][0], qr[d], r.x);
-                acc[j][0][1] = nns::add_sq_diff(acc[j][0][1], qr[d], r.y);
-                acc[j][0][2] = nns::add_sq_diff(acc[j][0][2], qr[d], r.z);
-                acc[j][0][3] = nns::add_sq_diff(acc[j][0][3], qr[d], r.w);
-              }
-            }
-          }
-        }
-        if (s == slices - 1) {
-#pragma unroll
-          for (int j = 0; j < kGroups; ++j) {
-            nns::fold4(acc[j], best_d, best_i, (int)(col0 + cb + step * j), lim - cb - step * j);
-          }
-        }
-      }
-      ring.release(pos);
-    }
-  }
-  if (kShared) nns::fold_parts(best_d[0], best_i[0], rows, tpr, ring.stage(0));
+  nns::consume_dim_major_sliced<kShared>(ring, a, range, rows, slices, best_d, best_i);
   nns::write_rows(best_d, best_i, rows, a.m, a.part_d, a.part_i);
 }
 
@@ -175,15 +105,16 @@ nns::RingKernel templated(int q_rows) {
 
 // The instance for the plan, or none: k = 3 and 16 with all k dims per
 // stage and 4 or 1 rows per thread; any k sliced, one row per thread, 1-16
-// dims per stage and, with more than one slice, at most kGroups four-column
-// groups per thread and tile. Stage columns a multiple of 4, 2-8 stages.
+// dims per stage and, with more than one slice, at most kRingGroups
+// four-column groups per thread and tile. Stage columns a multiple of 4, 2-8
+// stages.
 // `setup` checks the threads per row.
 nns::RingKernel instance(int k, int q_rows, int tpr, int cols, int dims, int stages) {
   if (k < 1 || cols < 4 || cols % 4 || stages < 2 || stages > kMaxStages) return nullptr;
   if (dims == k && k == 3) return templated<3>(q_rows);
   if (dims == k && k == 16) return templated<16>(q_rows);
   if (q_rows != 1 || dims < 1 || dims > nns::kRingMaxDims || dims > k) return nullptr;
-  if (dims < k && cols > kGroups * 4 * tpr) return nullptr;
+  if (dims < k && cols > nns::kRingGroups * 4 * tpr) return nullptr;
   return tpr > 1 ? streaming_sliced_kernel<true> : streaming_sliced_kernel<false>;
 }
 

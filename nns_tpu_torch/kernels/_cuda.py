@@ -117,7 +117,10 @@ _PHASE1 = [_vp, _vp, _vp, _ci, _ci, _cll, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp
 # a cudaError_t); a CPU test holds them against the extern "C" definitions
 # under csrc/.
 SIGNATURES = {
-    "nns_fused_argmin": [_vp, _vp, _ci, _ci, _ci, _cll, _ci, _vp, _vp, _vp, _vp, _vp],
+    "nns_fused_argmin": [_vp, _vp, _vp, _ci, _ci, _ci, _cll, _ci, _ci, _ci, _ci, _ci, _ci,
+                         _vp, _vp, _vp, _vp, _ci, _vp],
+    "nns_fused_argmin_smem": [_ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp],
+    "nns_fused_argmin_tensor_map": [_vp, _ci, _ci, _cll, _ci, _ci, _vp],
     "nns_cell_scan": [_vp, _vp, _vp, _ci, _ci, _ci, _cf, _vp, _vp, _vp],
     "nns_fused_point_major":
         [_vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp],

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from nns_tpu_torch.kernels import _cuda
-from nns_tpu_torch.kernels.fused import as_f32, fused_fallback
+from nns_tpu_torch.kernels.fused import FusedBruteForce, as_f32, fused_fallback
 from nns_tpu_torch.kernels.layouts import PAD_SENTINEL, pow2_at_least as _pow2_at_least
 
 # Queries per supercell the CUDA kernel takes (kMaxQM in csrc/cell_scan.cu).
@@ -173,13 +173,14 @@ class CellListEngine:
         self.avg_candidates = float(counts.mean())
 
     def _place(self, halo_dm_np: np.ndarray, halo_ids: np.ndarray, device) -> None:
-        """Move the index onto ``device``: halo points and ids for the scan,
-        the refs for the exact fallback."""
+        """Move the index onto ``device``: halo points and ids for the scan.
+        The exact fallback stages the refs (dim-major, padded) at its first
+        call and keeps them (``_fallback_engine``)."""
         self.device = torch.device(device)
         self.halo_dm = torch.as_tensor(halo_dm_np, device=self.device)
         self.halo_ids = halo_ids
         self.halo_ids_dev = torch.as_tensor(halo_ids, device=self.device)
-        self.refs_dev = torch.as_tensor(self.refs, device=self.device)
+        self._fused = None
         # The certificate radius squared, rounded to f32 like the scan's d2.
         self.halo2 = float(np.float32(self.halo) ** 2)
 
@@ -347,8 +348,14 @@ class CellListEngine:
         if not ok.all():
             bad = np.flatnonzero(~ok)
             q_bad = np.ascontiguousarray(queries, dtype=np.float32)[bad]
-            idx[bad] = fused_fallback(q_bad, self.refs_dev, self.device).cpu().numpy()
+            idx[bad] = self._fallback_engine().fallback(q_bad).cpu().numpy()
         return idx
+
+    def _fallback_engine(self) -> FusedBruteForce:
+        """The exact fallback's engine over the refs, staged once."""
+        if self._fused is None:
+            self._fused = FusedBruteForce(self.refs, device=self.device)
+        return self._fused
 
     def query_queue(self, batches, return_coverage: bool = False):
         """EXACT answers for several query batches: ragged staging, one scan

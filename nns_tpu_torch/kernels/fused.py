@@ -11,14 +11,19 @@ the lowest reference index, in both.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import numpy as np
 import torch
 
 from nns_tpu_torch.kernels import _cuda, layouts
 
 _LANE = 128
-# Queries per block of the CUDA kernel (kQT in csrc/fused_argmin.cu).
-_KERNEL_QT = 16
+# Stage columns of the CUDA kernel at most: one tensor-map box, which holds
+# at most 256 elements along each dimension.
+_TMA_BOX_COLS = 256
 # Bound on the plain version's (chunk, n) f32 distance block: 64M elements
 # (256 MB), so 10K x 1M fits on the card and small hosts alike.
 _PLAIN_BLOCK = 1 << 26
@@ -68,34 +73,100 @@ def fused_min_idx_plain(queries: torch.Tensor, r_dm: torch.Tensor,
     return out_d, out_i
 
 
-def fused_splits(m: int, n: int, n_sm: int) -> int:
-    """Ref ranges S of the CUDA kernel's grid: enough (query tile, range)
-    blocks for ~2 per SM, and at least 1024 columns per range."""
-    q_tiles = -(-m // _KERNEL_QT)
-    return max(1, min(-(-2 * n_sm // q_tiles), -(-n // 1024)))
+def fused_plan(m: int, k: int, smem_optin: int):
+    """How csrc/fused_argmin.cu runs m k-dimensional queries on a card whose
+    blocks get ``smem_optin`` bytes of shared memory: v5's ring plan
+    (``fused_ladder.ring_plan("dim_major", ...)``: rows per thread, threads
+    per row, dims per stage, stages) with stages of at most _TMA_BOX_COLS
+    columns, one tensor-map box each, and the ring's mbarriers padded to 128
+    bytes so that every stage starts 128-byte aligned for the tensor copies.
+    Its shared memory does not grow with k past 16. Raises ValueError when
+    nothing fits ``smem_optin``."""
+    from nns_tpu_torch.kernels import fused_ladder  # it imports this module
+
+    plan = fused_ladder.ring_plan("dim_major", m, k, smem_optin)
+    cols = min(plan.cols, _TMA_BOX_COLS)
+    smem = (-16 * plan.stages % 128
+            + fused_ladder.ring_smem_bytes("dim_major", k, cols, plan.dims, plan.stages))
+    if smem > smem_optin:
+        raise ValueError(f"fused_argmin: k={k} leaves no plan within {smem_optin} bytes of "
+                         "shared memory")
+    return dataclasses.replace(plan, cols=cols, smem_bytes=smem)
+
+
+@functools.lru_cache(maxsize=4096)
+def fused_launch_shape(m: int, k: int, n: int, device_index: int):
+    """(plan, ref ranges S) of the CUDA kernel for m k-dimensional queries
+    over n columns on CUDA device ``device_index``: ``fused_plan``, and as
+    many ranges as fill the plan's grid slots in one wave beside the query
+    tiles (``fused_ladder.ring_splits``). Cached, so that a call asks the
+    card nothing."""
+    from nns_tpu_torch.kernels import fused_ladder
+
+    plan = fused_plan(m, k, fused_ladder._smem_optin(device_index))
+    slots = fused_ladder._ring_setup("fused_argmin", k, plan, device_index)
+    return plan, fused_ladder.ring_splits(plan, m, n, slots)
 
 
 def n_sm(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+@functools.lru_cache(maxsize=256)
+def _tensor_map(ptr: int, k: int, n: int, ld: int, cols: int, dims: int):
+    """The kernel's tensor map (128 bytes) of the dim-major refs (k, ld) at
+    device address ``ptr`` over columns [0, n), in boxes of ``cols`` x
+    ``dims``. It holds only these numbers, so a later tensor at the same
+    address and shape may share it. Raises RuntimeError where
+    cuTensorMapEncodeTiled refuses the map."""
+    lib = _cuda.library()
+    buf = ctypes.create_string_buffer(128)
+    _cuda.check(lib, lib.nns_fused_argmin_tensor_map(ptr, k, n, ld, cols, dims, buf),
+                "fused_argmin tensor map")
+    return buf
+
+
+# The kernel's fold state per (device index, stream): 64-bit keys, all ones,
+# and per-query-tile tickets, zero. Each launch leaves them as it found them,
+# so launches on one stream share them; another stream gets its own.
+_FOLD_STATE: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _fold_state(dev, stream, m: int, tiles: int) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index, stream.cuda_stream)
+    state = _FOLD_STATE.get(key)
+    if state is not None:
+        m, tiles = max(m, state[0].numel()), max(tiles, state[1].numel())
+    if state is None or (state[0].numel(), state[1].numel()) != (m, tiles):
+        state = (torch.full((layouts.pow2_at_least(m),), -1, dtype=torch.int64, device=dev),
+                 torch.zeros(layouts.pow2_at_least(tiles), dtype=torch.int32, device=dev))
+        _FOLD_STATE[key] = state
+    return state
+
+
 def _fused_min_idx_cuda(queries, r_dm, n):
-    """Launch csrc/fused_argmin.cu on the current stream: a scan that writes
-    an (splits, m) table of partial winners, then a merge per query. Raises
-    RuntimeError on a CUDA error, else counts the launch. Returns (min_d2,
-    idx)."""
+    """Launch csrc/fused_argmin.cu on the current stream: one kernel, which
+    folds its ref ranges' winners itself. The refs go in by tensor copies
+    where their base and pitch are 16-byte aligned, else by the producer's
+    plain loads. Raises RuntimeError on a CUDA error, else counts the
+    launch. Returns (min_d2, idx), two rows of one allocation."""
     m, k = queries.shape
     dev = queries.device
-    splits = fused_splits(m, n, n_sm(dev))
-    part_d, part_i = partials(splits, m, dev)
-    out_d, out_i = partials(m, None, dev)
+    plan, splits = fused_launch_shape(m, k, n, dev.index)
+    ld, ptr = r_dm.shape[1], r_dm.data_ptr()
+    tmap = (_tensor_map(ptr, k, n, ld, plan.cols, plan.dims)
+            if ld % 4 == 0 and ptr % 16 == 0 else None)
+    stream = torch.cuda.current_stream(dev)
+    keys = tickets = None
+    if splits > 1:
+        keys, tickets = (t.data_ptr() for t in _fold_state(dev, stream, m, plan.q_tiles(m)))
+    out = torch.empty((2, m), dtype=torch.int32, device=dev)
+    out_d, out_i = out[0].view(torch.float32), out[1]
     lib = _cuda.library()
-    with torch.cuda.device(dev):
-        rc = lib.nns_fused_argmin(
-            queries.data_ptr(), r_dm.data_ptr(), m, k, n, r_dm.shape[1], splits,
-            part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    rc = lib.nns_fused_argmin(
+        queries.data_ptr(), ptr, tmap, m, k, n, ld, splits, plan.q_rows, plan.threads_per_row,
+        plan.cols, plan.dims, plan.stages, keys, tickets, out_d.data_ptr(), out_i.data_ptr(),
+        dev.index, stream.cuda_stream)
     _cuda.check(lib, rc, "fused_argmin")
     _cuda.LAUNCHES["fused_argmin"] += 1
     return out_d, out_i
@@ -151,20 +222,15 @@ def fused_min_idx(queries: torch.Tensor, r_dm: torch.Tensor,
 
 def nns_fused(queries, refs, tile_n: int = 4096, device="cuda") -> torch.Tensor:
     """v4 one-shot: exact 1-NN indices (m,) i32 on ``device``."""
-    r_dm, _ = prepare_refs(refs, tile_n, device)
-    return fused_min_idx(as_f32(queries, device), r_dm, refs.shape[0])[1]
+    return FusedBruteForce(refs, tile_n, device).query(queries)
 
 
 def fused_fallback(queries, refs, device="cuda") -> torch.Tensor:
-    """Exact full-scan fallback for certificate failures: the query count is
-    padded to a power-of-two bucket (>= 8), the shapes the JAX package
-    compiles for, and the tail sliced off. ``refs`` may already be a tensor
-    on ``device`` (no host transfer then)."""
-    q = as_f32(queries, device)
-    m = q.shape[0]
-    bucket = layouts.pow2_at_least(max(m, 8))
-    q = layouts.pad_queries(q, bucket)
-    return nns_fused(q, refs, device=device)[:m]
+    """Exact full-scan fallback for certificate failures, one-shot:
+    ``FusedBruteForce.fallback`` over refs staged for this call. ``refs``
+    may already be a tensor on ``device`` (no host transfer then). An engine
+    that falls back again and again keeps a FusedBruteForce instead."""
+    return FusedBruteForce(refs, device=device).fallback(queries)
 
 
 class FusedBruteForce:
@@ -183,3 +249,10 @@ class FusedBruteForce:
     def query(self, queries) -> torch.Tensor:
         return self.query_min_idx(queries)[1]
 
+    def fallback(self, queries) -> torch.Tensor:
+        """Exact indices (m,) i32 of the rows of ``queries``, run at the
+        query count padded to a power-of-two bucket (>= 8), the shapes the
+        JAX package compiles for, and the tail sliced off."""
+        q = as_f32(queries, self.device)
+        m = q.shape[0]
+        return self.query(layouts.pad_queries(q, layouts.pow2_at_least(max(m, 8))))[:m]

@@ -1,5 +1,5 @@
-"""The v14 scan, v3, v5, v6, v7 and v9 phase-1 kernels of this tree against
-those of another tree.
+"""The v14 scan, v3, v4, v5, v6, v7 and v9 phase-1 kernels of this tree
+against those of another tree.
 
 Run from the repository root on a machine with one CUDA device:
 ``python -m nns_tpu_torch.utils.kernel_report --parent DIR``, where DIR is
@@ -7,13 +7,13 @@ an unpacked copy of the tree to compare with (``git archive`` of the parent
 commit). It prints the card's name and power limit, then
 
 1. ptxas's registers, shared memory and spills for every kernel of
-   ``csrc/cell_scan.cu``, ``csrc/fused_queries_resident.cu``,
-   ``csrc/fused_streaming.cu``, ``csrc/fused_point_major.cu`` and
-   ``csrc/two_level.cu`` of both trees (``nvcc -Xptxas -v`` with this
-   tree's flags);
+   ``csrc/cell_scan.cu``, ``csrc/fused_argmin.cu``,
+   ``csrc/fused_queries_resident.cu``, ``csrc/fused_streaming.cu``,
+   ``csrc/fused_point_major.cu`` and ``csrc/two_level.cu`` of both trees
+   (``nvcc -Xptxas -v`` with this tree's flags);
 2. the times of both trees' kernels, each tree imported in a process of its
    own and called through its own public wrappers (``cell_list.cell_scan``,
-   ``fused_ladder.fused_queries_resident_min_idx``,
+   ``fused.fused_min_idx``, ``fused_ladder.fused_queries_resident_min_idx``,
    ``fused_point_major_min_idx``, ``fused_streaming_min_idx``,
    ``two_level_min_idx`` and ``mxu_expansion.phase1``), in turns
    (parent, this tree, this tree, parent). Every turn is timed by this tree's
@@ -27,7 +27,9 @@ commit). It prints the card's name and power limit, then
    v5 and v7 at 1024 x 1M k=3, k=16 and k=5 (a k that is not a template
    parameter), at 10000 x 1M k=3, and at small m: 1, 4, 16, 64 and 136 x
    1M k=16 (the first rows of the k=16 set; 136 rows is the v9 drain's
-   full scan in ``chip_smoke.py``, which runs v3) and 64 x 1M k=3; and
+   full scan in ``chip_smoke.py``, which runs v3) and 64 x 1M k=3; v4 at
+   8, 16 and 64 x 1M k=3 (the exact fallback's buckets), 1024 x 1M k=3,
+   k=16 and k=5, and 10000 x 1M k=3; and
    phase 1 through each tree's own ``MXUExpansion`` (its own route and
    staging) on the v9 drain's 640000-row launch over the 1M 16-D refs (the
    queries ``chip_smoke.py`` draws), at 10000 x 1M k=16, 1024 x 1M k=24
@@ -37,8 +39,9 @@ commit). It prints the card's name and power limit, then
    away (the tensor cores sum in their own order);
 3. cases that only this tree runs, timed in this tree's two turns and
    labelled so: v5 at 1024 x 65536 k=128 (v5 before its ring design ran
-   out of shared memory from k = 56 and raised) and v7 at 64 x 65536
-   k=4096; the other tree's turns print whether its v7 raises there.
+   out of shared memory from k = 56 and raised), and v7 and v4 at 64 x
+   65536 k=4096; the other tree's turns print whether its v7 and its v4
+   raise there.
 
 It fails without a card, or when the two trees' outputs differ.
 """
@@ -56,8 +59,8 @@ import tempfile
 import numpy as np
 import torch
 
-SOURCES = ("cell_scan.cu", "fused_queries_resident.cu", "fused_streaming.cu",
-           "fused_point_major.cu", "two_level.cu")
+SOURCES = ("cell_scan.cu", "fused_argmin.cu", "fused_queries_resident.cu",
+           "fused_streaming.cu", "fused_point_major.cu", "two_level.cu")
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _ROOT = os.path.dirname(os.path.dirname(_HERE))
 _TURNS = ("parent", "this tree", "this tree", "parent")
@@ -86,7 +89,7 @@ def _measure(out: str, this_tree: bool) -> None:
     from (this process's PYTHONPATH) and save times and outputs to ``out``;
     with ``this_tree`` also the cases only this tree runs."""
     from nns_tpu_torch.data import make_dataset
-    from nns_tpu_torch.kernels import fused_ladder
+    from nns_tpu_torch.kernels import fused, fused_ladder
     from nns_tpu_torch.kernels.cell_list import CellListEngine, cell_scan
     from nns_tpu_torch.kernels.fused import prepare_refs
 
@@ -148,7 +151,20 @@ def _measure(out: str, this_tree: bool) -> None:
             timed(f"{name} {tag}", ("fused", m, n, k), detail, wrapper,
                   torch.as_tensor(q, device=dev), refs_dev, n)
             del refs_dev
-    del q16, r16
+    # v4 at the exact fallback's buckets and at the ladder's shapes.
+    v4_plan = getattr(fused, "fused_launch_shape", None)
+    r3_dm, r16_dm = prepare_refs(refs, 4096, dev)[0], prepare_refs(r16, 4096, dev)[0]
+    q5, r5 = make_dataset(5, 1024, 1_000_000, 1000)
+    for tag, q, r_dm in [*((f"{m} x 1M k=3 (fallback bucket)", queries[:m], r3_dm)
+                           for m in (8, 16, 64)),
+                         ("1024 x 1M k=3", queries[:1024], r3_dm), ("1024 x 1M k=16", q16, r16_dm),
+                         ("1024 x 1M k=5", q5, prepare_refs(r5, 4096, dev)[0]),
+                         ("10000 x 1M k=3", queries, r3_dm)]:
+        (m, k), n = q.shape, 1_000_000
+        detail = str(v4_plan(m, k, n, torch.cuda.current_device())) if v4_plan else ""
+        timed(f"fused_argmin {tag}", ("fused", m, n, k), detail, fused.fused_min_idx,
+              torch.as_tensor(q, device=dev), r_dm, n)
+    del q16, r16, r3_dm, r16_dm, q5, r5
     _phase1_cases(dev, timed)
     q, r = make_dataset(4096, 64, 65536, 1000)
     q4k, r4k = torch.as_tensor(q, device=dev), prepare_refs(r, 4096, dev)[0]
@@ -159,14 +175,19 @@ def _measure(out: str, this_tree: bool) -> None:
               torch.as_tensor(q, device=dev), prepare_refs(r, 4096, dev)[0], 65536)
         timed("two_level 64 x 65536 k=4096 (this tree only)", ("fused", 64, 65536, 4096),
               str(plans["two_level"](64, 4096)), fused_ladder.two_level_min_idx, q4k, r4k, 65536)
+        timed("fused_argmin 64 x 65536 k=4096 (this tree only)", ("fused", 64, 65536, 4096),
+              str(fused.fused_launch_shape(64, 4096, 65536, torch.cuda.current_device())),
+              fused.fused_min_idx, q4k, r4k, 65536)
     else:
-        try:
-            fused_ladder.two_level_min_idx(q4k, r4k, 65536)
-            torch.cuda.synchronize()
-            print("[probe] the other tree's two_level at 64 x 65536 k=4096: ran", flush=True)
-        except RuntimeError as e:
-            print(f"[probe] the other tree's two_level at 64 x 65536 k=4096: raised {e}",
-                  flush=True)
+        for name, fn in (("two_level", fused_ladder.two_level_min_idx),
+                         ("fused_argmin", fused.fused_min_idx)):
+            try:
+                fn(q4k, r4k, 65536)
+                torch.cuda.synchronize()
+                print(f"[probe] the other tree's {name} at 64 x 65536 k=4096: ran", flush=True)
+            except RuntimeError as e:
+                print(f"[probe] the other tree's {name} at 64 x 65536 k=4096: raised {e}",
+                      flush=True)
     torch.save({"rows": rows, "outputs": outputs}, out)
 
 

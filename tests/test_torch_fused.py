@@ -10,15 +10,18 @@ import numpy as np
 import pytest
 import torch
 
+import nns_tpu.kernels.cell_list as jax_cells
 import nns_tpu.kernels.pallas_fused as jax_fused
 from conftest import assert_exact
 from nns_tpu.data import make_dataset
 from nns_tpu_torch.convert import fused_from_numpy
-from nns_tpu_torch.kernels import _cuda
+from nns_tpu_torch.kernels import _cuda, fused, fused_ladder
+from nns_tpu_torch.kernels.cell_list import CellListEngine
 from nns_tpu_torch.kernels.fused import (
     FusedBruteForce,
     fused_fallback,
     fused_min_idx,
+    fused_plan,
     nns_fused,
     prepare_refs,
 )
@@ -76,6 +79,14 @@ def test_plain_equals_jax_unaligned(k, m, n):
     # m and n are not tile multiples: padding and ragged-edge paths.
     q, r = make_dataset(k, m, n, seed=m + n)
     _compare(q, r, tile_m=64, tile_n=1024)
+
+
+@pytest.mark.parametrize("k,m,n", [(64, 9, 700), (128, 20, 300)])
+def test_plain_equals_jax_at_high_k(k, m, n):
+    # k past the template instances and past one 16-dim slice (the CUDA
+    # kernel's sliced instance runs 4 and 8 slices here).
+    q, r = make_dataset(k, m, n, seed=k + m)
+    _compare(q, r, tile_m=8, tile_n=256)
 
 
 def test_duplicate_refs_lowest_index():
@@ -152,3 +163,52 @@ def test_fused_min_idx_rejects_bad_input():
         fused_min_idx(torch.zeros((2, 3), dtype=torch.float64), r_dm)
     with pytest.raises(ValueError):
         fused_min_idx(torch.zeros((2, 3)), r_dm, n=0)
+
+
+def test_cell_engine_fallback_stages_refs_once_and_equals_jax(monkeypatch):
+    # Uncertified rows in two drains: the engine stages its dim-major refs
+    # for the exact fallback once, at the first fallback, and every answer
+    # equals the JAX package's.
+    staged = []
+    real = fused.prepare_refs
+
+    def counting(*args, **kw):
+        staged.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(fused, "prepare_refs", counting)
+    _, r = make_dataset(3, 1, 16384, seed=34)
+    rng = np.random.default_rng(35)
+    batches = [rng.random((200, 3), dtype=np.float32) * np.float32(3.0) - np.float32(1.0)
+               for _ in range(2)]
+    eng = CellListEngine(r, device="cpu")
+    jeng = jax_cells.CellListEngine(r)
+    assert staged == []
+    for drain in range(2):
+        res_t, cov_t = eng.query_queue(batches, return_coverage=True)
+        res_j, cov_j = jeng.query_queue(batches, return_coverage=True)
+        assert cov_t == cov_j and max(cov_t) < 1.0
+        for a, b, qb in zip(res_t, res_j, batches):
+            np.testing.assert_array_equal(a, b)
+            assert_exact(a, qb, r)
+        assert staged == [1], drain
+    assert eng._fallback_engine().r_dm.shape == (3, 16384)
+
+
+@pytest.mark.parametrize("m", [1, 8, 64, 300, 1024, 10000])
+@pytest.mark.parametrize("k", [1, 3, 5, 16, 17, 40, 128, 4096, 20000])
+def test_fused_plan_shapes(m, k):
+    # The v4 plan is v5's ring plan with stages of one tensor-map box (at
+    # most 256 columns), each 128-byte aligned behind 128 bytes of padded
+    # barriers; past k = 16 its shared memory does not grow with k.
+    optin = 232448
+    plan = fused_plan(m, k, optin)
+    ring = fused_ladder.ring_plan("dim_major", m, k, optin)
+    assert (plan.q_rows, plan.threads_per_row, plan.dims, plan.stages) == (
+        ring.q_rows, ring.threads_per_row, ring.dims, ring.stages)
+    assert plan.cols == min(ring.cols, 256) and plan.cols % 4 == 0
+    assert plan.dims * plan.cols * 4 % 128 == 0 and (16 * plan.stages + 64) % 128 == 0
+    assert plan.smem_bytes == 64 + fused_ladder.ring_smem_bytes(
+        "dim_major", k, plan.cols, plan.dims, plan.stages) <= optin
+    assert plan.dims == k if k <= 16 else plan.dims <= 16 and plan.smem_bytes <= 65_664
+    assert plan.q_tiles(m) * plan.rows_per_tile >= m

@@ -32,9 +32,12 @@ from nns_tpu_torch.data import make_dataset
 from nns_tpu_torch.kernels import _cuda
 from nns_tpu_torch.kernels.cell_list import CellListEngine, cell_scan, cell_scan_plain
 from nns_tpu_torch.kernels.fused import (
+    _FOLD_STATE,
+    _tensor_map,
+    fused_launch_shape,
     fused_min_idx,
     fused_min_idx_plain,
-    fused_splits,
+    fused_plan,
     prepare_refs,
 )
 from nns_tpu_torch.kernels.fused_ladder import (
@@ -107,7 +110,7 @@ def test_fused_kernel_splits_merge_per_query(cuda):
     rng = np.random.default_rng(5)
     r = rng.random((100_000, 3), dtype=np.float32)
     m = 24
-    assert fused_splits(m, r.shape[0], torch.cuda.get_device_properties(cuda).multi_processor_count) > 1
+    assert fused_launch_shape(m, 3, r.shape[0], torch.cuda.current_device())[1] > 1
     pick = np.linspace(0, r.shape[0] - 1, m).astype(np.int64)
     q = r[pick] + np.float32(1e-7)
     r_dm, _ = prepare_refs(r, 4096, cuda)
@@ -131,6 +134,165 @@ def test_fused_kernel_duplicate_and_equal_refs(cuda):
     got = fused_min_idx(qs, s_dm, same.shape[0])
     _assert_same(got, fused_min_idx_plain(qs, s_dm, same.shape[0]))
     assert (got[1].cpu().numpy() == 0).all()
+
+
+def _v4(q, r_dm, n):
+    """The v4 kernel on card tensors: one launch counted, and bit-equal to
+    the plain version."""
+    before = _cuda.LAUNCHES["fused_argmin"]
+    got = fused_min_idx(q, r_dm, n)
+    assert _cuda.LAUNCHES["fused_argmin"] == before + 1
+    _assert_same(got, fused_min_idx_plain(q, r_dm, n))
+    return got
+
+
+def _v4_shape(m, k, n):
+    return fused_launch_shape(m, k, n, torch.cuda.current_device())
+
+
+# Every kind of plan: 1-64 rows shared by 32 down to 4 threads each, 300
+# rows one per thread in two 256-row tiles, 2000 rows in two 1024-row tiles
+# at k = 3 and 16 (4 rows per thread) and eight 256-row tiles at a sliced k;
+# k = 5, 40 and 128 in the sliced instance (one, three and eight slices).
+@pytest.mark.parametrize("m", [1, 8, 16, 64, 300, 2000])
+@pytest.mark.parametrize("k", [3, 5, 16, 40, 128])
+def test_v4_kernel_equals_plain(cuda, m, k):
+    n = 20_001
+    q, r = make_dataset(k, m, n, seed=1400 + k + m)
+    plan, splits = _v4_shape(m, k, n)
+    assert splits > 1 and plan.cols <= 256
+    got = _v4(torch.as_tensor(q, device=cuda), prepare_refs(r, 4096, cuda)[0], n)
+    assert recall_at_1(got[1].cpu().numpy(), q, r) == 1.0
+
+
+def test_v4_kernel_at_k4096(cuda):
+    # The first v4 kernel staged 16 x k x 4 bytes of queries per block and raised
+    # from k = 3633 (past the 232,448-byte opt-in); the sliced instance
+    # streams 16 dims per stage, so its shared memory does not grow with k.
+    q, r = make_dataset(4096, 64, 3001, seed=1500)
+    plan, _ = _v4_shape(64, 4096, 3001)
+    assert plan.dims == 16 and plan.smem_bytes < 40_000
+    got = _v4(torch.as_tensor(q, device=cuda), prepare_refs(r, 4096, cuda)[0], 3001)
+    assert recall_at_1(got[1].cpu().numpy(), q, r) == 1.0
+
+
+@pytest.mark.parametrize("m", [20, 300, 1100])
+@pytest.mark.parametrize("k", [3, 5, 16])
+def test_v4_ties_at_stage_range_and_tile_edges(cuda, k, m):
+    # Duplicates of the target on both sides of a stage edge and of a range
+    # edge, asked by rows on both sides of a query-tile edge: the lowest
+    # index must win, whichever block folds the tile last.
+    rng = np.random.default_rng(1600 + k + m)
+    n = 60_000
+    plan, splits = _v4_shape(m, k, n)
+    per = -(-(-(-n // splits)) // plan.cols) * plan.cols  # whole stages per range
+    assert splits > 1 and per < n
+    r = rng.random((n, k), dtype=np.float32)
+    target = rng.random(k, dtype=np.float32)
+    edges = (plan.cols - 1, plan.cols, per - 1, per, n - 1)
+    for c in edges:
+        r[c] = target
+    q = rng.random((m, k), dtype=np.float32)
+    tile = plan.rows_per_tile
+    rows = sorted({0, m - 1, *(x for x in (tile - 1, tile) if x < m)})
+    assert m < tile or len(rows) == 4
+    q[rows] = target
+    qd = torch.as_tensor(q, device=cuda)
+    got = _v4(qd, prepare_refs(r, 4096, cuda)[0], n)
+    assert (got[1][rows].cpu().numpy() == edges[0]).all()
+    r[: per - 1] = rng.random((per - 1, k), dtype=np.float32) + 2.0  # now the range edge wins
+    got = _v4(qd, prepare_refs(r, 4096, cuda)[0], n)
+    assert (got[1][rows].cpu().numpy() == per - 1).all()
+
+
+@pytest.mark.parametrize("m", [8, 300, 2000])
+@pytest.mark.parametrize("k", [3, 5, 16])
+def test_v4_with_overflowing_distances(cuda, k, m):
+    # Coordinates of +-3e19: every distance of the even rows overflows to
+    # +inf, so nothing beats a start of (inf, the range's first column) and
+    # the answer must be index 0, as the plain version gives.
+    rng = np.random.default_rng(1700 + k)
+    n = 9001
+    r = rng.random((n, k), dtype=np.float32)
+    r[: n // 2, 0] = -3e19
+    q = rng.random((m, k), dtype=np.float32)
+    q[::2, 0] = 3e19
+    got = _v4(torch.as_tensor(q, device=cuda), prepare_refs(r, 4096, cuda)[0], n)
+    assert torch.isinf(got[0][::2]).all() and (got[1][::2] == 0).all()
+    assert torch.isfinite(got[0][1::2]).all() and (got[1][1::2] >= n // 2).all()
+
+
+# Pitch 777 (not a multiple of 4 floats) on any base, and pitch 780 on a
+# base 4 bytes into its allocation: no tensor map, the producer lanes load
+# each stage. Pitch 780 at 0 or 16 bytes in: the tensor-copy path, the
+# second with an offset base.
+@pytest.mark.parametrize("pitch,shift", [(777, 0), (777, 1), (780, 1), (780, 0), (780, 4)])
+@pytest.mark.parametrize("k", [3, 5, 16, 40])
+def test_v4_pitch_and_offset_views(cuda, k, pitch, shift):
+    q, r = make_dataset(k, 300, 777, seed=1800 + k)
+    flat = torch.empty(shift + k * pitch, device=cuda)
+    r_dm = flat[shift:].view(k, pitch)
+    r_dm[:, :777] = torch.as_tensor(r, device=cuda).t()
+    r_dm[:, 777:] = -1.0  # past n: never read as a column
+    assert (r_dm.data_ptr() % 16 == 0) == (shift in (0, 4))
+    got = _v4(torch.as_tensor(q, device=cuda), r_dm, 777)
+    assert recall_at_1(got[1].cpu().numpy(), q, r) == 1.0
+
+
+def test_v4_tensor_map_refuses_what_it_cannot_describe(cuda):
+    flat = torch.empty(4 + 3 * 780, device=cuda)
+    base = flat.data_ptr()
+    assert _tensor_map(base, 3, 780, 780, 256, 3)  # aligned: encoded
+    for ptr, ld, cols, dims in ((base + 4, 780, 256, 3), (base, 777, 256, 3),
+                                (base, 780, 512, 3), (base, 780, 6, 3), (base, 780, 256, 0)):
+        with pytest.raises(RuntimeError):
+            _tensor_map(ptr, 3, min(ld, 777), ld, cols, dims)
+
+
+def test_v4_back_to_back_launches_reset_the_fold(cuda):
+    # Launches on one stream share the fold's keys and tickets, and each
+    # must leave them as it found them: shapes with different ranges S and
+    # query tiles in turn, with no synchronization between them.
+    cases = [(2000, 3, 20_001), (8, 3, 100_000), (300, 16, 9001), (2000, 3, 20_001),
+             (64, 5, 50_000), (8, 3, 100_000)]
+    assert len({_v4_shape(m, k, n)[1] for m, k, n in cases}) >= 3
+    inputs, outs = [], []
+    for i, (m, k, n) in enumerate(cases):
+        q, r = make_dataset(k, m, n, seed=1900 + i)
+        qd, r_dm = torch.as_tensor(q, device=cuda), prepare_refs(r, 4096, cuda)[0]
+        inputs.append((qd, r_dm, n))
+        outs.append(fused_min_idx(qd, r_dm, n))
+    torch.cuda.synchronize()
+    for (qd, r_dm, n), got in zip(inputs, outs):
+        _assert_same(got, fused_min_idx_plain(qd, r_dm, n))
+    keys, tickets = _FOLD_STATE[(torch.cuda.current_device(),
+                                 torch.cuda.current_stream().cuda_stream)]
+    assert (keys == -1).all() and (tickets == 0).all()
+
+
+def test_v4_plan_agrees_with_the_kernel_library(cuda):
+    # fused_plan (host) and the library state one rule: the library takes
+    # every plan the host makes, with the same shared memory, and refuses a
+    # plan it has no instance for.
+    lib = _cuda.library()
+    optin = _cuda.smem_optin(lib)
+    smem, slots = ctypes.c_longlong(), ctypes.c_int()
+    for k in [*range(1, 81), 100, 300, 1000, 3600, 4096, 20000]:
+        for m in (1, 8, 16, 64, 300, 1024, 10000):
+            plan = fused_plan(m, k, optin)
+            rc = lib.nns_fused_argmin_smem(k, plan.q_rows, plan.threads_per_row, plan.cols,
+                                           plan.dims, plan.stages, ctypes.byref(smem),
+                                           ctypes.byref(slots))
+            assert rc == 0 and smem.value == plan.smem_bytes and slots.value >= 1, (k, m, rc)
+    # (k, rows per thread, threads per row, stage columns, dims per stage,
+    # stages): a stage past one box, stages not a multiple of 128 bytes, too
+    # few or many stages, rows a sliced instance cannot hold, bad sharing.
+    bad = [(3, 4, 1, 512, 3, 4), (3, 4, 1, 260, 3, 4), (5, 1, 1, 20, 5, 4),
+           (3, 4, 1, 256, 3, 1), (3, 4, 1, 256, 3, 9), (5, 4, 1, 256, 5, 4),
+           (40, 1, 1, 64, 14, 4), (40, 1, 1, 32, 17, 4), (0, 1, 1, 256, 1, 4),
+           (3, 4, 2, 256, 3, 4), (3, 1, 3, 256, 3, 4), (3, 1, 64, 256, 3, 4)]
+    for args in bad:
+        assert lib.nns_fused_argmin_smem(*args, ctypes.byref(smem), ctypes.byref(slots)) != 0, args
 
 
 # QM = 8, 16 and 32 within one warp of the 128-thread block, 64 across its
