@@ -80,7 +80,24 @@ result) without them. Phases, each raising on failure:
    kernel's; batch 0 passes the f64 gate on the ladder's 512-row oracle and
    up to 128 uncertified rows pass a float64 scan on the card; the rows of
    each v3 full scan the drain runs are printed;
-9. one JSON line of per-kernel results, each row with the shape its ms,
+9. the tree family, k-NN and persistence (``_trees_phase``): ``nns(version=v)``
+   for v = 10..13 at 1024 x 1M uniform k=3 (the ladder's queries), each
+   held to the f64 gate on the ladder's 512 rows, and each engine's build
+   and query timed apart; ``NNEngine(13).query_many`` over 1M clustered
+   refs (seed 1000), W_TREES 10K batches drawn around the refs plus one
+   batch over (-1e4, 1e4)^3, far enough that the certificate's relative
+   margin leaves rows uncertified after the 4x retry: ``fused_argmin``
+   (the beam's exact fallback) must launch during that batch, and a 512-row
+   subsample and every uncertified row pass the f64 gate; the KD beam
+   index's chunk scan (budget 128) on the same refs, which must launch
+   ``fused_argmin`` and pass the gate; ``NNEngine("cells")`` over the
+   clustered refs fed uniform batches until its coverage hysteresis
+   promotes it to a ``BeamIndex``, gated before and after; ``query_topk``
+   at k = 8 on v14 over the 1M uniform refs and on v13 over the clustered
+   ones (10K queries), whose sorted f64 distances on 512 rows must equal a
+   float64 top 8 on the card (rtol 1e-5); and save, load and query again
+   for v10-v14, answers equal;
+10. one JSON line of per-kernel results, each row with the shape its ms,
    plain_ms and bound come from (the scan also on the skewed batch,
    ``*_skewed``; the ladder's kernels and v4 also at 1024 x 1M k=16,
    ``*_k16``): each kernel's main path (for the wgmma kernel's row the
@@ -114,6 +131,9 @@ W = 64
 K = 3
 GATE_ROWS = 512
 K16 = 16
+W_TREES = 8  # in-distribution 10K batches of the v13 serving drain
+WIDE_BOX = (-1e4, 1e4)
+K_NN = 8
 
 
 def _log(msg: str) -> None:
@@ -210,6 +230,29 @@ def _oracle_f64_card(queries, refs, dev):
         idx.append(i.cpu().numpy())
         dmin.append(((q - r[i]) ** 2).sum(dim=1).cpu().numpy())
     return np.concatenate(idx), np.concatenate(dmin)
+
+
+def _topk_f64_card(queries, refs, kk, dev):
+    """The kk smallest float64 squared distances of each query, ascending,
+    by a chunked direct-form float64 scan on the card, independent of every
+    kernel of the port."""
+    r = torch.as_tensor(refs, device=dev).double()
+    out = []
+    for lo in range(0, len(queries), 16):
+        q = torch.as_tensor(queries[lo:lo + 16], device=dev).double()
+        d = ((q[:, None, :] - r[None]) ** 2).sum(dim=2)
+        out.append(torch.topk(d, kk, dim=1, largest=False).values.cpu().numpy())
+    return np.concatenate(out)
+
+
+def _topk_gate(name, idx, queries, refs, dev):
+    """The sorted f64 distances of the returned ids against the f64 top k
+    (rtol 1e-5, as tests/test_api.py holds the JAX package)."""
+    d = ((queries[:, None, :].astype(np.float64) - refs[idx].astype(np.float64)) ** 2).sum(-1)
+    np.testing.assert_allclose(np.sort(d, axis=1), _topk_f64_card(queries, refs, idx.shape[1], dev),
+                               rtol=1e-5, atol=1e-9)
+    _log(f"[gate] {name}: sorted f64 distances of {idx.shape[1]} neighbours equal the f64 "
+         f"top {idx.shape[1]} on {len(idx)} queries")
 
 
 def _gate(name, idx, queries, refs, oracle_dmin=None) -> float:
@@ -356,6 +399,7 @@ def main() -> int:
     ood = (rng.random((N_QUERIES, K), dtype=np.float32) * 2.0 - 0.5).astype(np.float32)
     queue = batches + [ood]
 
+    cell = engine._built
     _cuda.reset_launches()
     t0 = time.perf_counter()
     served = engine.query_many(queue)
@@ -366,16 +410,15 @@ def main() -> int:
         if launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched by the main path")
 
-    cell = engine._built
     flags = [cell.query_with_flags(b)[1] for b in queue]
     n_cert = int(sum(int(f.sum()) for f in flags))
     n_rows = len(queue) * N_QUERIES
     _log(f"[main] build {build_ms:.1f} ms (D={cell.D}, R_max={cell.R_max}); "
          f"query_many over {len(queue)} batches {queue_s * 1e3 / len(queue):.3f} ms/batch "
-         f"(first call); certified {n_cert}/{n_rows} "
+         f"(first call, with any promotion's build); certified {n_cert}/{n_rows} "
          f"({int(sum(int(f.sum()) for f in flags[:W]))}/{W * N_QUERIES} uniform, "
-         f"{int(flags[W].sum())}/{N_QUERIES} out-of-box); "
-         f"promotions deferred {engine.promotions_deferred}")
+         f"{int(flags[W].sum())}/{N_QUERIES} out-of-box); the engine is now "
+         f"{type(engine._built).__name__} (the coverage hysteresis read the out-of-box batch)")
 
     sub = np.random.default_rng(0).choice(N_QUERIES, GATE_ROWS, replace=False)
     _gate("batch 0 (512 subsample)", served[0][sub], queries[sub], refs)
@@ -392,9 +435,14 @@ def main() -> int:
         if s.shape != (qb.shape[0],) or s.min() < 0 or s.max() >= N_REFS:
             raise AssertionError("query_many returned out-of-range indices")
 
+    # The steady uniform drain, on the supercell index: a fresh engine, since
+    # the out-of-box batch may have promoted this one.
+    engine = NNEngine("cells", device="cuda").build(refs)
     t0 = time.perf_counter()
     engine.query_many(batches)
     drain_ms = (time.perf_counter() - t0) * 1e3 / W
+    if not isinstance(engine._built, CellListEngine):
+        raise AssertionError("the uniform drain left the supercell index")
     denses, _, _ = cell.stage_queue_ragged(batches)
     dq = [torch.as_tensor(d, device=dev) for d in denses]
     scan_ms, _ = cuda_ms(cell.query_queue_staged, dq, iters=5)
@@ -495,6 +543,7 @@ def main() -> int:
 
     # 6. The ladder through the public entry point.
     ladder_launches = {name: 0 for name, *_ in LADDER_KERNELS}
+    oracles = {}  # k -> (the ladder's 512 rows, their f64 min distances)
     for k in (3, 16):
         qk, rk = (queries[:1024], refs) if k == 3 else (q16_1m, r16_1m)
         sub_k = np.random.default_rng(4).choice(1024, GATE_ROWS, replace=False)
@@ -527,8 +576,7 @@ def main() -> int:
             if not np.array_equal(answers[version], answers[4]):
                 bad = int((answers[version] != answers[4]).sum())
                 raise AssertionError(f"k={k}: v{version} differs from v4 in {bad} indices")
-        if k == 16:
-            oracle16 = (sub_k, dmin)
+        oracles[k] = (sub_k, dmin)
         _log(f"[ladder] k={k}: v1, v3, v4, v5, v6, v7, v9 index arrays equal; "
              f"v0 shares {int((answers[0] == answers[4]).sum())}/1024 with v4, "
              f"v2 shares {int((answers[2] == answers[4]).sum())}/1024")
@@ -698,7 +746,7 @@ def main() -> int:
     results["expansion_phase1_wgmma"].insert(0, (err_main, kern_ms_main, plain_ms_main))
     results["expansion_phase1"].append((err_mma, mma_ms_main, plain_ms_main))
     del drain_phase1, args_main, args_mma, kern_main, qc_main, mma_main, plain_main
-    sub16, dmin16 = oracle16
+    sub16, dmin16 = oracles[16]
     _gate("v9 batch 0 (the ladder's 512 rows)", served16[0][sub16], q16_1m[sub16], r16_1m,
           dmin16)
     _, _, cert = mx.query_min_idx_cert(allq)
@@ -734,7 +782,10 @@ def main() -> int:
             raise AssertionError("v9 query_many returned out-of-range indices")
     del engine, mx, mx16
 
-    # 9. Results, each kernel at its main path's shape: one 10K batch for
+    # 9. The tree family, k-NN and persistence.
+    tree_launches = _trees_phase(dev, queries, refs, oracles[3])
+
+    # 10. Results, each kernel at its main path's shape: one 10K batch for
     # the scan, the 8-query fallback bucket for the fused kernel, 1024 x 1M
     # k=3 for the ladder's kernels, the drain's 640K x 1M k=16 launch for
     # the wgmma kernel's row, and for phase 1 at the padded and sliced kp
@@ -811,11 +862,171 @@ def main() -> int:
                 shape_k24="1024 x 1M k=24 (blocks padded to 32 dims)", ms_k24=p1b_k24[1],
                 plain_ms_k24=p1b_k24[2], bound_ms_k24=phase1_bound(1024, N_REFS, 24)[0],
                 yardstick_ms_k24=y24[1])
+    # The launches the tree family's paths added (phase 9) beside v4's.
+    kernels[1]["launches_trees"] = tree_launches
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0
+
+
+def _trees_phase(dev, queries, refs, oracle3) -> int:
+    """Phase 9 (module docstring): v10-v13 one-shot, the v13 drain, the KD
+    chunk scan, the v14 promotion, k-NN and persistence. Returns the
+    fused_argmin launches of its paths."""
+    from nns_tpu_torch import NNEngine, nns
+    from nns_tpu_torch.data import make_dataset
+    from nns_tpu_torch.kernels import _cuda
+    from nns_tpu_torch.kernels.cell_list import CellListEngine
+    from nns_tpu_torch.trees.beam import BeamIndex, kd_beam_index, octree_beam_index
+    from nns_tpu_torch.trees.kdtree import KDTree
+    from nns_tpu_torch.trees.octree import Octree
+
+    t_phase = time.perf_counter()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    sub3, dmin3 = oracle3
+    q1k = queries[:1024]
+    engines = {}
+    for version in (10, 11, 12, 13):
+        idx, ms = timed(lambda: nns(q1k, refs, version=version, device="cuda"))
+        _gate(f"nns(version={version}) 1024 x 1M (512 subsample)", idx[sub3], q1k[sub3], refs,
+              dmin3)
+        eng, build_ms = timed(lambda: NNEngine(version, device="cuda").build(refs))
+        idx2, query_ms = timed(lambda: eng.query(q1k))
+        if version in (10, 12) and not np.array_equal(idx2, idx):
+            raise AssertionError(f"v{version}: the engine differs from nns()")
+        _gate(f"NNEngine({version}) 1024 x 1M (512 subsample)", idx2[sub3], q1k[sub3], refs, dmin3)
+        engines[version] = eng
+        _log(f"[trees] v{version} 1024 x 1M k=3: nns one-shot {ms:.1f} ms; engine build "
+             f"{build_ms:.1f} ms, query {query_ms:.1f} ms")
+    kd, oc = engines[11]._built, engines[13]._built
+    _, kd_front_ms = timed(lambda: kd_beam_index(kd, device=dev))
+    _, oc_front_ms = timed(lambda: octree_beam_index(oc, device=dev))
+    _log(f"[trees] 1M uniform frontiers: KD {kd_front_ms:.1f} ms "
+         f"(F={kd._beam.lo.shape[0]}, cap={kd._beam.pts.shape[1]}), octree {oc_front_ms:.1f} ms "
+         f"(F={oc._beam.lo.shape[0]}, cap={oc._beam.pts.shape[1]})")
+
+    # The v13 serving drain over 1M clustered refs.
+    _, refs_c = make_dataset(3, 1, N_REFS, SEED, clustered=True)
+    rng = np.random.default_rng(SEED + 7)
+    near = [(refs_c[rng.integers(0, N_REFS, N_QUERIES)]
+             + rng.normal(0, 0.01, (N_QUERIES, 3))).astype(np.float32) for _ in range(W_TREES)]
+    wide = make_dataset(3, N_QUERIES, 1, SEED + 8, query_box=WIDE_BOX)[0]
+    eng13, build13_ms = timed(lambda: NNEngine(13, device="cuda").build(refs_c))
+    t0 = time.perf_counter()
+    Octree.build(refs_c)
+    oc_build_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    KDTree.build(refs_c)
+    kd_build_ms = (time.perf_counter() - t0) * 1e3
+    beam13 = eng13._built._beam
+    _, oc_front_c_ms = timed(lambda: octree_beam_index(eng13._built, device=dev))
+    _log(f"[trees] 1M clustered: NNEngine(13).build {build13_ms:.1f} ms (octree build "
+         f"{oc_build_ms:.1f} ms alone, its frontier {oc_front_c_ms:.1f} ms, F="
+         f"{beam13.lo.shape[0]}, cap={beam13.pts.shape[1]}; KD build {kd_build_ms:.1f} ms)")
+    _cuda.reset_launches()
+    served, first_ms = timed(lambda: eng13.query_many(near))
+    drain_launches = _cuda.LAUNCHES["fused_argmin"]
+    _, drain_ms = timed(lambda: eng13.query_many(near))
+    _cuda.reset_launches()
+    served_wide = eng13.query_many([wide])[0]
+    wide_launches = _cuda.LAUNCHES["fused_argmin"]
+    if wide_launches < 1:
+        raise AssertionError("the v13 wide batch did not launch fused_argmin")
+    covs = [beam13.query_with_coverage(b)[1] for b in (*near, wide)]
+    base_ok = [beam13.query_with_flags(b)[1] for b in (*near, wide)]
+    _log(f"[trees] v13 query_many over {W_TREES} 10K batches: {first_ms / W_TREES:.3f} ms/batch "
+         f"(first call), {drain_ms / W_TREES:.3f} (second call); coverage after the 4x retry "
+         f"{np.mean(covs[:-1]):.6f} (base pass {np.mean([o.mean() for o in base_ok[:-1]]):.6f}), "
+         f"fused_argmin launches {drain_launches}; wide batch {WIDE_BOX}: coverage "
+         f"{covs[-1]:.6f} (base pass {base_ok[-1].mean():.6f}), fused_argmin launches "
+         f"{wide_launches}")
+    sub = np.random.default_rng(6).choice(N_QUERIES, GATE_ROWS, replace=False)
+    _gate("v13 batch 0 (512 subsample)", served[0][sub], near[0][sub], refs_c)
+    _gate("v13 wide batch (512 subsample)", served_wide[sub], wide[sub], refs_c)
+    uncert = []
+    for b, s_ in zip((*near, wide), (*served, served_wide)):
+        _, ok = beam13.query_with_flags(b)
+        bad = np.flatnonzero(~ok)
+        ri, ro = beam13.query_with_flags(b[bad], 32)
+        uncert.append((b[bad][~ro], s_[bad][~ro]))
+    uq = np.concatenate([u[0] for u in uncert])
+    ui = np.concatenate([u[1] for u in uncert])
+    if len(uq) == 0:
+        raise AssertionError("no v13 row went to the exact fallback")
+    _gate(f"v13 uncertified rows (all {len(uq)}, float64 scan on the card)", ui, uq, refs_c,
+          _oracle_f64_card(uq, refs_c, dev)[1])
+
+    # The KD beam index's chunk scan.
+    kd_c = KDTree.build(refs_c).device_index(dev)
+    _cuda.reset_launches()
+    (scan_idx, scan_cov), scan_ms = timed(lambda: kd_c.query_with_coverage(near[0], budget=128))
+    scan_launches = _cuda.LAUNCHES["fused_argmin"]
+    if scan_launches < 1:
+        raise AssertionError("the chunk scan did not launch fused_argmin")
+    st = kd_c.stage_queries(near[0])
+    _, scan_ok = kd_c.query_staged_scan_with_flags(st, 128)
+    _, scan_ms2 = timed(lambda: kd_c.query_staged_with_coverage(st, budget=128))
+    _log(f"[trees] KD chunk scan (budget 128) on one 10K batch: {scan_ms:.3f} ms (first), "
+         f"{scan_ms2:.3f} ms staged; scan coverage {scan_ok.mean():.6f}, after the retry "
+         f"{scan_cov:.6f}; fused_argmin launches {scan_launches}")
+    _gate("KD chunk scan (512 subsample)", scan_idx[sub], near[0][sub], refs_c)
+    del kd_c
+
+    # v14 over the clustered refs, fed uniform batches until it promotes.
+    eng14 = NNEngine("cells", device="cuda").build(refs_c)
+    if not isinstance(eng14._built, CellListEngine):
+        raise AssertionError(f"NNEngine('cells') built {type(eng14._built).__name__}")
+    _cuda.reset_launches()
+    for i in range(4):
+        qb = rng.random((N_QUERIES, 3), dtype=np.float32)
+        before = type(eng14._built).__name__
+        idx, ms = timed(lambda: eng14.query(qb))
+        _gate(f"v14 uniform batch {i} on {before} (512 subsample)", idx[sub], qb[sub], refs_c)
+        _log(f"[trees] v14 batch {i}: {ms:.1f} ms on {before}, now {type(eng14._built).__name__}")
+        if isinstance(eng14._built, BeamIndex):
+            break
+    else:
+        raise AssertionError("v14 did not promote to the beam index")
+    promo_launches = _cuda.LAUNCHES["fused_argmin"]
+    qb = rng.random((N_QUERIES, 3), dtype=np.float32)
+    idx, ms = timed(lambda: eng14.query(qb))
+    _gate("v14 after the promotion (512 subsample)", idx[sub], qb[sub], refs_c)
+    _log(f"[trees] v14 on the promoted BeamIndex: {ms:.1f} ms per 10K batch; fused_argmin "
+         f"launches up to the promotion {promo_launches}")
+    del eng14
+
+    # k-NN at k = 8.
+    eng_cells = NNEngine("cells", device="cuda").build(refs)
+    for name, eng, qk, rk in (("v14 1M uniform", eng_cells, queries, refs),
+                              ("v13 1M clustered", eng13, near[0], refs_c)):
+        eng.query_topk(qk[:1024], K_NN)  # warm
+        (d2, idx), ms = timed(lambda: eng.query_topk(qk, K_NN))
+        if idx.shape != (N_QUERIES, K_NN) or not np.isfinite(d2).all():
+            raise AssertionError(f"{name} query_topk returned {idx.shape}")
+        _log(f"[trees] {name} query_topk k={K_NN}: {ms:.1f} ms per 10K queries")
+        _topk_gate(f"{name} query_topk", idx[sub], qk[sub], rk, dev)
+
+    # Save, load and query again.
+    engines[14] = eng_cells
+    with tempfile.TemporaryDirectory() as tmp:
+        for version, eng in engines.items():
+            path = os.path.join(tmp, f"v{version}.npz")
+            _, save_ms = timed(lambda: eng.save(path))
+            loaded, load_ms = timed(lambda: NNEngine.load(path, version, device="cuda"))
+            if not np.array_equal(loaded.query(q1k), eng.query(q1k)):
+                raise AssertionError(f"v{version}: answers differ after save/load")
+            _log(f"[trees] v{version} save {save_ms:.0f} ms ({os.path.getsize(path) / 2**20:.1f} "
+                 f"MiB), load {load_ms:.0f} ms: answers equal")
+    _log(f"[trees] phase {time.perf_counter() - t_phase:.1f} s")
+    return drain_launches + wide_launches + scan_launches + promo_launches
 
 
 if __name__ == "__main__":

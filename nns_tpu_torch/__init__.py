@@ -2,14 +2,16 @@
 search), for NVIDIA Hopper (H100, sm_90a).
 
 The JAX package ``nns_tpu`` stays the reference; this package imports torch
-and numpy and never jax or nns_tpu. Ported so far: the supercell serving
-path (v14, ``NNEngine("cells")`` build / query / query_many), the v4 fused
-brute force that re-answers the rows the supercell certificate cannot
-prove, and the rest of the brute-force ladder, v0-v3 and v5-v7. Their six
-kernels are hand-written CUDA C++ in ``csrc/``, built with nvcc at first
-use. Every kernel wrapper dispatches on the device of its
-tensors: CPU tensors run the plain PyTorch version, CUDA tensors launch the
-kernel or raise.
+and numpy and never jax or nns_tpu. Ported: every version but v8 (refs
+sharded over several devices) — the supercell serving path (v14,
+``NNEngine("cells")`` with its promotion to the beam index), the v4 fused
+brute force that re-answers every uncertified row, the rest of the
+brute-force ladder (v0-v3, v5-v7), the v9 split-bf16 expansion engine, and
+the tree family (v10-v13, ``trees/``) — plus exact k-NN (``query_topk``)
+and index persistence (``save``/``load``). The seven kernels are
+hand-written CUDA C++ in ``csrc/``, built with nvcc at first use. Every
+kernel wrapper dispatches on the device of its tensors: CPU tensors run
+the plain PyTorch version, CUDA tensors launch the kernel or raise.
 
 Exactness contract: recall@1 = 1.0 — every version returns a true nearest
 neighbor of the float32 inputs (verified against a float64 oracle).

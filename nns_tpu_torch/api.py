@@ -2,12 +2,17 @@
 ``nns_tpu/api.py``.
 
 Every version is a callable ``fn(queries[m,k] f32, refs[n,k] f32) ->
-idx[m] i32`` plus a build/query split (``NNEngine``). The registry names all
-15 versions of the JAX package; the port runs the brute-force ladder v0-v7,
-v9 (split-bf16 expansion) and v14 (supercell index) so far, and the others
-raise NotImplementedError naming the ROADMAP slice that ports them. Everything runs on an explicit
-``device`` (default ``"cuda"``); nothing here probes for a GPU. v0 is the
-host scan and never touches ``device``.
+idx[m] i32`` plus a build/query split (``NNEngine``), which tree versions
+use to report build time apart from query time. The registry names all 15
+versions of the JAX package; the port runs every one but v8 (refs sharded
+over several devices), which raises NotImplementedError naming the ROADMAP
+slice that ports it. Everything runs on an explicit ``device`` (default
+``"cuda"``); nothing here probes for a GPU. v0, v10 and v12 query on the
+host and never touch ``device``.
+
+The capability-fallback contract of the JAX package holds: the KD-tree
+versions (v10/v11) fall back to the linear scan for k > 16, the octree
+versions (v12/v13) for k != 3 (v11 and v13 on the fused device kernel).
 """
 
 from __future__ import annotations
@@ -95,6 +100,30 @@ def _v9(q, r, cfg, device):
     return _as_idx(nns_mxu_expansion(q, r, device=device))
 
 
+def _v10(q, r, cfg, device):
+    from nns_tpu_torch.trees.kdtree import nns_kdtree_host
+
+    return _as_idx(nns_kdtree_host(q, r, max_k=cfg.kd_max_k))
+
+
+def _v11(q, r, cfg, device):
+    from nns_tpu_torch.trees.kdtree_device import nns_kdtree_device
+
+    return _as_idx(nns_kdtree_device(q, r, max_k=cfg.kd_max_k, device=device))
+
+
+def _v12(q, r, cfg, device):
+    from nns_tpu_torch.trees.octree import nns_octree_host
+
+    return _as_idx(nns_octree_host(q, r, max_depth=cfg.octree_max_depth))
+
+
+def _v13(q, r, cfg, device):
+    from nns_tpu_torch.trees.octree_device import nns_octree_device
+
+    return _as_idx(nns_octree_device(q, r, max_depth=cfg.octree_max_depth, device=device))
+
+
 def _v14(q, r, cfg, device):
     from nns_tpu_torch.kernels.cell_list import nns_cell_list
 
@@ -134,10 +163,10 @@ _SPECS = [
     VersionSpec(7, "two_level", "bruteforce", "per-tile partial winners + second reduce (v7, multi-block analog)", fn=_v7),
     VersionSpec(8, "sharded", "sharded", "refs sharded over devices, argmin merge (v8, 4-GPU analog)", roadmap_slice=8),
     VersionSpec(9, "mxu_expansion", "bruteforce", "split-bf16 expansion + band certificate + exact refine (v9)", fn=_v9),
-    VersionSpec(10, "kdtree_host", "tree", "KD-tree host build + host query (v10)", roadmap_slice=7),
-    VersionSpec(11, "kdtree_device", "tree", "KD-tree host build + beam frontier device query (v11)", roadmap_slice=7),
-    VersionSpec(12, "octree_host", "tree", "octree host build + host query (v12)", roadmap_slice=7),
-    VersionSpec(13, "octree_device", "tree", "octree host build + beam frontier device query (v13)", roadmap_slice=7),
+    VersionSpec(10, "kdtree_host", "tree", "KD-tree host build + host query (v10)", fn=_v10),
+    VersionSpec(11, "kdtree_device", "tree", "KD-tree host build + beam frontier device query (v11)", fn=_v11),
+    VersionSpec(12, "octree_host", "tree", "octree host build + host query (v12)", fn=_v12),
+    VersionSpec(13, "octree_device", "tree", "octree host build + beam frontier device query (v13)", fn=_v13),
     VersionSpec(14, "cells", "tree", "supercell dense spatial index, batched CUDA scan + exactness certificate (beyond-ladder flagship for 3-D)", fn=_v14),
 ]
 
@@ -187,10 +216,13 @@ def nns(
 
 
 class NNEngine:
-    """Build/query split: build stages the index (v14), the split-bf16
-    expansion engine (v9, k >= 8), the dim-major refs (v4), or the refs
-    themselves (v1-v3, v5-v7, v9 at k < 8) on ``device`` once; query /
-    query_many reuse them. v0 stages nothing: it scans on the host."""
+    """Build/query split: build stages the index (v14, and the beam frontier
+    it may promote to), the tree (v10-v13, v11 and v13 with their beam
+    frontier on ``device``), the split-bf16 expansion engine (v9, k >= 8),
+    the dim-major refs (v4, and v11/v13 past their trees' k), or the refs
+    themselves (v1-v3, v5-v7, v9 at k < 8) once; query / query_many reuse
+    them. v0 stages nothing: it scans on the host. Tree and index engines
+    also ``save`` and ``load``, in the JAX package's file formats."""
 
     def __init__(self, version: int | str = "auto", config: EngineConfig | None = None,
                  device="cuda"):
@@ -202,9 +234,9 @@ class NNEngine:
         self._refs: np.ndarray | None = None
         self._cov_miss = 0
         self._cov_seen = 0
-        # Times the coverage hysteresis (v14) or the high-k probe (v9) asked
-        # for a beam index, which is not ported yet: the engine keeps
-        # serving exactly instead.
+        # Times v9's high-k probe (nns_tpu/api.py:342-372) asked for a KD
+        # beam index, which the port does not take up yet: the engine keeps
+        # serving on the expansion engine instead.
         self.promotions_deferred = 0
 
     def _note_coverage(self, cov: float, m: int, good_cov: float,
@@ -226,10 +258,27 @@ class NNEngine:
             return True
         return False
 
+    def _promote_to_beam(self) -> None:
+        """v14's workload adaptation, step 1: the octree beam index, whose
+        buckets follow the data's density (nns_tpu/api.py:283-288)."""
+        from nns_tpu_torch.trees.octree import Octree
+
+        self._built = Octree.build(
+            self._refs, max_depth=self.config.octree_max_depth
+        ).device_index(self.device)
+
+    def _fused_engine(self):
+        """The v4 engine over the refs, staged once on ``device``."""
+        from nns_tpu_torch.kernels.fused import FusedBruteForce
+
+        return FusedBruteForce(self._refs, tile_n=self.config.tile_n, device=self.device)
+
     def build(self, refs) -> "NNEngine":
         from nns_tpu_torch.kernels.cell_list import CellListEngine
         from nns_tpu_torch.kernels.fused import FusedBruteForce, as_f32
         from nns_tpu_torch.kernels.mxu_expansion import MXUExpansion
+        from nns_tpu_torch.trees.kdtree import KDTree
+        from nns_tpu_torch.trees.octree import Octree
 
         refs = np.atleast_2d(np.asarray(refs, dtype=np.float32))
         _check_finite(refs, "refs")
@@ -248,24 +297,37 @@ class NNEngine:
             else:
                 self.spec = get_version(9 if refs.shape[1] >= 8 else 4)
         self.spec.require_ported()
-        if self.spec.num == 14 and refs.shape[1] == 3 and refs.shape[0] >= 4096:
+        num, k, cfg = self.spec.num, refs.shape[1], self.config
+        if num == 14 and k == 3 and refs.shape[0] >= 4096:
             try:
                 self._built = CellListEngine(refs, device=self.device)
             except ValueError:
                 # Too clustered for the cell index: degrade ONCE at build
                 # time to the staged fused engine.
-                self._built = FusedBruteForce(refs, tile_n=self.config.tile_n, device=self.device)
-        elif self.spec.num in (4, 14):
-            self._built = FusedBruteForce(refs, tile_n=self.config.tile_n, device=self.device)
-        elif self.spec.num == 9 and refs.shape[1] >= 8:
+                self._built = self._fused_engine()
+        elif (num in (4, 14) or (num == 11 and 6 < k <= cfg.kd_max_k)
+              or (num == 13 and k != cfg.octree_k)):
+            # v11 past 6 dims and v13 off the octree's k answer by the fused
+            # device scan, staged once here (nns_tpu/api.py:517-539).
+            self._built = self._fused_engine()
+        elif num in (10, 11) and k <= cfg.kd_max_k:
+            self._built = KDTree.build(refs)
+            if num == 11:
+                self._built.device_index(self.device)  # stage the beam frontier now
+        elif num in (12, 13) and k == cfg.octree_k:
+            self._built = Octree.build(refs, max_depth=cfg.octree_max_depth)
+            if num == 13:
+                self._built.device_index(self.device)
+        elif num == 9 and k >= 8:
             # Sets past the staging bound (n >= 2^25) degrade once, at build
             # time, to the staged fused engine.
             try:
                 self._built = MXUExpansion(refs, device=self.device)
             except ValueError:
                 self._built = FusedBruteForce(refs, device=self.device)
-        elif self.spec.num == 0:
-            self._built = None  # the host scan reads the numpy refs
+        elif num in (0, 10, 11, 12):
+            # v0, and the trees past their k: host scans read the numpy refs.
+            self._built = None
         else:
             # v1-v3, v5-v7 and v9 at k < 8: the refs go to the device once
             # (JAX's device_put, nns_tpu/api.py:561-565); each query runs the
@@ -285,17 +347,18 @@ class NNEngine:
         _check_finite(queries, "queries")
         return queries
 
-    def _note_cell_coverage(self, cov: float, m: int) -> None:
-        """Feed the promotion hysteresis; a promotion it asks for is
-        deferred (the beam index is not ported yet)."""
-        if self._note_coverage(cov, m, good_cov=0.95, miss_frac=0.3):
-            self.promotions_deferred += 1
+    def _note_cell_coverage(self, cov: float, m: int) -> bool:
+        """Feed v14's promotion hysteresis: True once the fixed-halo
+        certificate persistently misses the query distribution (e.g.
+        sparse-region queries over clustered refs). A single stray outlier
+        batch never triggers the octree build, a synchronous stall."""
+        return self._note_coverage(cov, m, good_cov=0.95, miss_frac=0.3)
 
     def _note_high_k(self, m: int) -> None:
         """Where the JAX engine runs its one-time high-k probe for a KD beam
         index (nns_tpu/api.py:342-372: after hk_probe_after queries over at
         least hk_promote_n_min refs of k <= kd_max_k), count a deferred
-        promotion: the beam index is not ported yet."""
+        promotion: that ladder is not ported yet."""
         cfg = self.config
         n, k = self._refs.shape
         if self._hk_probed or n < cfg.hk_promote_n_min or k > cfg.kd_max_k:
@@ -309,40 +372,118 @@ class NNEngine:
         from nns_tpu_torch.kernels.cell_list import CellListEngine
         from nns_tpu_torch.kernels.fused import FusedBruteForce
         from nns_tpu_torch.kernels.mxu_expansion import MXUExpansion
+        from nns_tpu_torch.trees.beam import BeamIndex
+        from nns_tpu_torch.trees.kdtree import KDTree
+        from nns_tpu_torch.trees.octree import Octree
 
         queries = self._check_queries(queries)
-        if isinstance(self._built, CellListEngine):
-            idx, cov = self._built.query_with_coverage(queries)
-            self._note_cell_coverage(cov, queries.shape[0])
+        built, m = self._built, queries.shape[0]
+        if isinstance(built, CellListEngine):
+            idx, cov = built.query_with_coverage(queries)
+            if self._note_cell_coverage(cov, m):
+                self._promote_to_beam()
             return _as_idx(idx)
-        if isinstance(self._built, (FusedBruteForce, MXUExpansion)):
-            idx = _as_idx(self._built.query(queries))
+        if isinstance(built, BeamIndex):
+            idx, cov = built.query_with_coverage(queries)
+            # Step 2: if even the beam index's coverage stays poor, its
+            # passes are pure overhead on the exact scan — demote to the
+            # staged fused engine (nns_tpu/api.py:605-619).
+            if self._note_coverage(cov, m, good_cov=0.5, miss_frac=0.7):
+                self._built = self._fused_engine()
+            return _as_idx(idx)
+        if isinstance(built, (KDTree, Octree)):
+            if self.spec.num in (10, 12):
+                return _as_idx(built.query_host(queries))
+            return _as_idx(built.query_device(queries, self.device))
+        if isinstance(built, (FusedBruteForce, MXUExpansion)):
+            idx = _as_idx(built.query(queries))
             if self.spec.num == 9:
-                self._note_high_k(queries.shape[0])
+                self._note_high_k(m)
             return idx
         # The version's own function (nns_tpu/api.py:637), on the staged refs.
-        refs = self._refs if self._built is None else self._built
+        refs = self._refs if built is None else built
         return self.spec(queries, refs, self.config, self.device)
 
     def query_many(self, batches) -> list[np.ndarray]:
         """Exact answers for several query batches: the supercell engine
         drains the whole queue with one scan launch per batch and one
-        device-to-host copy (CellListEngine.query_queue); the fused engine
-        answers the concatenated queue in one call, and so does the v9
-        expansion engine; the other versions answer batch by batch
-        (nns_tpu/api.py:683-692)."""
+        device-to-host copy (CellListEngine.query_queue) and feeds the
+        promotion hysteresis after the drain; the beam, fused and v9
+        expansion engines answer the concatenated queue in one call; the
+        other versions answer batch by batch (nns_tpu/api.py:639-692)."""
         from nns_tpu_torch.kernels.cell_list import CellListEngine
         from nns_tpu_torch.kernels.fused import FusedBruteForce
         from nns_tpu_torch.kernels.mxu_expansion import MXUExpansion
+        from nns_tpu_torch.trees.beam import BeamIndex
 
         batches = [self._check_queries(b) for b in batches]
         if isinstance(self._built, CellListEngine):
             results, covs = self._built.query_queue(batches, return_coverage=True)
+            # The answers of this queue are already exact; the next queue
+            # gets the beam index.
+            promote = False
             for qb, cov in zip(batches, covs):
-                self._note_cell_coverage(cov, qb.shape[0])
+                promote |= self._note_cell_coverage(cov, qb.shape[0])
+            if promote:
+                self._promote_to_beam()
             return [_as_idx(i) for i in results]
-        if not isinstance(self._built, (FusedBruteForce, MXUExpansion)) or not batches:
+        if (not isinstance(self._built, (BeamIndex, FusedBruteForce, MXUExpansion))
+                or not batches):
             return [self.query(b) for b in batches]
         idx = self.query(np.concatenate(batches, axis=0))
         offs = np.cumsum([b.shape[0] for b in batches])[:-1]
         return [_as_idx(part) for part in np.split(idx, offs)]
+
+    def query_topk(self, queries, k_nn: int = 8):
+        """Exact k-NN: (dist2[m, k], idx[m, k]) ascending, the lower index
+        first among equal distances. The built supercell or beam index
+        answers (certificate-gated); every other engine takes the exact
+        chunked top-k scan on ``device``."""
+        from nns_tpu_torch.kernels.cell_list import CellListEngine
+        from nns_tpu_torch.kernels.topk import nns_topk
+        from nns_tpu_torch.trees.beam import BeamIndex
+
+        queries = self._check_queries(queries)
+        if isinstance(self._built, (CellListEngine, BeamIndex)):
+            return self._built.query_topk(queries, k_nn)
+        return nns_topk(queries, self._refs, k_nn, device=self.device)
+
+    def save(self, path: str) -> None:
+        """The built tree or index (v10-v14), in the JAX package's npz
+        format; brute-force engines (v9 included, as in the JAX package)
+        are refused."""
+        if self.spec is None or self.spec.family != "tree" or self._built is None:
+            raise ValueError("save() supports built tree/index engines only")
+        if not hasattr(self._built, "save"):
+            raise ValueError(
+                f"the built {type(self._built).__name__} engine is not serializable"
+            )
+        self._built.save(path)
+
+    @classmethod
+    def load(cls, path: str, version: int | str, config: EngineConfig | None = None,
+             device="cuda") -> "NNEngine":
+        """An engine over a file that ``save`` (of either package) wrote."""
+        from nns_tpu_torch.kernels.cell_list import CellListEngine
+        from nns_tpu_torch.trees.beam import BeamIndex
+        from nns_tpu_torch.trees.kdtree import KDTree
+        from nns_tpu_torch.trees.octree import Octree
+
+        eng = cls(version, config, device)
+        if eng.spec is None:
+            raise ValueError("load() needs an explicit version, not 'auto'")
+        num = eng.spec.num
+        if num in (10, 11):
+            eng._built = KDTree.load(path)
+        elif num in (12, 13):
+            eng._built = Octree.load(path)
+        elif num == 14:
+            # Two on-disk forms: the supercell halo tensor, or the beam
+            # frontier a clustered workload promoted to.
+            with np.load(path) as z:
+                is_beam = "beam_pts" in z
+            eng._built = (BeamIndex if is_beam else CellListEngine).load(path, device=device)
+        else:
+            raise ValueError("load() supports tree/index versions (10-14) only")
+        eng._refs = eng._built.refs
+        return eng

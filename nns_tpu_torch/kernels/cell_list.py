@@ -29,11 +29,15 @@ import torch
 from nns_tpu_torch.kernels import _cuda
 from nns_tpu_torch.kernels.fused import FusedBruteForce, as_f32, fused_fallback
 from nns_tpu_torch.kernels.layouts import PAD_SENTINEL, pow2_at_least as _pow2_at_least
+from nns_tpu_torch.kernels.topk import nns_topk, smallest
 
 # Queries per supercell the CUDA kernel takes (kMaxQM in csrc/cell_scan.cu).
 _KERNEL_MAX_QM = 2048
 # Bound on the plain version's (groups, QM, R_max) f32 distance block.
 _PLAIN_BLOCK = 1 << 26
+# Bound on the k-NN path's (queries, R_max) distance block: 16M f32, as the
+# JAX package bounds its per-group block.
+_TOPK_BLOCK = 16 << 20
 
 
 def cell_scan_plain(dense_q: torch.Tensor, halo_dm: torch.Tensor,
@@ -109,6 +113,36 @@ def cell_scan(dense_q: torch.Tensor, halo_dm: torch.Tensor,
         raise ValueError(f"QM={qm} outside the kernel's 1..{_KERNEL_MAX_QM}")
     return _cell_scan_cuda(dense_q.contiguous(), halo_dm.contiguous(),
                            halo_ids.contiguous(), halo2)
+
+
+def _device_query_topk(q_sorted: torch.Tensor, sid: torch.Tensor, halo_dm: torch.Tensor,
+                       halo_ids: torch.Tensor, halo2: float, k_nn: int):
+    """Exact k-NN of each staged query over its supercell's halo set (torch
+    ops): (d2 (m, k_nn) f32 ascending, ids (m, k_nn) i32, certified (m,)
+    bool). Distances accumulate ``d2 = d2 + diff * diff`` over x, y, z;
+    among equal distances the lower halo slot comes first, as the JAX
+    package's ``lax.top_k`` orders them. The certificate holds iff the k-th
+    distance is within halo (no unscanned point can then belong to the true
+    top-k, modulo exact ties); fewer halo slots than k_nn certify nothing."""
+    m = q_sorted.shape[0]
+    r_max = halo_dm.shape[2]
+    kk = min(k_nn, r_max)
+    dev = q_sorted.device
+    d_out = torch.full((m, k_nn), float("inf"), dtype=torch.float32, device=dev)
+    i_out = torch.zeros((m, k_nn), dtype=torch.int32, device=dev)
+    rows = max(1, _TOPK_BLOCK // r_max)
+    for lo in range(0, m, rows):
+        g = sid[lo:lo + rows]
+        h = halo_dm[g]                                   # (rows, 3, R_max)
+        d2 = torch.zeros((g.shape[0], r_max), dtype=torch.float32, device=dev)
+        for d in range(3):
+            diff = q_sorted[lo:lo + rows, d:d + 1] - h[:, d, :]
+            d2 = d2 + diff * diff
+        dist, slot = smallest(d2, kk)
+        d_out[lo:lo + rows, :kk] = dist
+        i_out[lo:lo + rows, :kk] = halo_ids[g[:, None], slot.long()]
+    ok = d_out[:, -1] <= halo2 if kk == k_nn else torch.zeros(m, dtype=torch.bool, device=dev)
+    return d_out, i_out, ok
 
 
 class CellListEngine:
@@ -432,6 +466,59 @@ class CellListEngine:
 
     def query(self, queries: np.ndarray) -> np.ndarray:
         return self.query_with_coverage(queries)[0]
+
+    def query_topk(self, queries: np.ndarray, k_nn: int = 8):
+        """Exact k-NN through the supercell index: (dist2[m, k], idx[m, k])
+        numpy, ascending. Queries whose k-th neighbour the certificate
+        cannot prove (k-th dist > halo, fewer than k candidates, or near the
+        sentinel corner) take the exact chunked top-k scan, and so does a
+        batch too skewed for the dense staging."""
+        q = np.ascontiguousarray(queries, dtype=np.float32)
+        m = q.shape[0]
+        k_nn = min(k_nn, self.n)  # nns_topk clamps the same way
+        packed, order, q_max = self.stage(q)
+        if packed is None:
+            return nns_topk(q, self.refs, k_nn, device=self.device)
+        staged = torch.as_tensor(packed, device=self.device)
+        d2, idx, ok = (t.cpu().numpy() for t in _device_query_topk(
+            staged[:, :3], staged[:, 3].long(), self.halo_dm, self.halo_ids_dev, self.halo2,
+            k_nn))
+        inv = np.empty(m, dtype=np.int64)
+        inv[order] = np.arange(m)
+        d2, idx, ok = d2[inv], idx[inv], ok[inv]
+        risk = self._sentinel_risk(q)
+        if risk is not None:
+            ok &= ~risk
+        if not ok.all():
+            bad = np.flatnonzero(~ok)
+            d2[bad], idx[bad] = nns_topk(q[bad], self.refs, k_nn, device=self.device)
+        return d2, idx
+
+    # -- persistence (the JAX package's npz keys) --------------------------
+
+    def save(self, path: str) -> None:
+        np.savez_compressed(
+            path,
+            refs=self.refs,
+            halo_pts=np.swapaxes(self.halo_dm.cpu().numpy(), 1, 2),
+            halo_ids=self.halo_ids,
+            meta=np.array([self.D, self.R_max], dtype=np.int64),
+            geo=np.concatenate([self.mn, self.W, [self.halo]]).astype(np.float64),
+        )
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "CellListEngine":
+        with np.load(path) as z:
+            eng = cls.__new__(cls)
+            eng.refs = z["refs"]
+            eng.n = eng.refs.shape[0]
+            eng.D, eng.R_max = (int(v) for v in z["meta"])
+            geo = z["geo"]
+            eng.mn, eng.W, eng.halo = geo[0:3], geo[3:6], float(geo[6])
+            halo_pts = z["halo_pts"]
+            eng.avg_candidates = float((halo_pts[..., 0] < PAD_SENTINEL).sum() / eng.D ** 3)
+            eng._place(np.ascontiguousarray(np.swapaxes(halo_pts, 1, 2)), z["halo_ids"], device)
+            return eng
 
 
 def nns_cell_list(queries, refs, d_per_dim: int | None = None, device="cuda") -> np.ndarray:

@@ -53,3 +53,10 @@ def to_dim_major(points: torch.Tensor) -> torch.Tensor:
     """(p, k) point-major -> contiguous (k, p) dim-major (mat_inv_kernel
     analog)."""
     return points.t().contiguous()
+
+
+def on_device(actual: torch.device, wanted) -> bool:
+    """Whether a tensor on ``actual`` lies on ``wanted`` (a device or its
+    name; ``"cuda"`` without an index matches any CUDA device)."""
+    wanted = torch.device(wanted)
+    return actual.type == wanted.type and wanted.index in (None, actual.index)

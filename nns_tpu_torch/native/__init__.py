@@ -1,5 +1,5 @@
-"""Native C++ host layer: the JAX package's ``nns_cpu.cpp``, built by path
-into the port's own build directory and loaded with ctypes (see build.py)."""
+"""Native C++ host layer: the package's own copy of ``nns_cpu.cpp``, built
+into the port's build directory and loaded with ctypes (see build.py)."""
 
 from nns_tpu_torch.native.build import (  # noqa: F401
     ensure_built,
@@ -7,5 +7,9 @@ from nns_tpu_torch.native.build import (  # noqa: F401
     native_available,
     native_cells_build,
     native_cells_stage,
+    native_kd_build,
+    native_kd_query,
     native_linear_scan,
+    native_octree_build,
+    native_octree_query,
 )

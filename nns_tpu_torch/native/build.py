@@ -1,11 +1,11 @@
 """Build + ctypes loader for the native C++ host library.
 
-The source is the JAX package's ``nns_tpu/native/nns_cpu.cpp``, compiled
-BY FILE PATH with the same g++ line as ``nns_tpu/native/build.py``: importing
-``nns_tpu.native`` would run ``nns_tpu/__init__.py``, which imports jax. The
-library goes into the git-ignored ``nns_tpu_torch/_build/``. Public wrappers
-return None when the library cannot be built, and callers fall back to numpy
-(the same contract as the JAX package).
+The source is this package's own ``nns_cpu.cpp``, a byte-equal copy of the
+JAX package's (a test pins the two), compiled with the same g++ line as
+``nns_tpu/native/build.py``. The library goes into the git-ignored
+``nns_tpu_torch/_build/``. Public wrappers return None when the library
+cannot be built, and callers fall back to numpy (the same contract as the
+JAX package).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import threading
 import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG_DIR), "nns_tpu", "native", "nns_cpu.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "nns_cpu.cpp")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _LIB = os.path.join(_BUILD_DIR, "libnns_cpu.so")
 _lock = threading.Lock()
@@ -68,6 +68,21 @@ def load_library() -> ctypes.CDLL | None:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, f32p, f32p, i32p,
         ]
         lib.nns_linear_scan.restype = None
+        lib.nns_kd_build.argtypes = [ctypes.c_int, ctypes.c_int, f32p, i32p, i32p]
+        lib.nns_kd_build.restype = ctypes.c_int
+        lib.nns_kd_query.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int64, f32p, f32p, i32p, i32p, i32p,
+        ]
+        lib.nns_kd_query.restype = None
+        lib.nns_octree_build_v2.argtypes = [
+            ctypes.c_int, ctypes.c_int, f32p, i32p, f32p, f32p, i32p, i32p, i32p,
+            ctypes.c_int, ctypes.c_int64,
+        ]
+        lib.nns_octree_build_v2.restype = ctypes.c_int
+        lib.nns_octree_query.argtypes = [
+            ctypes.c_int, f32p, f32p, i32p, f32p, f32p, i32p, i32p, i32p, i32p,
+        ]
+        lib.nns_octree_query.restype = None
         lib.nns_cells_count.argtypes = [
             ctypes.c_int, f32p, ctypes.c_int, ctypes.c_double, f64p, f64p, i32p,
         ]
@@ -100,6 +115,96 @@ def native_linear_scan(queries: np.ndarray, refs: np.ndarray) -> np.ndarray | No
     n = r.shape[0]
     out = np.empty(m, dtype=np.int32)
     lib.nns_linear_scan(k, m, n, q, r, out)
+    return out
+
+
+def native_kd_build(refs: np.ndarray, max_k: int = 16):
+    """Median-split KD-tree build (implicit heap, see trees/kdtree.py).
+    Returns (node_point, node_dim) over 4 * pow2(n) heap slots, or None
+    when the lib is unavailable or k > max_k."""
+    lib = load_library()
+    if lib is None:
+        return None
+    r = np.ascontiguousarray(refs, dtype=np.float32)
+    n, k = r.shape
+    if k > max_k:
+        return None
+    size = 1
+    while size < n:
+        size *= 2
+    # Max heap id < 4 * size for balanced median splits (see kdtree.py).
+    heap_len = 4 * size
+    perm = np.empty(heap_len, dtype=np.int32)
+    dims = np.empty(heap_len, dtype=np.int32)
+    if lib.nns_kd_build(k, n, r, perm, dims) != 0:
+        return None
+    return perm, dims
+
+
+def native_kd_query(refs, queries, node_point, node_dim) -> np.ndarray | None:
+    """OpenMP batched KD-tree query over the implicit-heap arrays."""
+    lib = load_library()
+    if lib is None:
+        return None
+    r = np.ascontiguousarray(refs, dtype=np.float32)
+    q = np.ascontiguousarray(queries, dtype=np.float32)
+    perm = np.ascontiguousarray(node_point, dtype=np.int32)
+    dims = np.ascontiguousarray(node_dim, dtype=np.int32)
+    m, k = q.shape
+    out = np.empty(m, dtype=np.int32)
+    lib.nns_kd_query(k, m, len(perm), r, q, perm, dims, out)
+    return out
+
+
+def native_octree_build(refs: np.ndarray, max_depth: int):
+    """Octree build into flat arrays (the nns_octree_build_v2 entry point).
+    Returns (children, centers, radii, starts, counts, order) or None."""
+    lib = load_library()
+    if lib is None:
+        return None
+    r = np.ascontiguousarray(refs, dtype=np.float32)
+    n, k = r.shape
+    if k != 3:
+        return None
+    # Every internal node of the Morton build has >= 2 children, so node
+    # count < 2n; the bound is passed to the library, which honours it.
+    max_nodes = 2 * n + 64
+    children = np.empty((max_nodes, 8), dtype=np.int32)
+    centers = np.empty((max_nodes, 3), dtype=np.float32)
+    radii = np.empty(max_nodes, dtype=np.float32)
+    starts = np.empty(max_nodes, dtype=np.int32)
+    counts = np.empty(max_nodes, dtype=np.int32)
+    order = np.empty(n, dtype=np.int32)
+    n_nodes = lib.nns_octree_build_v2(
+        k, n, r, children.reshape(-1), centers.reshape(-1), radii, starts,
+        counts, order, max_depth, max_nodes,
+    )
+    if n_nodes <= 0 or n_nodes > max_nodes:
+        return None
+    return (children[:n_nodes], centers[:n_nodes], radii[:n_nodes],
+            starts[:n_nodes], counts[:n_nodes], order)
+
+
+def native_octree_query(tree, queries) -> np.ndarray | None:
+    """OpenMP batched octree query over the linearized node arrays."""
+    lib = load_library()
+    if lib is None:
+        return None
+    q = np.ascontiguousarray(queries, dtype=np.float32)
+    m = q.shape[0]
+    out = np.empty(m, dtype=np.int32)
+    lib.nns_octree_query(
+        m,
+        np.ascontiguousarray(tree.refs, dtype=np.float32),
+        q,
+        np.ascontiguousarray(tree.children, dtype=np.int32),
+        np.ascontiguousarray(tree.center, dtype=np.float32),
+        np.ascontiguousarray(tree.radius, dtype=np.float32),
+        np.ascontiguousarray(tree.start, dtype=np.int32),
+        np.ascontiguousarray(tree.count, dtype=np.int32),
+        np.ascontiguousarray(tree.order, dtype=np.int32),
+        out,
+    )
     return out
 
 

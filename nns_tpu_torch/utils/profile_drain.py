@@ -1,9 +1,11 @@
-"""Where the time of the v9 drain goes, on one CUDA device.
+"""Where the time of the v9 drain or the beam drain goes, on one CUDA device.
 
 Run from the repository root: ``python -m nns_tpu_torch.utils.profile_drain
-[--w 16]``. It builds ``NNEngine(9, device="cuda")`` over bench_k16's
-workload on 1M refs (16-D uniform, seed 1000), answers W distinct 10K-query
-batches once untimed, then:
+[--w 16] [--path v9|beam]``.
+
+``--path v9`` (the default) builds ``NNEngine(9, device="cuda")`` over
+bench_k16's workload on 1M refs (16-D uniform, seed 1000), answers W
+distinct 10K-query batches once untimed, then:
 
 1. times each step of the first v9 call in the process (CUDA start, the
    kernel library, the engine's staging, the query split, phase 1, the
@@ -12,6 +14,12 @@ batches once untimed, then:
 2. traces one ``query_many`` over the W batches with ``torch.profiler``
    and prints the wall time, the device time by kernel (top 12) and the
    device's busy share.
+
+``--path beam`` builds ``NNEngine(13, device="cuda")`` over 1M clustered
+3-D refs (seed 1000) and traces, as in step 2, its ``query_many`` over W
+10K batches drawn around the refs (the beam drain, as chip_smoke.py draws
+them), then the KD beam index's chunk scan (budget 128) over the same
+staged batches.
 
 It prints the card's name and power limit first, and fails without a card.
 """
@@ -30,19 +38,21 @@ import torch
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--w", type=int, default=16, help="10K-query batches in the queue")
+    ap.add_argument("--path", choices=("v9", "beam"), default="v9")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_drain: no CUDA device visible", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    if args.path == "beam":
+        return _beam(args.w)
 
     from nns_tpu_torch import NNEngine, nns
     from nns_tpu_torch.data import make_dataset
     from nns_tpu_torch.kernels import _cuda
     from nns_tpu_torch.kernels.mxu_expansion import MXUExpansion, _cat_q, phase1, split_bf16x3
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     queries, refs = make_dataset(16, 10_000, 1_000_000, 1000)
     rng = np.random.default_rng(1001)
     batches = [queries] + [rng.random((10_000, 16), dtype=np.float32) for _ in range(args.w - 1)]
@@ -67,11 +77,21 @@ def main(argv=None) -> int:
         timed("nns(version=9) one-shot", lambda: nns(q1k, refs, version=9, device="cuda"))
     del mx
     eng = NNEngine(9, device="cuda").build(refs)
-    eng.query_many(batches)  # warm
+    _trace("drain", lambda: eng.query_many(batches), args.w)
+    return 0
+
+
+def _trace(tag: str, fn, w: int) -> None:
+    """Run ``fn`` once untimed, then once under torch.profiler: the wall
+    time, the device's busy share and the device time by kernel (top 12),
+    each per 10K batch of the W."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.query_many(batches)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Device-side events only (kernels and copies): an op's own entry
@@ -80,12 +100,29 @@ def main(argv=None) -> int:
               if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"[drain] W={args.w}: wall {wall_ms:.3f} ms ({wall_ms / args.w:.3f} ms/batch); "
-          f"device busy {busy_ms:.3f} ms ({busy_ms / args.w:.3f} ms/batch, "
+    print(f"[{tag}] W={w}: wall {wall_ms:.3f} ms ({wall_ms / w:.3f} ms/batch); "
+          f"device busy {busy_ms:.3f} ms ({busy_ms / w:.3f} ms/batch, "
           f"{100 * busy_ms / wall_ms:.1f}% of wall)", flush=True)
     for e in events[:12]:
-        print(f"[drain]   {e.self_device_time_total / 1e3 / args.w:9.4f} ms/batch  "
+        print(f"[{tag}]   {e.self_device_time_total / 1e3 / w:9.4f} ms/batch  "
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
+
+
+def _beam(w: int) -> int:
+    """The beam drain (v13) and the KD chunk scan on 1M clustered refs."""
+    from nns_tpu_torch import NNEngine
+    from nns_tpu_torch.data import make_dataset
+    from nns_tpu_torch.trees.kdtree import KDTree
+
+    _, refs = make_dataset(3, 1, 1_000_000, 1000, clustered=True)
+    rng = np.random.default_rng(1007)
+    batches = [(refs[rng.integers(0, len(refs), 10_000)]
+                + rng.normal(0, 0.01, (10_000, 3))).astype(np.float32) for _ in range(w)]
+    eng = NNEngine(13, device="cuda").build(refs)
+    _trace("beam", lambda: eng.query_many(batches), w)
+    kd = KDTree.build(refs).device_index("cuda")
+    staged = [kd.stage_queries(b) for b in batches]
+    _trace("scan", lambda: [kd.query_staged_with_coverage(st, budget=128) for st in staged], w)
     return 0
 
 

@@ -1,24 +1,31 @@
 """Public API of the PyTorch port against the JAX package, on CPU torch:
-``nns`` and ``NNEngine`` for v4 and v14, the registry, and input
-validation (the rest of the ported ladder is in test_torch_ladder.py, v9
-in test_torch_mxu_expansion.py).
+``nns`` and ``NNEngine`` for v4 and v14, v14's adaptation ladder (the
+promotion to the octree beam index and the demotion to the fused engine),
+the registry, and input validation (the rest of the ported ladder is in
+test_torch_ladder.py, v9 in test_torch_mxu_expansion.py, the trees in
+test_torch_trees.py).
 
 Tolerances: v4 indices exactly equal to the JAX package's. v14 answers
 must have recall@1 = 1.0 against the f64 oracle with certified rows true
 nearest neighbours; on these seeded tie-free inputs they also equal the
-JAX package's indices exactly. No distances are compared here."""
+JAX package's indices exactly. The ladder must land on the same engine
+type as the JAX package's after the same batches. No distances are
+compared here."""
 
 import numpy as np
 import pytest
 
 import nns_tpu
+import nns_tpu.config
 import nns_tpu_torch
+import nns_tpu_torch.config
 from conftest import assert_exact
 from nns_tpu.data import make_dataset
 from nns_tpu_torch.kernels.cell_list import CellListEngine
 from nns_tpu_torch.kernels.fused import FusedBruteForce
+from nns_tpu_torch.trees.beam import BeamIndex
 
-UNPORTED = [8, 10, 11, 12, 13]
+UNPORTED = [8]
 
 
 @pytest.mark.parametrize("k,m,n", [(3, 128, 4096), (16, 64, 2048), (5, 33, 777)])
@@ -85,18 +92,145 @@ def test_engine_cells_small_or_clustered_degrades_to_fused():
     assert_exact(eng.query(q), q, r)
 
 
-def test_engine_defers_promotion_on_poor_coverage():
-    # Queries far outside the data box defeat the certificate. The JAX
-    # engine would promote to the beam index (not ported); the port counts
-    # a deferred promotion and keeps answering exactly.
+def test_engine_promotes_on_poor_coverage():
+    # Queries far outside the data box defeat the certificate: after the
+    # miss budget the engine promotes to the octree beam index, as the JAX
+    # engine does, and keeps answering exactly.
     _, r = make_dataset(3, 1, 16384, seed=8)
     rng = np.random.default_rng(8)
     eng = nns_tpu_torch.NNEngine("cells", device="cpu").build(r)
     for _ in range(2):
         q = rng.random((200, 3), dtype=np.float32) * 4 + 2
         assert_exact(eng.query(q), q, r)
-    assert eng.promotions_deferred >= 1
-    assert isinstance(eng._built, CellListEngine)
+    assert eng.promotions_deferred == 0
+    assert isinstance(eng._built, BeamIndex)
+    q = rng.random((200, 3), dtype=np.float32) * 4 + 2
+    assert_exact(eng.query(q), q, r)
+
+
+def _shell(n=65536, seed=20):
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    rad = (0.35 + 0.1 * rng.random(n))[:, None]
+    r = (np.float32(0.5) + rad * v).astype(np.float32)
+    q = (np.float32(0.5) + rng.random((64, 3), dtype=np.float32) * np.float32(1e-3))
+    return r, [q.astype(np.float32)] * 5
+
+
+def _blobs(seed, uniform_m):
+    rng = np.random.default_rng(seed)
+    centers = rng.random((64, 3)).astype(np.float32)
+    r = (centers[rng.integers(0, 64, 65536)]
+         + rng.normal(0, 0.003, (65536, 3))).astype(np.float32)
+    return r, [rng.random((uniform_m, 3), dtype=np.float32) for _ in range(3)]
+
+
+def _uniform(seed, far, good, rounds):
+    rng = np.random.default_rng(seed)
+    r = rng.random((65536, 3), dtype=np.float32)
+    return r, [far, good(rng)] * rounds
+
+
+def _shape(kwargs):
+    q, r = make_dataset(3, 96, 65536, seed=60, **kwargs)
+    rng = np.random.default_rng(61)
+    lo, hi = kwargs.get("query_box", (0.0, 1.0))
+    return r, [q] + [(rng.random((96, 3), dtype=np.float32) * (hi - lo) + lo).astype(np.float32)
+                     for _ in range(4)]
+
+
+# The scenarios of tests/test_api.py:371-541, each a reference set and a
+# stream of batches; ``final`` is the engine type both packages must end on.
+LADDER = {
+    # Refs in a thick shell, queries at its centre: neither index covers,
+    # so the engine promotes, then demotes to the fused engine.
+    "shell_demotes": (lambda: _shell(), "FusedBruteForce"),
+    # Single-query misses between well-covered batches never promote.
+    "singletons_stay": (lambda: _uniform(
+        24, np.array([[5.0, -2.0, 7.0]], np.float32),
+        lambda rng: rng.random((256, 3), dtype=np.float32), 8), "CellListEngine"),
+    # Uniform queries over tight blobs promote within two batches.
+    "clustered_promotes": (lambda: _blobs(25, 256), "BeamIndex"),
+    # A sustained ~40% miss rate promotes although every other batch covers.
+    "alternating_promotes": (lambda: _uniform(
+        52, np.random.default_rng(52).random((64, 3), dtype=np.float32) + np.float32(5.0),
+        lambda rng: rng.random((64, 3), dtype=np.float32), 6), "BeamIndex"),
+    "anisotropic": (lambda: _shape(dict(clustered=True, sigma=0.002, anisotropy=50.0)), None),
+    "powerlaw": (lambda: _shape(dict(clustered=True, sigma=0.005, n_clusters=512,
+                                     powerlaw=True)), None),
+    "out_of_box": (lambda: _shape(dict(clustered=True, sigma=0.01, query_box=(-0.5, 1.5))),
+                   None),
+}
+
+
+@pytest.mark.parametrize("via", ["query", "query_many"])
+@pytest.mark.parametrize("case", sorted(LADDER))
+def test_v14_ladder_follows_jax(case, via):
+    # After every batch (query) or queue of two batches (query_many), the
+    # port's engine is the JAX engine's type, and every answer is exact.
+    make, final = LADDER[case]
+    r, batches = make()
+    cfg = dict(octree_max_depth=6) if final is None else {}
+    eng = nns_tpu_torch.NNEngine(14, config=nns_tpu_torch.config.EngineConfig(**cfg),
+                                 device="cpu").build(r)
+    jeng = nns_tpu.NNEngine(14, config=nns_tpu.config.EngineConfig(**cfg)).build(r)
+    assert type(eng._built).__name__ == type(jeng._built).__name__ == "CellListEngine"
+    steps = ([[b] for b in batches] if via == "query"
+             else [batches[i:i + 2] for i in range(0, len(batches), 2)])
+    for step in steps:
+        if via == "query":
+            got, want = [eng.query(step[0])], [jeng.query(step[0])]
+        else:
+            got, want = eng.query_many(step), jeng.query_many(step)
+        for g, w, qb in zip(got, want, step):
+            assert_exact(g, qb, r)
+        assert type(eng._built).__name__ == type(jeng._built).__name__
+    if final is not None and via == "query":
+        assert type(eng._built).__name__ == final
+    assert eng.promotions_deferred == 0
+
+
+def test_promote_to_beam_honors_octree_max_depth(monkeypatch):
+    from nns_tpu_torch.trees import octree as octree_mod
+
+    seen = {}
+    real_build = octree_mod.Octree.build.__func__
+
+    def spy(cls, refs, max_depth=9):
+        seen["max_depth"] = max_depth
+        return real_build(cls, refs, max_depth)
+
+    monkeypatch.setattr(octree_mod.Octree, "build", classmethod(spy))
+    _, r = make_dataset(3, 8, 8192, seed=62)
+    eng = nns_tpu_torch.NNEngine(
+        14, config=nns_tpu_torch.config.EngineConfig(octree_max_depth=6), device="cpu").build(r)
+    eng._promote_to_beam()
+    assert seen["max_depth"] == 6
+    assert isinstance(eng._built, BeamIndex)
+
+
+def test_engine_query_many_beam_and_fused_concatenate(monkeypatch):
+    # A promoted beam index and a demoted fused engine each answer the whole
+    # queue in one call, equal to per-batch answers.
+    from nns_tpu_torch.trees.octree import Octree
+
+    rng = np.random.default_rng(41)
+    r = rng.random((32768, 3), dtype=np.float32)
+    batches = [rng.random((m, 3), dtype=np.float32) for m in (100, 37, 260)]
+    eng = nns_tpu_torch.NNEngine(14, device="cpu").build(r)
+    for built in (Octree.build(r).device_index("cpu"), FusedBruteForce(r, device="cpu")):
+        eng._built = built
+        calls = []
+        real = eng.query
+        monkeypatch.setattr(eng, "query", lambda q: calls.append(len(q)) or real(q))
+        many = eng.query_many(batches)
+        assert calls == [397]
+        assert eng._built is built
+        for qb, idx in zip(batches, many):
+            assert idx.dtype == np.int32
+            assert_exact(idx, qb, r)
+        monkeypatch.undo()
 
 
 @pytest.mark.parametrize("version", UNPORTED)

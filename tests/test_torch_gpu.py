@@ -1065,3 +1065,93 @@ def test_auto_engine_at_high_k_on_card(cuda, k):
     _, want = fused_min_idx(torch.as_tensor(q, device=cuda), r_dm, r.shape[0])
     np.testing.assert_array_equal(got, want.cpu().numpy())
     assert recall_at_1(got, q, r) == 1.0
+
+
+# -- The tree family, k-NN and persistence on the card ------------------------
+
+
+def _fused_launches():
+    return _cuda.LAUNCHES["fused_argmin"]
+
+
+@pytest.mark.parametrize("family", ["kd", "octree"])
+def test_beam_fallback_and_chunk_scan_launch_v4(cuda, family):
+    # The beam's exact fallback and (on the KD frontier) its chunk scan run
+    # the v4 kernel on the card; answers equal the CPU path's at recall 1.0.
+    from nns_tpu_torch.trees.beam import kd_beam_index, octree_beam_index
+    from nns_tpu_torch.trees.kdtree import KDTree
+    from nns_tpu_torch.trees.octree import Octree
+
+    q, r = make_dataset(3, 3000, 65536, seed=21, clustered=True, query_box=(-0.3, 1.3))
+    tree = KDTree.build(r) if family == "kd" else Octree.build(r)
+    make = kd_beam_index if family == "kd" else octree_beam_index
+    gpu, cpu = make(tree, device=cuda), make(tree, device="cpu")
+    before = _fused_launches()
+    idx, cov = gpu.query_with_coverage(q, beam=2)
+    assert cov < 1.0 and _fused_launches() > before
+    assert recall_at_1(idx, q, r) == 1.0
+    cidx, ccov = cpu.query_with_coverage(q, beam=2)
+    assert cov == ccov
+    np.testing.assert_array_equal(gpu.query_with_flags(q, 2)[1], cpu.query_with_flags(q, 2)[1])
+    if family == "kd":
+        st = gpu.stage_queries(q)
+        before = _fused_launches()
+        sidx, sok = gpu.query_staged_scan_with_flags(st, 16)
+        assert _fused_launches() - before == st.q_dev.shape[0]  # one launch per chunk
+        cidx, cok = cpu.query_staged_scan_with_flags(cpu.stage_queries(q), 16)
+        np.testing.assert_array_equal(sok, cok)
+        np.testing.assert_array_equal(sidx[sok], cidx[sok])
+        out, _ = gpu.query_staged_with_coverage(st, beam=8, budget=16)
+        assert recall_at_1(out, q, r) == 1.0
+
+
+@pytest.mark.parametrize("version", [10, 11, 12, 13])
+@pytest.mark.parametrize("k", [3, 5])
+def test_tree_versions_on_card(cuda, version, k):
+    from nns_tpu_torch import nns
+
+    q, r = make_dataset(k, 1000, 50_000, seed=version, clustered=True)
+    got = nns(q, r, version=version, device="cuda")
+    assert recall_at_1(got, q, r) == 1.0
+    eng = NNEngine(version, device="cuda").build(r)
+    assert recall_at_1(np.concatenate(eng.query_many([q[:400], q[400:]])), q, r) == 1.0
+
+
+def test_topk_on_card_equals_cpu(cuda):
+    from nns_tpu_torch.kernels.topk import nns_topk
+
+    q, r = make_dataset(3, 2000, 65536, seed=22, query_box=(-0.2, 1.2))
+    for k_nn in (1, 8):
+        a = CellListEngine(r, device=cuda).query_topk(q, k_nn)
+        b = CellListEngine(r, device="cpu").query_topk(q, k_nn)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        for x, y in zip(nns_topk(q[:300], r, k_nn, device=cuda),
+                        nns_topk(q[:300], r, k_nn, device="cpu")):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_promotion_and_save_load_on_card(cuda, tmp_path):
+    # A v14 engine promotes to the beam index on the card, saves it, and the
+    # loaded engine answers the same.
+    from nns_tpu_torch.trees.beam import BeamIndex
+
+    rng = np.random.default_rng(25)
+    centers = rng.random((64, 3)).astype(np.float32)
+    r = (centers[rng.integers(0, 64, 65536)]
+         + rng.normal(0, 0.003, (65536, 3))).astype(np.float32)
+    eng = NNEngine(14, device="cuda").build(r)
+    assert isinstance(eng._built, CellListEngine)
+    q = rng.random((256, 3), dtype=np.float32)
+    for _ in range(2):
+        assert recall_at_1(eng.query(q), q, r) == 1.0
+    assert isinstance(eng._built, BeamIndex) and eng._built.device.type == "cuda"
+    path = str(tmp_path / "beam.npz")
+    eng.save(path)
+    loaded = NNEngine.load(path, 14, device="cuda")
+    np.testing.assert_array_equal(loaded.query(q), eng.query(q))
+    for version in (10, 11, 12, 13, 14):
+        e = NNEngine(version, device="cuda").build(r)
+        e.save(path)
+        np.testing.assert_array_equal(NNEngine.load(path, version, device="cuda").query(q),
+                                      e.query(q))
