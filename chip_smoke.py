@@ -95,8 +95,12 @@ result) without them. Phases, each raising on failure:
    promotes it to a ``BeamIndex``, gated before and after; ``query_topk``
    at k = 8 on v14 over the 1M uniform refs and on v13 over the clustered
    ones (10K queries), whose sorted f64 distances on 512 rows must equal a
-   float64 top 8 on the card (rtol 1e-5); and save, load and query again
-   for v10-v14, answers equal;
+   float64 top 8 on the card (rtol 1e-5); save, load and query again for
+   v10-v14, answers equal; and the v4 kernel against ``fused_min_idx_plain``
+   (tolerance 0) on the inputs these paths gave it: one chunk of the chunk
+   scan (its shared candidate set, built as the scan builds it), the wide
+   batch's fallback bucket and v14's before its promotion (and the v13
+   drain's, if it fell back);
 10. one JSON line of per-kernel results, each row with the shape its ms,
    plain_ms and bound come from (the scan also on the skewed batch,
    ``*_skewed``; the ladder's kernels and v4 also at 1024 x 1M k=16,
@@ -109,7 +113,9 @@ result) without them. Phases, each raising on failure:
    reads the host time; the scan's and v4's rows, whose launches are that
    short, also give ``device_ms`` (``utils/timing.cuda_device_ms``: the
    device held busy while the calls are enqueued), v4's also at 1024 x 1M
-   k=3 (``*_1024``) and k=16.
+   k=3 (``*_1024``) and k=16; v4's row also carries the tree paths'
+   launches (``launches_trees``) and, per phase-9 shape, its ms, plain_ms
+   and bound (``*_chunk``, ``*_wide_fallback``, ``*_v14_fallback``).
 """
 
 from __future__ import annotations
@@ -436,8 +442,11 @@ def main() -> int:
             raise AssertionError("query_many returned out-of-range indices")
 
     # The steady uniform drain, on the supercell index: a fresh engine, since
-    # the out-of-box batch may have promoted this one.
+    # the out-of-box batch may have promoted this one, warmed by one untimed
+    # drain (its fallback engine is staged at its first fallback), so the
+    # timed call is a steady one as before.
     engine = NNEngine("cells", device="cuda").build(refs)
+    engine.query_many(batches)
     t0 = time.perf_counter()
     engine.query_many(batches)
     drain_ms = (time.perf_counter() - t0) * 1e3 / W
@@ -783,7 +792,8 @@ def main() -> int:
     del engine, mx, mx16
 
     # 9. The tree family, k-NN and persistence.
-    tree_launches = _trees_phase(dev, queries, refs, oracles[3])
+    tree_launches, tree_rows = _trees_phase(dev, queries, refs, oracles[3])
+    results["fused_argmin"].extend(r[1:4] for r in tree_rows.values())
 
     # 10. Results, each kernel at its main path's shape: one 10K batch for
     # the scan, the 8-query fallback bucket for the fused kernel, 1024 x 1M
@@ -862,8 +872,12 @@ def main() -> int:
                 shape_k24="1024 x 1M k=24 (blocks padded to 32 dims)", ms_k24=p1b_k24[1],
                 plain_ms_k24=p1b_k24[2], bound_ms_k24=phase1_bound(1024, N_REFS, 24)[0],
                 yardstick_ms_k24=y24[1])
-    # The launches the tree family's paths added (phase 9) beside v4's.
+    # The launches the tree family's paths added (phase 9) beside v4's, and
+    # v4 against its plain version at the shapes those paths gave it.
     kernels[1]["launches_trees"] = tree_launches
+    for key, (shape, _, ms, p_ms, b_ms) in tree_rows.items():
+        kernels[1].update({f"shape_{key}": shape, f"ms_{key}": ms, f"plain_ms_{key}": p_ms,
+                           f"bound_ms_{key}": b_ms})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -871,17 +885,22 @@ def main() -> int:
     return 0
 
 
-def _trees_phase(dev, queries, refs, oracle3) -> int:
+def _trees_phase(dev, queries, refs, oracle3) -> tuple[int, dict]:
     """Phase 9 (module docstring): v10-v13 one-shot, the v13 drain, the KD
     chunk scan, the v14 promotion, k-NN and persistence. Returns the
-    fused_argmin launches of its paths."""
+    fused_argmin launches of its paths and, per shape they gave the v4
+    kernel, (shape, max_abs_err, ms, plain_ms, bound_ms) of the kernel
+    against its plain version on those inputs."""
     from nns_tpu_torch import NNEngine, nns
     from nns_tpu_torch.data import make_dataset
-    from nns_tpu_torch.kernels import _cuda
+    from nns_tpu_torch.kernels import _cuda, layouts
     from nns_tpu_torch.kernels.cell_list import CellListEngine
-    from nns_tpu_torch.trees.beam import BeamIndex, kd_beam_index, octree_beam_index
+    from nns_tpu_torch.kernels.fused import as_f32, fused_min_idx, fused_min_idx_plain
+    from nns_tpu_torch.trees.beam import (BeamIndex, chunk_scan_candidates, kd_beam_index,
+                                          octree_beam_index)
     from nns_tpu_torch.trees.kdtree import KDTree
     from nns_tpu_torch.trees.octree import Octree
+    from nns_tpu_torch.utils.bounds import fused_bound
 
     t_phase = time.perf_counter()
 
@@ -890,6 +909,22 @@ def _trees_phase(dev, queries, refs, oracle3) -> int:
         out = fn()
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
+
+    v4_rows = {}
+
+    def v4_case(key, shape, q, r_dm, n):
+        """The v4 kernel against its plain version on inputs a tree path
+        gave it (tolerance 0: indices and min_d2 bit-equal)."""
+        err, ms, p_ms = _compare(f"fused {shape}", fused_min_idx, fused_min_idx_plain,
+                                 (q, r_dm, n))
+        v4_rows[key] = (shape, err, ms, p_ms, fused_bound(q.shape[0], n, q.shape[1])[0])
+
+    def bucket_case(key, what, fb, q_bad):
+        """The fallback's bucket: the rows padded to a power of two (>= 8),
+        as ``FusedBruteForce.fallback`` pads them, over its staged refs."""
+        q = layouts.pad_queries(as_f32(q_bad, dev), layouts.pow2_at_least(max(len(q_bad), 8)))
+        v4_case(key, f"{what} fallback bucket: {q.shape[0]} x {fb.n} k=3 ({len(q_bad)} rows)",
+                q, fb.r_dm, fb.n)
 
     sub3, dmin3 = oracle3
     q1k = queries[:1024]
@@ -963,6 +998,13 @@ def _trees_phase(dev, queries, refs, oracle3) -> int:
         raise AssertionError("no v13 row went to the exact fallback")
     _gate(f"v13 uncertified rows (all {len(uq)}, float64 scan on the card)", ui, uq, refs_c,
           _oracle_f64_card(uq, refs_c, dev)[1])
+    # The exact fallback answers the rows left after the retry, per
+    # query_many call: all the drain's batches in one call, the wide batch
+    # in another.
+    bucket_case("wide_fallback", "v13 wide batch", beam13._fallback_engine(), uncert[-1][0])
+    drain_bad = np.concatenate([u[0] for u in uncert[:-1]])
+    if len(drain_bad):
+        bucket_case("drain_fallback", "v13 drain", beam13._fallback_engine(), drain_bad)
 
     # The KD beam index's chunk scan.
     kd_c = KDTree.build(refs_c).device_index(dev)
@@ -978,15 +1020,22 @@ def _trees_phase(dev, queries, refs, oracle3) -> int:
          f"{scan_ms2:.3f} ms staged; scan coverage {scan_ok.mean():.6f}, after the retry "
          f"{scan_cov:.6f}; fused_argmin launches {scan_launches}")
     _gate("KD chunk scan (512 subsample)", scan_idx[sub], near[0][sub], refs_c)
-    del kd_c
+    qc = st.q_dev[0]  # the first staged chunk, its candidates built as the scan builds them
+    _, _, cand_dm, c, _ = chunk_scan_candidates(qc, kd_c.lo, kd_c.hi, kd_c.pts, kd_c.ids,
+                                                kd_c.extras, kd_c.extras_ids, 128)
+    v4_case("chunk", f"KD chunk scan, one chunk: {qc.shape[0]} x {c} k=3 (pitch "
+            f"{cand_dm.shape[1]})", qc, cand_dm, c)
+    del kd_c, qc, cand_dm
 
     # v14 over the clustered refs, fed uniform batches until it promotes.
     eng14 = NNEngine("cells", device="cuda").build(refs_c)
     if not isinstance(eng14._built, CellListEngine):
         raise AssertionError(f"NNEngine('cells') built {type(eng14._built).__name__}")
+    cell14, on_cells = eng14._built, []
     _cuda.reset_launches()
     for i in range(4):
         qb = rng.random((N_QUERIES, 3), dtype=np.float32)
+        on_cells.append(qb)
         before = type(eng14._built).__name__
         idx, ms = timed(lambda: eng14.query(qb))
         _gate(f"v14 uniform batch {i} on {before} (512 subsample)", idx[sub], qb[sub], refs_c)
@@ -1001,7 +1050,13 @@ def _trees_phase(dev, queries, refs, oracle3) -> int:
     _gate("v14 after the promotion (512 subsample)", idx[sub], qb[sub], refs_c)
     _log(f"[trees] v14 on the promoted BeamIndex: {ms:.1f} ms per 10K batch; fused_argmin "
          f"launches up to the promotion {promo_launches}")
-    del eng14
+    for j, qb in enumerate(on_cells):  # each batch the supercell index answered
+        _, ok14 = cell14.query_with_flags(qb)
+        if not ok14.all():
+            bucket_case("v14_fallback" + (f"_{j}" if j else ""),
+                        f"v14 batch {j} before its promotion", cell14._fallback_engine(),
+                        qb[~ok14])
+    del eng14, cell14, on_cells
 
     # k-NN at k = 8.
     eng_cells = NNEngine("cells", device="cuda").build(refs)
@@ -1026,7 +1081,7 @@ def _trees_phase(dev, queries, refs, oracle3) -> int:
             _log(f"[trees] v{version} save {save_ms:.0f} ms ({os.path.getsize(path) / 2**20:.1f} "
                  f"MiB), load {load_ms:.0f} ms: answers equal")
     _log(f"[trees] phase {time.perf_counter() - t_phase:.1f} s")
-    return drain_launches + wide_launches + scan_launches + promo_launches
+    return drain_launches + wide_launches + scan_launches + promo_launches, v4_rows
 
 
 if __name__ == "__main__":

@@ -29,7 +29,7 @@ import torch
 from nns_tpu_torch.kernels import _cuda
 from nns_tpu_torch.kernels.fused import FusedBruteForce, as_f32, fused_fallback
 from nns_tpu_torch.kernels.layouts import PAD_SENTINEL, pow2_at_least as _pow2_at_least
-from nns_tpu_torch.kernels.topk import nns_topk, smallest
+from nns_tpu_torch.kernels.topk import direct_d2, nns_topk, smallest
 
 # Queries per supercell the CUDA kernel takes (kMaxQM in csrc/cell_scan.cu).
 _KERNEL_MAX_QM = 2048
@@ -119,7 +119,7 @@ def _device_query_topk(q_sorted: torch.Tensor, sid: torch.Tensor, halo_dm: torch
                        halo_ids: torch.Tensor, halo2: float, k_nn: int):
     """Exact k-NN of each staged query over its supercell's halo set (torch
     ops): (d2 (m, k_nn) f32 ascending, ids (m, k_nn) i32, certified (m,)
-    bool). Distances accumulate ``d2 = d2 + diff * diff`` over x, y, z;
+    bool). Distances are ``topk.direct_d2``'s over the gathered halos;
     among equal distances the lower halo slot comes first, as the JAX
     package's ``lax.top_k`` orders them. The certificate holds iff the k-th
     distance is within halo (no unscanned point can then belong to the true
@@ -133,11 +133,7 @@ def _device_query_topk(q_sorted: torch.Tensor, sid: torch.Tensor, halo_dm: torch
     rows = max(1, _TOPK_BLOCK // r_max)
     for lo in range(0, m, rows):
         g = sid[lo:lo + rows]
-        h = halo_dm[g]                                   # (rows, 3, R_max)
-        d2 = torch.zeros((g.shape[0], r_max), dtype=torch.float32, device=dev)
-        for d in range(3):
-            diff = q_sorted[lo:lo + rows, d:d + 1] - h[:, d, :]
-            d2 = d2 + diff * diff
+        d2 = direct_d2(q_sorted[lo:lo + rows], halo_dm[g].transpose(1, 2))
         dist, slot = smallest(d2, kk)
         d_out[lo:lo + rows, :kk] = dist
         i_out[lo:lo + rows, :kk] = halo_ids[g[:, None], slot.long()]

@@ -47,12 +47,18 @@ def smallest(d2: torch.Tensor, kk: int) -> tuple[torch.Tensor, torch.Tensor]:
     return split_keys(keys)
 
 
-def direct_d2(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """(m, c) direct-form squared distances of (m, k) queries to (c, k)
-    points, accumulated per dimension in ascending order."""
-    d2 = torch.zeros((q.shape[0], r.shape[0]), dtype=torch.float32, device=q.device)
+def direct_d2(q: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """Direct-form squared distances of (m, k) queries to candidates
+    (m or 1, ..., k), each query against its own row of ``cand`` (or all
+    against the one shared row): (m, ...) f32. Every exact path of the
+    package accumulates ``d2 = d2 + diff * diff`` over the dimensions in
+    ascending order here, the order the JAX package's answers (and the
+    certificate margins) are held to."""
+    m = q.shape[0]
+    lead = (m,) + (1,) * (cand.dim() - 2)
+    d2 = torch.zeros((m,) + tuple(cand.shape[1:-1]), dtype=torch.float32, device=q.device)
     for d in range(q.shape[1]):
-        diff = q[:, d, None] - r[None, :, d]
+        diff = q[:, d].reshape(lead) - cand[..., d]
         d2 = d2 + diff * diff
     return d2
 
@@ -73,7 +79,7 @@ def _topk_scan(queries: torch.Tensor, refs: torch.Tensor, k_nn: int,
         cols = torch.arange(c0, c0 + r.shape[0], dtype=torch.int32, device=dev)
         kk = min(k_nn, r.shape[0])
         for lo in range(0, m, rows):
-            keys = sort_keys(direct_d2(queries[lo:lo + rows], r), cols)
+            keys = sort_keys(direct_d2(queries[lo:lo + rows], r[None]), cols)
             cand = torch.topk(keys, kk, dim=1, largest=False).values
             best[lo:lo + rows] = torch.topk(torch.cat([best[lo:lo + rows], cand], dim=1),
                                             k_nn, dim=1, largest=False).values

@@ -86,17 +86,13 @@ def _beam_distances(q, lo, hi, pts, ids, extras, extras_ids, beam: int, valid=No
     inf."""
     m = q.shape[0]
     sel, thr = _select_buckets(box_lower_bound(q, lo, hi), beam)
-    cand = pts[sel]                                      # (m, nb, cap, k) gather
-    d2 = torch.zeros(cand.shape[:3], dtype=torch.float32, device=q.device)
-    for d in range(q.shape[1]):
-        diff = q[:, None, None, d] - cand[..., d]
-        d2 = d2 + diff * diff
+    d2 = direct_d2(q, pts[sel])                          # (m, nb, cap, k) gather
     if valid is not None:
         d2 = torch.where(valid[sel], d2, float("inf"))
     d2 = d2.reshape(m, -1)
     flat_ids = ids[sel].reshape(m, -1)
     if extras.shape[0]:
-        d2 = torch.cat([d2, direct_d2(q, extras)], dim=1)
+        d2 = torch.cat([d2, direct_d2(q, extras[None])], dim=1)
         flat_ids = torch.cat([flat_ids, extras_ids[None, :].expand(m, -1)], dim=1)
     return d2, flat_ids, thr
 
@@ -112,16 +108,14 @@ def _beam_query_core(q, lo, hi, pts, ids, extras, extras_ids, beam: int):
     return flat_ids.gather(1, pos)[:, 0].to(torch.int32), best * _CERT_MARGIN <= thr
 
 
-def _chunk_scan_core(q, lo, hi, pts, ids, extras, extras_ids, budget: int):
-    """Budget scan: ONE shared candidate set per query chunk instead of a
-    per-query bucket gather. The ``budget`` buckets nearest to any query of
-    the chunk (min over its rows of lb) and the extras are gathered once,
-    dim-major, padded to a 128-column pitch with replicas of candidate 0
-    (real points; the kernel scores only the first c columns), and scanned
-    by the v4 kernel. Certificate: winner_d2 * margin <= min lb over the
-    buckets NOT scanned — sound for any query order; the locality sort at
-    staging only makes it hold more often. Returns (idx (m,) i32,
-    certified (m,) bool)."""
+def chunk_scan_candidates(q, lo, hi, pts, ids, extras, extras_ids, budget: int):
+    """The chunk scan's ONE shared candidate set for a query chunk: the
+    ``budget`` buckets nearest to any of its rows (min over the rows of lb)
+    and the extras, gathered once, dim-major, padded to a 128-column pitch
+    with replicas of candidate 0 (real points; the kernel scores only the
+    first c columns). Returns (lb (m, F), the scanned bucket ids (b,), the
+    dim-major candidates (k, c_pad), c, their ids (c,)) — the v4 kernel's
+    inputs at the scan's shapes."""
     f_total, cap, k = pts.shape
     b = min(budget, f_total)
     lb = box_lower_bound(q, lo, hi)
@@ -132,8 +126,19 @@ def _chunk_scan_core(q, lo, hi, pts, ids, extras, extras_ids, budget: int):
         cand = torch.cat([cand, extras])
         cand_ids = torch.cat([cand_ids, extras_ids])
     c = cand.shape[0]
-    best_d2, pos = fused_min_idx(q, layouts.to_dim_major(layouts.pad_refs(cand, _LANE)), c)
-    scanned = torch.zeros(f_total, dtype=torch.bool, device=q.device)
+    return lb, sel, layouts.to_dim_major(layouts.pad_refs(cand, _LANE)), c, cand_ids
+
+
+def _chunk_scan_core(q, lo, hi, pts, ids, extras, extras_ids, budget: int):
+    """Budget scan: ``chunk_scan_candidates``' shared set per query chunk
+    instead of a per-query bucket gather, scanned by the v4 kernel.
+    Certificate: winner_d2 * margin <= min lb over the buckets NOT scanned
+    — sound for any query order; the locality sort at staging only makes
+    it hold more often. Returns (idx (m,) i32, certified (m,) bool)."""
+    lb, sel, cand_dm, c, cand_ids = chunk_scan_candidates(q, lo, hi, pts, ids, extras,
+                                                          extras_ids, budget)
+    best_d2, pos = fused_min_idx(q, cand_dm, c)
+    scanned = torch.zeros(lb.shape[1], dtype=torch.bool, device=q.device)
     scanned[sel] = True
     unscanned_min = torch.where(scanned[None, :], float("inf"), lb).amin(dim=1)
     return cand_ids[pos.long()], best_d2 * _CERT_MARGIN <= unscanned_min
@@ -309,6 +314,8 @@ class BeamIndex:
             idx, ok = core(qc, self.lo, self.hi, self.pts, self.ids, self.extras,
                            self.extras_ids, arg)
             rows.append(torch.stack([idx, ok.to(torch.int32)]))
+        if not rows:  # no query: an empty table, as the JAX package's lax.map gives
+            return self._decode(np.zeros((0, 2, st.q_dev.shape[1]), np.int32), st)
         return self._decode(torch.stack(rows).cpu().numpy(), st)
 
     def query_staged_with_flags(self, st: BeamStagedQueries, beam: int = 8):

@@ -155,6 +155,41 @@ def test_chunk_scan_equals_jax(budget):
     assert_exact(out, q, r)
 
 
+def test_chunk_scan_candidates_are_the_scans_kernel_inputs():
+    # chunk_scan_candidates builds what _chunk_scan_core hands the v4
+    # wrapper: dim-major, a 128-column pitch padded with replicas of
+    # candidate 0, scored over the first c columns only.
+    from nns_tpu_torch.kernels.fused import fused_min_idx_plain
+
+    q, r = _clustered_16d(12, 8192, 300)
+    bi, _ = _indices("kd", r, 64)
+    st = bi.stage_queries(q, chunk_m=128)
+    args = (bi.lo, bi.hi, bi.pts, bi.ids, bi.extras, bi.extras_ids, 8)
+    for qc in st.q_dev:
+        lb, sel, cand_dm, c, cand_ids = pbeam.chunk_scan_candidates(qc, *args)
+        assert cand_dm.shape[0] == 16 and cand_dm.shape[1] % 128 == 0
+        assert c == 8 * 64 + bi.extras.shape[0] == cand_ids.shape[0]
+        assert torch.equal(cand_dm[:, c:], cand_dm[:, :1].expand(-1, cand_dm.shape[1] - c))
+        _, pos = fused_min_idx_plain(qc, cand_dm, c)
+        idx, _ = pbeam._chunk_scan_core(qc, *args)
+        assert torch.equal(cand_ids[pos.long()], idx)
+
+
+@pytest.mark.parametrize("family", ["kd", "octree"])
+def test_empty_query_set_equals_jax(family):
+    q, r = make_dataset(3, 10, 2048, seed=1)
+    got, want = _indices(family, r)
+    for scan in (False, True):
+        st, jst = got.stage_queries(q[:0]), want.stage_queries(q[:0])
+        if scan:
+            pair = (got.query_staged_scan_with_flags(st), want.query_staged_scan_with_flags(jst))
+        else:
+            pair = (got.query_staged_with_flags(st), want.query_staged_with_flags(jst))
+        for a, b in zip(*pair):
+            assert a.shape == b.shape == (0,) and a.dtype == b.dtype
+    assert got.query_with_coverage(q[:0])[1] == want.query_with_coverage(q[:0])[1] == 1.0
+
+
 def test_chunk_scan_and_fallback_run_the_v4_wrapper(monkeypatch):
     # Both the chunk scan and the exact fallback go through fused_min_idx
     # (on the CPU its plain version, which counts no launch).

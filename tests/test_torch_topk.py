@@ -18,7 +18,7 @@ from nns_tpu.data import make_dataset
 from nns_tpu.kernels.cell_list import CellListEngine as JCellListEngine
 from nns_tpu.kernels.topk import nns_topk as jax_topk
 from nns_tpu_torch.kernels.cell_list import CellListEngine
-from nns_tpu_torch.kernels.topk import nns_topk, smallest, sort_keys, split_keys
+from nns_tpu_torch.kernels.topk import direct_d2, nns_topk, smallest, sort_keys, split_keys
 
 
 def _oracle_d(q, r, kk):
@@ -101,6 +101,27 @@ def test_sort_keys_order_and_smallest():
     vals, cols = smallest(torch.from_numpy(d2), 5)
     assert cols.tolist() == [[1, 5, 4, 0, 2]]
     assert vals.tolist() == [[0.0, 0.0, 0.25, 0.5, 0.5]]
+
+
+@pytest.mark.parametrize("k", [3, 16])
+def test_direct_d2_shared_and_gathered_candidates(k):
+    # One accumulation for every exact path: a shared (1, c, k) candidate
+    # set and the same points gathered per query (m, g, c, k) give the same
+    # bits, and both are the per-dimension sum in ascending order.
+    import torch
+
+    rng = np.random.default_rng(31)
+    q = torch.as_tensor(rng.random((5, k), dtype=np.float32))
+    r = torch.as_tensor(rng.random((40, k), dtype=np.float32))
+    shared = direct_d2(q, r[None])
+    gathered = direct_d2(q, r.reshape(1, 4, 10, k).expand(5, -1, -1, -1))
+    assert shared.shape == (5, 40) and gathered.shape == (5, 4, 10)
+    assert torch.equal(gathered.reshape(5, 40), shared)
+    want = torch.zeros((5, 40))
+    for d in range(k):
+        diff = q[:, d, None] - r[None, :, d]
+        want = want + diff * diff
+    assert torch.equal(shared, want)
 
 
 @pytest.mark.parametrize("k_nn", [1, 8, 30])
