@@ -79,7 +79,26 @@ result) without them. Phases, each raising on failure:
    the same launch (timed beside it); all 640K answers must equal the v4
    kernel's; batch 0 passes the f64 gate on the ladder's 512-row oracle and
    up to 128 uncertified rows pass a float64 scan on the card; the rows of
-   each v3 full scan the drain runs are printed;
+   each v3 full scan the drain runs are printed. Its first call runs the
+   one-time high-k probe (a KD tree and beam frontier over the 1M 16-D
+   refs), which must reject uniform data: the engine stays the expansion
+   engine, and the second call times the drain past the probe;
+8b. v9's high-k ladder (``_high_k_phase``) on
+   ``benchmarks/bench_k16_clustered.py``'s workload: 1M clustered 16-D refs
+   (seed 1000), W_HK in-distribution 10K batches (a ref sample plus N(0,
+   0.01) noise, ``default_rng(1001)``), ``EngineConfig(hk_probe_after=
+   2048)``. The first batch crosses the probe, which must promote to a
+   ``BeamIndex``; the rung (``_hk_beam``, ``_hk_budget``), the first
+   batch's ms, the warmed drain's ms per batch, its coverage and the rows
+   that went to ``_hk_fallback`` are printed; then one uniform
+   out-of-distribution batch through the same engine, most of whose rows
+   go to ``_hk_fallback`` (the retained expansion engine). The chunk-scan
+   drain must launch ``fused_argmin`` and every fallback the wgmma kernel;
+   a 512-row subsample of every batch and every fallback row pass the f64
+   gate (a float64 scan on the card); v4 is held against its plain
+   version on one chunk of the 16-D chunk scan, the wgmma kernel on the
+   fallback's phase-1 launch, and v3 on the fallback's tier-2 rows (if the
+   band refused any);
 9. the tree family, k-NN and persistence (``_trees_phase``): ``nns(version=v)``
    for v = 10..13 at 1024 x 1M uniform k=3 (the ladder's queries), each
    held to the f64 gate on the ladder's 512 rows, and each engine's build
@@ -101,7 +120,12 @@ result) without them. Phases, each raising on failure:
    scan (its shared candidate set, built as the scan builds it), the wide
    batch's fallback bucket and v14's before its promotion (and the v13
    drain's, if it fell back);
-10. one JSON line of per-kernel results, each row with the shape its ms,
+10. the benchmark harness (``_harness_phase``): ``harness.main`` over the
+   reference grid, every version, on the card, with ``--warmup`` and
+   ``--iters`` cut to HARNESS_WARMUP and HARNESS_ITERS; it prints its
+   table, every record of v0-v7 and v9-v14 must read recall@1 1.0, and v8
+   gives one record that says it is not ported;
+11. one JSON line of per-kernel results, each row with the shape its ms,
    plain_ms and bound come from (the scan also on the skewed batch,
    ``*_skewed``; the ladder's kernels and v4 also at 1024 x 1M k=16,
    ``*_k16``): each kernel's main path (for the wgmma kernel's row the
@@ -115,7 +139,10 @@ result) without them. Phases, each raising on failure:
    device held busy while the calls are enqueued), v4's also at 1024 x 1M
    k=3 (``*_1024``) and k=16; v4's row also carries the tree paths'
    launches (``launches_trees``) and, per phase-9 shape, its ms, plain_ms
-   and bound (``*_chunk``, ``*_wide_fallback``, ``*_v14_fallback``).
+   and bound (``*_chunk``, ``*_wide_fallback``, ``*_v14_fallback``, and
+   phase 8b's ``*_chunk16``), the wgmma kernel's and v3's rows their
+   phase-8b launches (``*_hk_fallback``); these three rows carry phase 8b's
+   launches (``launches_high_k``). Each phase prints its seconds (``[time]``).
 """
 
 from __future__ import annotations
@@ -138,6 +165,11 @@ K = 3
 GATE_ROWS = 512
 K16 = 16
 W_TREES = 8  # in-distribution 10K batches of the v13 serving drain
+W_HK = 8  # in-distribution 10K batches of the clustered 16-D ladder's drain
+# The harness phase runs the reference grid with these, cut from the CLI's
+# defaults (2 and 3) to keep the script near its earlier run time: the host
+# versions (v0, v10, v12) take seconds per call at 1024 x 1M k=16.
+HARNESS_WARMUP, HARNESS_ITERS = 1, 1
 WIDE_BOX = (-1e4, 1e4)
 K_NN = 8
 
@@ -313,7 +345,7 @@ def main() -> int:
          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 
     # 1. Build.
-    t0 = time.perf_counter()
+    t_main = t0 = time.perf_counter()
     _cuda.build(force=True)
     _cuda.library()
     build_s = time.perf_counter() - t0
@@ -470,6 +502,9 @@ def main() -> int:
         ms = (time.perf_counter() - t0) * 1e3
         _log(f"[nns] version={version!r}: {ms:.1f} ms one-shot (build included)")
         _gate(f"nns(version={version!r}) (512 subsample)", idx[sub], queries[sub], refs)
+
+    _log(f"[time] phases 1-4 {time.perf_counter() - t_main:.1f} s")
+    t_phases = time.perf_counter()
 
     # 5. The ladder's kernels against their plain versions.
     del engine, cell, served, dq
@@ -706,6 +741,11 @@ def main() -> int:
     finally:
         mxe.phase1, mxe._full_scan_rows = phase1, full_scan
     launches["expansion_phase1"] = p1b_launches  # the v9 path at k = 128, phase 7
+    # The first call ran the one-time high-k probe (a KD tree and its beam
+    # frontier over the 1M 16-D refs): on uniform data it must reject.
+    if not engine._hk_probed or not isinstance(engine._built, MXUExpansion):
+        raise AssertionError(f"the high-k probe on uniform 16-D data: probed "
+                             f"{engine._hk_probed}, engine {type(engine._built).__name__}")
     _log(f"[v9] launches during query_many: {dict(_cuda.LAUNCHES)}; full scans of "
          f"{full_scan_rows} rows")
     if launches["expansion_phase1_wgmma"] < 1:
@@ -781,21 +821,31 @@ def main() -> int:
     engine.query_many(batches16)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     _log(f"[v9] build {build_ms:.1f} ms; query_many over {W} batches {queue_ms / W:.3f} "
-         f"ms/batch (first call), {drain_ms:.3f} ms/batch (second call, host clock, "
-         f"upload and download included); certified {int(cert.sum())}/{len(cert)} "
-         f"({cert.mean():.6f}); phase-1 max |min1 - f64 e| over batch 0's "
-         f"{len(sub16)} gated rows {err_ratio:.6f} delta; device memory peak "
-         f"{peak_mb:.0f} MiB; promotions deferred {engine.promotions_deferred}")
+         f"ms/batch (first call, the one-time high-k probe inside: it rejected, the "
+         f"engine stays {type(engine._built).__name__}), {drain_ms:.3f} ms/batch (second "
+         f"call, host clock, upload and download included); certified "
+         f"{int(cert.sum())}/{len(cert)} ({cert.mean():.6f}); phase-1 max |min1 - f64 e| "
+         f"over batch 0's {len(sub16)} gated rows {err_ratio:.6f} delta; device memory "
+         f"peak {peak_mb:.0f} MiB")
     for s_, qb in zip(served16, batches16):
         if s_.shape != (qb.shape[0],) or s_.min() < 0 or s_.max() >= N_REFS:
             raise AssertionError("v9 query_many returned out-of-range indices")
     del engine, mx, mx16
+    _log(f"[time] phases 5-8 {time.perf_counter() - t_phases:.1f} s")
+
+    # 8b. v9's high-k ladder on clustered 16-D data.
+    hk_launches, hk_rows = _high_k_phase(dev)
+    for name, rows in hk_rows.items():
+        results[name].extend(r[1:4] for r in rows.values())
 
     # 9. The tree family, k-NN and persistence.
     tree_launches, tree_rows = _trees_phase(dev, queries, refs, oracles[3])
     results["fused_argmin"].extend(r[1:4] for r in tree_rows.values())
 
-    # 10. Results, each kernel at its main path's shape: one 10K batch for
+    # 10. The benchmark harness over the reference grid.
+    _harness_phase()
+
+    # 11. Results, each kernel at its main path's shape: one 10K batch for
     # the scan, the 8-query fallback bucket for the fused kernel, 1024 x 1M
     # k=3 for the ladder's kernels, the drain's 640K x 1M k=16 launch for
     # the wgmma kernel's row, and for phase 1 at the padded and sliced kp
@@ -875,9 +925,16 @@ def main() -> int:
     # The launches the tree family's paths added (phase 9) beside v4's, and
     # v4 against its plain version at the shapes those paths gave it.
     kernels[1]["launches_trees"] = tree_launches
-    for key, (shape, _, ms, p_ms, b_ms) in tree_rows.items():
-        kernels[1].update({f"shape_{key}": shape, f"ms_{key}": ms, f"plain_ms_{key}": p_ms,
-                           f"bound_ms_{key}": b_ms})
+    # And the launches of the clustered 16-D ladder (phase 8b), with each
+    # kernel held at the shapes that path gave it.
+    hk_rows["fused_argmin"].update(tree_rows)
+    for row in kernels:
+        if row["name"] in hk_launches:
+            row["launches_high_k"] = hk_launches[row["name"]]
+        for key, (shape, _, ms, p_ms, b_ms) in hk_rows.get(row["name"], {}).items():
+            row.update({f"shape_{key}": shape, f"ms_{key}": ms, f"plain_ms_{key}": p_ms,
+                        f"bound_ms_{key}": b_ms})
+    _log(f"[time] whole script {time.perf_counter() - t_main:.1f} s after the card's checks")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
@@ -1082,6 +1139,204 @@ def _trees_phase(dev, queries, refs, oracle3) -> tuple[int, dict]:
                  f"MiB), load {load_ms:.0f} ms: answers equal")
     _log(f"[trees] phase {time.perf_counter() - t_phase:.1f} s")
     return drain_launches + wide_launches + scan_launches + promo_launches, v4_rows
+
+
+def _high_k_phase(dev) -> tuple[dict, dict]:
+    """Phase 8b (module docstring): v9's high-k ladder on
+    ``benchmarks/bench_k16_clustered.py``'s workload. Returns, per kernel,
+    the launches of the ladder's paths and, per shape they gave it, (shape,
+    max_abs_err, ms, plain_ms, bound_ms) of the kernel against its plain
+    version on those inputs."""
+    from nns_tpu_torch import NNEngine
+    from nns_tpu_torch.config import EngineConfig
+    from nns_tpu_torch.data import make_dataset
+    from nns_tpu_torch.kernels import _cuda, fused_ladder as fl
+    from nns_tpu_torch.kernels import mxu_expansion as mxe
+    from nns_tpu_torch.kernels.fused import fused_min_idx, fused_min_idx_plain
+    from nns_tpu_torch.kernels.mxu_expansion import MXUExpansion, phase1_plain
+    from nns_tpu_torch.trees.beam import BeamIndex, chunk_scan_candidates
+    from nns_tpu_torch.utils.bounds import fused_bound, phase1_bound
+    from nns_tpu_torch.utils.timing import cuda_ms
+
+    t_phase = time.perf_counter()
+    _, refs = make_dataset(K16, 1, N_REFS, SEED, clustered=True)
+    rng = np.random.default_rng(SEED + 1)
+
+    def indist(m):
+        base = refs[rng.integers(0, N_REFS, size=m)]
+        return (base + rng.normal(0, 0.01, size=base.shape)).astype(np.float32)
+
+    batches = [indist(N_QUERIES) for _ in range(W_HK)]
+    eng = NNEngine(9, EngineConfig(hk_probe_after=2048), device="cuda")
+    t0 = time.perf_counter()
+    eng.build(refs)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    if not isinstance(eng._built, MXUExpansion):
+        raise AssertionError(f"NNEngine(9) built {type(eng._built).__name__}")
+    # The first batch crosses hk_probe_after: the expansion engine answers
+    # it, then the probe builds the KD beam index and promotes.
+    t0 = time.perf_counter()
+    first = eng.query(batches[0])
+    first_ms = (time.perf_counter() - t0) * 1e3
+    bi = eng._built
+    if not isinstance(bi, BeamIndex):
+        raise AssertionError(f"the high-k probe kept {type(bi).__name__} on clustered data")
+    beam, budget = eng._hk_beam, eng._hk_budget
+    rung = f"chunk scan, budget {budget}" if budget is not None else f"per-query beam {beam}"
+
+    _log(f"[high-k] 1M clustered 16-D: NNEngine(9).build {build_ms:.1f} ms; first 10K batch "
+         f"{first_ms:.1f} ms (the expansion engine's answer, then the probe: KD build, "
+         f"frontier F={bi.lo.shape[0]}, cap={bi.pts.shape[1]}, extras={bi.extras.shape[0]}); "
+         f"rung {rung} (_hk_beam {beam}, _hk_budget {budget})")
+
+    # Record what the serving path hands the retained engine and what the
+    # engine's beam pass measured; the counts stay the wrappers'.
+    fallbacks, covs, p1_launches, full_scans = [], [], [], []
+    hk_fallback, query_with_coverage = bi.exact_fallback, bi.query_with_coverage
+    phase1, full_scan = mxe.phase1, mxe._full_scan_rows
+
+    def fallback_recorded(q_bad):
+        out = hk_fallback(q_bad)
+        fallbacks.append((q_bad, np.asarray(out)))
+        return out
+
+    def coverage_recorded(*a, **kw):
+        idx, cov = query_with_coverage(*a, **kw)
+        covs.append(cov)
+        return idx, cov
+
+    def phase1_recorded(qc, rc, r2h, tile_n, ts, rc_t=None):
+        out = phase1(qc, rc, r2h, tile_n, ts, rc_t=rc_t)
+        p1_launches.append(((qc, rc, r2h, tile_n, ts), rc_t, out))
+        return out
+
+    def full_scan_recorded(qb, refs_t, n):
+        full_scans.append((qb, refs_t.reshape(-1, refs_t.shape[2]), n))
+        return full_scan(qb, refs_t, n)
+
+    bi.exact_fallback, bi.query_with_coverage = fallback_recorded, coverage_recorded
+    eng.query_many(batches)  # warm: the chunk scan's shapes, the retry
+    fallbacks.clear()
+    covs.clear()
+    mxe.phase1, mxe._full_scan_rows = phase1_recorded, full_scan_recorded
+    try:
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        served = eng.query_many(batches)
+        drain_ms = (time.perf_counter() - t0) * 1e3 / W_HK
+        drain_launches = dict(_cuda.LAUNCHES)
+        drain_fb = list(fallbacks)
+        # An out-of-distribution batch (uniform over the unit box) through
+        # the same engine: most rows leave the beam uncertified and go to the
+        # retained expansion engine.
+        far = rng.random((N_QUERIES, K16), dtype=np.float32)
+        _cuda.reset_launches()
+        fallbacks.clear()
+        t0 = time.perf_counter()
+        served_far = eng.query(far)
+        far_ms = (time.perf_counter() - t0) * 1e3
+        far_launches = dict(_cuda.LAUNCHES)
+        far_fb = list(fallbacks)
+    finally:
+        mxe.phase1, mxe._full_scan_rows = phase1, full_scan
+    if not isinstance(eng._built, (BeamIndex, MXUExpansion)):
+        raise AssertionError(f"the ladder left {type(eng._built).__name__}")
+    st = bi.stage_queries(np.concatenate(batches))
+    base_cov = float((bi.query_staged_scan_with_flags(st, budget) if budget is not None
+                      else bi.query_staged_with_flags(st, beam))[1].mean())
+    n_drain_fb = sum(len(q) for q, _ in drain_fb)
+    n_far_fb = sum(len(q) for q, _ in far_fb)
+    _log(f"[high-k] query_many over {W_HK} 10K batches (second call): {drain_ms:.3f} ms/batch; "
+         f"coverage after the 4x retry {covs[0]:.6f} (base pass {base_cov:.6f}); rows to "
+         f"_hk_fallback {n_drain_fb}; launches {({k: v for k, v in drain_launches.items() if v})}")
+    _log(f"[high-k] out-of-distribution 10K batch: {far_ms:.1f} ms, coverage {covs[-1]:.6f}, "
+         f"rows to _hk_fallback {n_far_fb}, launches "
+         f"{({k: v for k, v in far_launches.items() if v})}; the engine is now "
+         f"{type(eng._built).__name__} (_hk_budget {eng._hk_budget})")
+    if budget is not None and drain_launches["fused_argmin"] < 1:
+        raise AssertionError("the chunk-scan drain did not launch fused_argmin")
+    if n_drain_fb and drain_launches["expansion_phase1_wgmma"] < 1:
+        raise AssertionError("the drain's _hk_fallback did not launch the wgmma kernel")
+    if n_far_fb == 0 or far_launches["expansion_phase1_wgmma"] < 1:
+        raise AssertionError("the out-of-distribution batch did not reach the wgmma kernel "
+                             f"through _hk_fallback ({n_far_fb} rows)")
+
+    # The f64 gates: a subsample of every batch (the first as the probe's
+    # batch answered it), and every _hk_fallback row.
+    sub = np.random.default_rng(7).choice(N_QUERIES, GATE_ROWS, replace=False)
+    for i, (qb, idx) in enumerate([(batches[0], first), *zip(batches, served),
+                                   (far, served_far)]):
+        what = ("first batch (probe)" if i == 0 else
+                f"drain batch {i - 1}" if i <= W_HK else "out-of-distribution batch")
+        _gate(f"high-k {what} (512 subsample, float64 scan on the card)", idx[sub], qb[sub],
+              refs, _oracle_f64_card(qb[sub], refs, dev)[1])
+    fb_q = np.concatenate([q for q, _ in drain_fb + far_fb])
+    fb_idx = np.concatenate([i for _, i in drain_fb + far_fb])
+    _gate(f"high-k _hk_fallback rows (all {len(fb_q)}, float64 scan on the card)", fb_idx, fb_q,
+          refs, _oracle_f64_card(fb_q, refs, dev)[1])
+
+    # The kernels at the shapes this path gave them: v4 on one chunk of the
+    # 16-D chunk scan, the wgmma kernel on the fallback's phase-1 launch,
+    # and v3 on the fallback's tier-2 rows, if the band refused any.
+    v4_rows, p1_rows, pm_rows = {}, {}, {}
+    if budget is not None:
+        qc = bi.stage_queries(batches[0]).q_dev[0]
+        _, _, cand_dm, c, _ = chunk_scan_candidates(qc, bi.lo, bi.hi, bi.pts, bi.ids, bi.extras,
+                                                    bi.extras_ids, budget)
+        shape = f"16-D chunk scan, one chunk: {qc.shape[0]} x {c} k=16 (pitch {cand_dm.shape[1]})"
+        err, ms, p_ms = _compare(f"fused {shape}", fused_min_idx, fused_min_idx_plain,
+                                 (qc, cand_dm, c))
+        v4_rows["chunk16"] = (shape, err, ms, p_ms, fused_bound(qc.shape[0], c, K16)[0])
+    args, rc_t, kern = p1_launches[-1]  # the out-of-distribution batch's fallback
+    delta = eng._hk_mxu.stage_queries(far_fb[-1][0]).delta
+    plain_ms, plain = cuda_ms(phase1_plain, *args, iters=1, warmup=0)
+    err, text = _phase1_check("expansion_phase1_wgmma on _hk_fallback's launch", kern, plain,
+                              delta)
+    kern_ms, _ = cuda_ms(phase1, *args, rc_t)
+    m_fb = args[0].shape[0]
+    shape = f"{m_fb} x 1M k=16 (_hk_fallback of the out-of-distribution batch)"
+    p1_rows["hk_fallback"] = (shape, err, kern_ms, plain_ms, phase1_bound(m_fb, N_REFS, K16)[0])
+    _log(f"[kernel] phase 1 {shape}: wgmma {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, {text}")
+    if full_scans:
+        qb, refs_pm, n = full_scans[-1]
+        shape = f"{qb.shape[0]} x 1M k=16 (tier 2 under _hk_fallback, kp = {refs_pm.shape[1]})"
+        err, ms, p_ms = _compare(f"fused_point_major {shape}", fl.fused_point_major_min_idx,
+                                 fl.fused_point_major_plain, (qb, refs_pm, n))
+        pm_rows["hk_fallback"] = (shape, err, ms, p_ms,
+                                  fused_bound(qb.shape[0], n, refs_pm.shape[1])[0])
+    _log(f"[high-k] phase {time.perf_counter() - t_phase:.1f} s")
+    names = ("fused_argmin", "expansion_phase1_wgmma", "fused_point_major")
+    launches = {k: drain_launches[k] + far_launches[k] for k in names}
+    return launches, dict(zip(names, (v4_rows, p1_rows, pm_rows)))
+
+
+def _harness_phase() -> None:
+    """Phase 10 (module docstring): ``python -m nns_tpu_torch`` over the
+    reference grid, every version, in this process on the card."""
+    from nns_tpu_torch import harness
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "grid.jsonl")
+        argv = ["--grid", "reference", "--versions", "all", "--device", "cuda",
+                "--warmup", str(HARNESS_WARMUP), "--iters", str(HARNESS_ITERS), "--jsonl", path]
+        _log(f"[harness] python -m nns_tpu_torch {' '.join(argv[:-2])} (cut from --warmup 2 "
+             f"--iters 3 to keep the script near its earlier run time)")
+        rc = harness.main(argv)
+        with open(path) as fh:
+            recs = [json.loads(line) for line in fh]
+    if rc != 0:
+        raise AssertionError(f"the harness returned {rc}")
+    v8 = [r for r in recs if r["version"] == "sharded"]
+    ported = [r for r in recs if r["version"] != "sharded"]
+    if len(v8) != 1 or not v8[0]["note"].startswith(harness.NOT_PORTED):
+        raise AssertionError(f"v8's records: {v8}")
+    bad = [r for r in ported if r["recall_at_1"] != 1.0]
+    if len(ported) != 14 * 10 or bad:
+        raise AssertionError(f"{len(ported)} records of ported versions, below recall 1.0: {bad}")
+    _log(f"[harness] {len(ported)} records of v0-v7 and v9-v14 at recall@1 1.0, v8 "
+         f"{v8[0]['note']}; phase {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

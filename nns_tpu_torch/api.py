@@ -218,8 +218,8 @@ def nns(
 class NNEngine:
     """Build/query split: build stages the index (v14, and the beam frontier
     it may promote to), the tree (v10-v13, v11 and v13 with their beam
-    frontier on ``device``), the split-bf16 expansion engine (v9, k >= 8),
-    the dim-major refs (v4, and v11/v13 past their trees' k), or the refs
+    frontier on ``device``), the split-bf16 expansion engine (v9, k >= 8,
+    and the KD beam index its high-k ladder may promote to), the dim-major refs (v4, and v11/v13 past their trees' k), or the refs
     themselves (v1-v3, v5-v7, v9 at k < 8) once; query / query_many reuse
     them. v0 stages nothing: it scans on the host. Tree and index engines
     also ``save`` and ``load``, in the JAX package's file formats."""
@@ -234,10 +234,13 @@ class NNEngine:
         self._refs: np.ndarray | None = None
         self._cov_miss = 0
         self._cov_seen = 0
-        # Times v9's high-k probe (nns_tpu/api.py:342-372) asked for a KD
-        # beam index, which the port does not take up yet: the engine keeps
-        # serving on the expansion engine instead.
-        self.promotions_deferred = 0
+        # High-k (v9) adaptation state, see _query_high_k.
+        self._hk_seen = 0
+        self._hk_probed = False
+        self._hk_beam = 8
+        self._hk_budget: int | None = None  # chunk-scan bucket budget
+        self._hk_mxu: Any = None
+        self._hk_recent: np.ndarray | None = None
 
     def _note_coverage(self, cov: float, m: int, good_cov: float,
                        miss_frac: float) -> bool:
@@ -287,6 +290,10 @@ class NNEngine:
         self._cov_seen = 0
         self._hk_seen = 0  # fresh index: re-arm the high-k probe
         self._hk_probed = False
+        self._hk_beam = 8
+        self._hk_budget = None
+        self._hk_mxu = None
+        self._hk_recent = None
         if self._auto:
             # Build/query semantics amortize index construction: the
             # supercell index for large 3-D sets, the expansion engine for
@@ -354,19 +361,107 @@ class NNEngine:
         batch never triggers the octree build, a synchronous stall."""
         return self._note_coverage(cov, m, good_cov=0.95, miss_frac=0.3)
 
-    def _note_high_k(self, m: int) -> None:
-        """Where the JAX engine runs its one-time high-k probe for a KD beam
-        index (nns_tpu/api.py:342-372: after hk_probe_after queries over at
-        least hk_promote_n_min refs of k <= kd_max_k), count a deferred
-        promotion: that ladder is not ported yet."""
+    # -- v9's high-k adaptation ladder (nns_tpu/api.py:290-429) -------------
+
+    def _hk_fallback(self, q_bad: np.ndarray) -> np.ndarray:
+        """Exact re-answer of beam-uncertified rows by the retained engine
+        (the expansion engine, whose own uncertified rows take the v3 full
+        scan). The JAX package pads the rows to a power-of-two bucket to
+        bound its compiles; the answers are the same without."""
+        return _as_idx(self._hk_mxu.query(q_bad))
+
+    def _query_high_k(self, queries: np.ndarray) -> np.ndarray:
+        """v9's serving path with its workload ladder. The expansion engine
+        scans every ref, the right engine for uniform high-k data; on
+        clustered data a KD beam-frontier index prunes the scanned set. After
+        enough query volume the engine probes the beam's certificate coverage
+        on live queries and promotes when it prunes well; sustained coverage
+        misses demote the chunk scan to the per-query beam, then the beam to
+        the retained expansion engine. Every rung is exact: beam-uncertified
+        rows are re-answered by the retained engine (``_hk_fallback``)."""
+        from nns_tpu_torch.trees.beam import BeamIndex
+
+        if isinstance(self._built, BeamIndex):
+            idx, cov = self._built.query_with_coverage(
+                queries, beam=self._hk_beam, budget=self._hk_budget)
+            if self._note_coverage(cov, queries.shape[0], good_cov=0.5, miss_frac=0.7):
+                if self._hk_budget is not None:
+                    # The scan rung's chunk locality failed on the live
+                    # stream (its probe certified per-query beam-16
+                    # coverage only): the per-query beam gets a fresh
+                    # hysteresis window before the index is given up.
+                    self._hk_budget = None
+                else:
+                    # Only the probe promotes, and it keeps the engine it
+                    # replaced.
+                    self._built = self._hk_mxu
+            return _as_idx(idx)
+        idx = _as_idx(self._built.query(queries))
+        self._maybe_promote_high_k(queries)
+        return idx
+
+    def _maybe_promote_high_k(self, queries: np.ndarray) -> None:
+        """The one-time probe, after hk_probe_after queries over at least
+        hk_promote_n_min refs of k <= kd_max_k: build the KD beam index and
+        measure its certificate coverage on the most recent <= 512 live
+        queries. Rung 1, the chunk scan, when per-query beam-16 base coverage
+        reaches hk_promote_cov on a frontier of at least 64 buckets (the
+        probe window spans the whole workload's buckets, so the scan itself
+        cannot be probed: beam-16 base coverage predicts it); rung 2, the
+        smallest beam in (4, 8, 16) whose base pass covers; then a beam of 4
+        or 8 that covers only with its 4x retry; else the engine stays. The
+        probe runs once per ``build`` and never again (as in the JAX
+        package)."""
         cfg = self.config
         n, k = self._refs.shape
         if self._hk_probed or n < cfg.hk_promote_n_min or k > cfg.kd_max_k:
             return
-        self._hk_seen += m
-        if self._hk_seen >= cfg.hk_probe_after:
-            self._hk_probed = True
-            self.promotions_deferred += 1
+        self._hk_seen += queries.shape[0]
+        # Rolling window of the most recent <= 512 live queries, so that a
+        # small triggering batch still probes on a representative sample.
+        recent = queries[-512:]
+        if self._hk_recent is not None and len(recent) < 512:
+            recent = np.concatenate([self._hk_recent[-(512 - len(recent)):], recent], axis=0)
+        self._hk_recent = recent
+        if self._hk_seen < cfg.hk_probe_after:
+            return
+        self._hk_probed = True
+        self._hk_recent = None
+        from nns_tpu_torch.trees.kdtree import KDTree
+
+        bi = KDTree.build(self._refs).device_index(self.device)
+        f_total = bi.lo.shape[0]
+
+        def _promote(beam: int, budget: int | None = None) -> None:
+            self._hk_mxu = self._built
+            bi.exact_fallback = self._hk_fallback
+            self._hk_beam = beam
+            self._hk_budget = budget
+            self._built = bi
+
+        scan_ready = bi.desc_dim is not None and f_total >= 4 * 16
+        if scan_ready:
+            _, ok = bi.query_with_flags(recent, beam=16)
+            if float(ok.mean()) >= cfg.hk_promote_cov:
+                return _promote(16, budget=min(cfg.hk_scan_budget, f_total // 2))
+        else:
+            # Rung 2 (not tried past a beam-16 probe that missed: base
+            # coverage is monotone in the beam).
+            for beam in (4, 8, 16):
+                if f_total < 4 * beam:
+                    break  # the beam would cover >= 1/4 of the frontier
+                _, ok = bi.query_with_flags(recent, beam=beam)
+                if float(ok.mean()) >= cfg.hk_promote_cov:
+                    return _promote(beam)
+        # No base pass covers: a beam that covers with its 4x retry.
+        for beam in (4, 8):
+            _, ok = bi.query_with_flags(recent, beam=beam)
+            bad = np.flatnonzero(~ok)
+            if len(bad) and f_total > 4 * beam:
+                _, ro = bi.query_with_flags(recent[bad], beam=beam * 4)
+                ok[bad] = ro
+            if float(ok.mean()) >= cfg.hk_promote_cov:
+                return _promote(beam)
 
     def query(self, queries) -> np.ndarray:
         from nns_tpu_torch.kernels.cell_list import CellListEngine
@@ -378,6 +473,8 @@ class NNEngine:
 
         queries = self._check_queries(queries)
         built, m = self._built, queries.shape[0]
+        if self.spec.num == 9 and isinstance(built, (BeamIndex, FusedBruteForce, MXUExpansion)):
+            return self._query_high_k(queries)
         if isinstance(built, CellListEngine):
             idx, cov = built.query_with_coverage(queries)
             if self._note_cell_coverage(cov, m):
@@ -395,11 +492,8 @@ class NNEngine:
             if self.spec.num in (10, 12):
                 return _as_idx(built.query_host(queries))
             return _as_idx(built.query_device(queries, self.device))
-        if isinstance(built, (FusedBruteForce, MXUExpansion)):
-            idx = _as_idx(built.query(queries))
-            if self.spec.num == 9:
-                self._note_high_k(m)
-            return idx
+        if isinstance(built, FusedBruteForce):
+            return _as_idx(built.query(queries))
         # The version's own function (nns_tpu/api.py:637), on the staged refs.
         refs = self._refs if built is None else built
         return self.spec(queries, refs, self.config, self.device)

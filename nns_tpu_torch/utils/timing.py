@@ -7,12 +7,15 @@ Where a call's device work is shorter than its host time (a wrapper costs
 tens of microseconds of Python), that brackets the host time.
 ``cuda_device_ms`` queues a sleep kernel ahead of the timed calls, so that
 the host enqueues them while the device is busy and each event pair
-brackets the call's device work alone.
+brackets the call's device work alone. ``now_ns`` and ``synchronize`` time
+a region on the host clock (the harness's build and query times): the
+region ends in a host copy or in ``synchronize``.
 """
 
 from __future__ import annotations
 
 import statistics
+import time
 from typing import Any, Callable
 
 import torch
@@ -51,3 +54,15 @@ def cuda_device_ms(fn: Callable[..., Any], *args: Any, iters: int = 5,
     """As ``cuda_ms``, with the device held busy while the host enqueues
     the timed calls: the device time of each call, without its host time."""
     return _timed(fn, args, iters, warmup, _HOLD_CYCLES)
+
+
+def now_ns() -> int:
+    """Nanosecond host clock (the JAX package's ``utils/timing.now_ns``)."""
+    return time.perf_counter_ns()
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU, where every op has finished when it returns)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

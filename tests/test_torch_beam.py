@@ -26,6 +26,11 @@ from nns_tpu.trees.octree import Octree as JOctree
 from nns_tpu_torch.kernels import _cuda
 from nns_tpu_torch.trees.kdtree import KDTree
 from nns_tpu_torch.trees.octree import Octree
+from test_torch_native import native_libraries  # noqa: F401  (the guard)
+
+# The JAX package's host library loaded in this process: its numpy fallbacks
+# build other trees (tests/test_torch_native.py).
+pytestmark = pytest.mark.usefixtures("native_libraries")
 
 FIELDS = ("lo", "hi", "pts", "ids", "valid", "extras", "extras_ids")
 

@@ -19,6 +19,11 @@ from conftest import assert_exact
 from nns_tpu.data import make_dataset
 from nns_tpu_torch.convert import cell_engine_from_numpy
 from nns_tpu_torch.kernels.cell_list import CellListEngine, cell_scan, nns_cell_list
+from test_torch_native import native_libraries  # noqa: F401  (the guard)
+
+# The JAX package's host library loaded in this process: its numpy fallbacks
+# build other trees (tests/test_torch_native.py).
+pytestmark = pytest.mark.usefixtures("native_libraries")
 
 D2_RTOL = 2.0 ** -21  # FMA contraction on the XLA side only (module docstring)
 

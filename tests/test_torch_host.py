@@ -26,6 +26,11 @@ import nns_tpu_torch.kernels.layouts as pt_layouts
 import nns_tpu_torch.kernels.oracle as pt_oracle
 import nns_tpu_torch.native as pt_native
 from nns_tpu_torch.kernels.cell_list import CellListEngine
+from test_torch_native import native_libraries  # noqa: F401  (the guard)
+
+# The JAX package's host library loaded in this process: its numpy fallbacks
+# build other trees (tests/test_torch_native.py).
+pytestmark = pytest.mark.usefixtures("native_libraries")
 
 _PORT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "nns_tpu_torch")
@@ -135,7 +140,8 @@ def test_cell_stage_numpy_path_equals_native(monkeypatch):
 
 def test_import_leaves_jax_out():
     code = ("import sys, nns_tpu_torch, nns_tpu_torch.convert, nns_tpu_torch.kernels, "
-            "nns_tpu_torch.kernels.topk, nns_tpu_torch.trees, nns_tpu_torch.utils.timing; "
+            "nns_tpu_torch.kernels.topk, nns_tpu_torch.trees, nns_tpu_torch.utils.timing, "
+            "nns_tpu_torch.harness, nns_tpu_torch.utils.report; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'nns_tpu')))")
     root = os.path.dirname(_PORT_DIR)
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,

@@ -33,6 +33,11 @@ from nns_tpu_torch.kernels import _cuda
 from nns_tpu_torch.kernels import mxu_expansion as P
 from nns_tpu_torch.kernels.fused import FusedBruteForce
 from nns_tpu_torch.kernels.oracle import recall_at_1
+from test_torch_native import native_libraries  # noqa: F401  (the guard)
+
+# The JAX package's host library loaded in this process: the high-k probe
+# builds a KD tree through it (tests/test_torch_native.py).
+pytestmark = pytest.mark.usefixtures("native_libraries")
 
 
 def _pair(refs, tile_m=8, tile_n=128):
@@ -523,20 +528,30 @@ def test_auto_picks_v9_at_high_k(k, expect):
 
 
 def test_v9_defers_the_high_k_probe():
-    # Where JAX probes a KD beam index (n >= hk_promote_n_min, after
-    # hk_probe_after queries), the port counts one deferred promotion, once.
+    # The high-k probe waits for hk_probe_after queries over at least
+    # hk_promote_n_min refs, then runs once, as the JAX engine's does
+    # (nns_tpu/api.py:342-429): both engines land on the same rung and
+    # answer alike before and after it (the ladder: test_torch_high_k.py).
+    import nns_tpu.config
     from nns_tpu_torch.config import EngineConfig
 
-    cfg = EngineConfig(hk_promote_n_min=1000, hk_probe_after=100)
+    cfg = dict(hk_promote_n_min=1000, hk_probe_after=100)
     q, r = make_dataset(16, 60, 1500, seed=6)
-    eng = nns_tpu_torch.NNEngine(9, config=cfg, device="cpu").build(r)
-    eng.query(q)
-    assert eng.promotions_deferred == 0
-    eng.query_many([q, q])
-    assert eng.promotions_deferred == 1
-    eng.query(q)
-    assert eng.promotions_deferred == 1
-    assert isinstance(eng._built, P.MXUExpansion)
+    eng = nns_tpu_torch.NNEngine(9, config=EngineConfig(**cfg), device="cpu").build(r)
+    jeng = nns_tpu.NNEngine(9, nns_tpu.config.EngineConfig(**cfg)).build(r)
+
+    def rung(e):
+        return type(e._built).__name__, e._hk_probed, e._hk_beam, e._hk_budget
+
+    np.testing.assert_array_equal(eng.query(q), np.asarray(jeng.query(q)))
+    assert not eng._hk_probed and isinstance(eng._built, P.MXUExpansion)
+    for got, want in zip(eng.query_many([q, q]), jeng.query_many([q, q])):
+        np.testing.assert_array_equal(got, np.asarray(want))
+    assert eng._hk_probed and rung(eng) == rung(jeng)
+    assert eng._hk_mxu is None or isinstance(eng._hk_mxu, P.MXUExpansion)
+    np.testing.assert_array_equal(eng.query(q), np.asarray(jeng.query(q)))
+    assert_exact(eng.query(q), q, r)
+    assert rung(eng) == rung(jeng)
 
 
 def test_engine_from_jax_state_equals_built():

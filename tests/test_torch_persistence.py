@@ -19,6 +19,11 @@ from nns_tpu.kernels.cell_list import CellListEngine as JCellListEngine
 from nns_tpu.trees.beam import BeamIndex as JBeamIndex
 from nns_tpu_torch.kernels.cell_list import CellListEngine
 from nns_tpu_torch.trees.beam import BeamIndex
+from test_torch_native import native_libraries  # noqa: F401  (the guard)
+
+# The JAX package's host library loaded in this process: its numpy fallbacks
+# build other trees (tests/test_torch_native.py).
+pytestmark = pytest.mark.usefixtures("native_libraries")
 
 
 def test_cell_engine_files_equal_and_load_across(tmp_path):

@@ -27,6 +27,11 @@ from nns_tpu_torch.kernels.fused import FusedBruteForce
 from nns_tpu_torch.trees.beam import BeamIndex
 from nns_tpu_torch.trees.kdtree import KDTree
 from nns_tpu_torch.trees.octree import Octree
+from test_torch_native import native_libraries  # noqa: F401  (the guard)
+
+# The JAX package's host library loaded in this process: its numpy fallbacks
+# build other trees (tests/test_torch_native.py).
+pytestmark = pytest.mark.usefixtures("native_libraries")
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
