@@ -123,9 +123,24 @@ result) without them. Phases, each raising on failure:
 10. the benchmark harness (``_harness_phase``): ``harness.main`` over the
    reference grid, every version, on the card, with ``--warmup`` and
    ``--iters`` cut to HARNESS_WARMUP and HARNESS_ITERS; it prints its
-   table, every record of v0-v7 and v9-v14 must read recall@1 1.0, and v8
-   gives one record that says it is not ported;
-11. one JSON line of per-kernel results, each row with the shape its ms,
+   table, and all 15 x 10 records must read recall@1 1.0 (v8 on one card
+   runs the v4 path);
+11. the multi-device layer (``_multi_phase``) on ``Mesh.virtual(4)`` of the
+   card (four shards, four local kernels and the real merge on one card)
+   and on ``Mesh.virtual((2, 2))``: v8 (``sharded_argmin``) at 1024 x 1M,
+   k = 3 and 16, bit-equal to ``nns(version=4)`` and gated on a float64
+   scan; the 2-D merge at k = 3, equal to the 1-D answer; ``ring_argmin``
+   at 1024 x 2^24 refs, bit-equal to the v4 kernel over them, gated, with
+   ids past 2^23; ``ShardedCellEngine`` over the main path's 1M refs and
+   its W batches plus the out-of-box one: answers, coverage and every
+   winner table equal to the single-device drain's, two submit tokens,
+   ``query_topk`` (k = 8) and save / load onto 1 and 2 shards; then the v4
+   kernel on one shard's block of v8 (1024 x 250,112) and the scan on one
+   shard's group range of batch 0 against their plain versions (tolerance
+   0). It prints v8's staged query ms beside v4's and the four-shard
+   drain's ms per batch beside the single-device drain's: on one card
+   that is the cost of the merge and the per-shard launches, not scaling;
+12. one JSON line of per-kernel results, each row with the shape its ms,
    plain_ms and bound come from (the scan also on the skewed batch,
    ``*_skewed``; the ladder's kernels and v4 also at 1024 x 1M k=16,
    ``*_k16``): each kernel's main path (for the wgmma kernel's row the
@@ -142,7 +157,9 @@ result) without them. Phases, each raising on failure:
    and bound (``*_chunk``, ``*_wide_fallback``, ``*_v14_fallback``, and
    phase 8b's ``*_chunk16``), the wgmma kernel's and v3's rows their
    phase-8b launches (``*_hk_fallback``); these three rows carry phase 8b's
-   launches (``launches_high_k``). Each phase prints its seconds (``[time]``).
+   launches (``launches_high_k``); v4's and the scan's rows carry phase
+   11's launches (``launches_multi``) and their shard shapes (``*_shard``).
+   Each phase prints its seconds (``[time]``).
 """
 
 from __future__ import annotations
@@ -172,6 +189,7 @@ W_HK = 8  # in-distribution 10K batches of the clustered 16-D ladder's drain
 HARNESS_WARMUP, HARNESS_ITERS = 1, 1
 WIDE_BOX = (-1e4, 1e4)
 K_NN = 8
+RING_REFS = 1 << 24  # the ring's refs in phase 11 (192 MB at k = 3)
 
 
 def _log(msg: str) -> None:
@@ -845,7 +863,12 @@ def main() -> int:
     # 10. The benchmark harness over the reference grid.
     _harness_phase()
 
-    # 11. Results, each kernel at its main path's shape: one 10K batch for
+    # 11. The multi-device layer on a virtual four-shard mesh of the card.
+    multi_launches, multi_rows = _multi_phase(dev, queries, refs, batches, ood)
+    for name, rows in multi_rows.items():
+        results[name].extend(r[1:4] for r in rows.values())
+
+    # 12. Results, each kernel at its main path's shape: one 10K batch for
     # the scan, the 8-query fallback bucket for the fused kernel, 1024 x 1M
     # k=3 for the ladder's kernels, the drain's 640K x 1M k=16 launch for
     # the wgmma kernel's row, and for phase 1 at the padded and sliced kp
@@ -928,10 +951,15 @@ def main() -> int:
     # And the launches of the clustered 16-D ladder (phase 8b), with each
     # kernel held at the shapes that path gave it.
     hk_rows["fused_argmin"].update(tree_rows)
+    # And the launches of the multi-device paths (phase 11), with v4 and the
+    # scan held at the shard shapes.
     for row in kernels:
         if row["name"] in hk_launches:
             row["launches_high_k"] = hk_launches[row["name"]]
-        for key, (shape, _, ms, p_ms, b_ms) in hk_rows.get(row["name"], {}).items():
+        if row["name"] in multi_launches:
+            row["launches_multi"] = multi_launches[row["name"]]
+        for key, (shape, _, ms, p_ms, b_ms) in [*hk_rows.get(row["name"], {}).items(),
+                                                *multi_rows.get(row["name"], {}).items()]:
             row.update({f"shape_{key}": shape, f"ms_{key}": ms, f"plain_ms_{key}": p_ms,
                         f"bound_ms_{key}": b_ms})
     _log(f"[time] whole script {time.perf_counter() - t_main:.1f} s after the card's checks")
@@ -1311,6 +1339,158 @@ def _high_k_phase(dev) -> tuple[dict, dict]:
     return launches, dict(zip(names, (v4_rows, p1_rows, pm_rows)))
 
 
+def _multi_phase(dev, queries, refs, batches, ood) -> tuple[dict, dict]:
+    """Phase 11 (module docstring): the multi-device layer on a virtual
+    four-shard mesh of the card. Returns, per kernel, the launches of its
+    paths (each path driven with the counts zeroed just before it and read
+    just after) and, per shard shape, (shape, max_abs_err, ms, plain_ms,
+    bound_ms) of the kernel against its plain version there."""
+    from nns_tpu_torch import nns
+    from nns_tpu_torch.data import make_dataset
+    from nns_tpu_torch.kernels import _cuda
+    from nns_tpu_torch.kernels.cell_list import CellListEngine, cell_scan, cell_scan_plain
+    from nns_tpu_torch.kernels.fused import FusedBruteForce, fused_min_idx, fused_min_idx_plain
+    from nns_tpu_torch.parallel import (Mesh, ShardedBruteForce, ShardedCellEngine, ring_argmin,
+                                        sharded_argmin, sharded_argmin_2d)
+    from nns_tpu_torch.utils.bounds import cell_bound, fused_bound
+    from nns_tpu_torch.utils.timing import cuda_ms
+
+    t_phase = time.perf_counter()
+    mesh4, mesh22 = Mesh.virtual(4, dev), Mesh.virtual((2, 2), dev)
+    launches = {"fused_argmin": 0, "cell_scan": 0}
+    label = "one card, four shards: the cost of the merge and the per-shard launches, not scaling"
+
+    def path(name, fn, kernels):
+        """Drive one path with the counts zeroed just before and read just
+        after; each of ``kernels`` must have launched."""
+        _cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for k in kernels:
+            if _cuda.LAUNCHES[k] < 1:
+                raise AssertionError(f"{name} did not launch {k}")
+        for k in launches:
+            launches[k] += _cuda.LAUNCHES[k]
+        return out
+
+    def equal(name, got, want):
+        got, want = np.asarray(got), np.asarray(want)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{name}: differs in {int((got != want).sum())} of {want.size}")
+
+    # v8 on the 1-D mesh at the ladder's 1024 x 1M, k = 3 and 16, and on
+    # the 2-D mesh at k = 3: bit-equal to nns(version=4), recall 1.0.
+    v8_ms = {}
+    for k in (3, 16):
+        qk, rk = (queries[:1024], refs) if k == 3 else make_dataset(k, 1024, N_REFS, SEED)
+        want = nns(qk, rk, version=4, device=dev)
+        got = path(f"sharded_argmin k={k}", lambda: sharded_argmin(qk, rk, mesh4).cpu().numpy(),
+                   ("fused_argmin",))
+        equal(f"v8 1-D k={k}", got, want)
+        _gate(f"v8 1-D 1024 x 1M k={k} (float64 scan on the card)", got, qk, rk,
+              _oracle_f64_card(qk, rk, dev)[1])
+        if k == 3:
+            got2 = path("sharded_argmin_2d", lambda: sharded_argmin_2d(qk, rk, mesh22).cpu().numpy(),
+                        ("fused_argmin",))
+            equal("v8 2-D (2, 2) k=3", got2, got)
+            _log("[multi] v8 2-D (2, 2) 1024 x 1M k=3: equal to the 1-D answer")
+        eng8, eng4 = ShardedBruteForce(rk, mesh4), FusedBruteForce(rk, device=dev)
+        q_dev = torch.as_tensor(qk, device=dev)
+        v8_ms[k] = (cuda_ms(eng8.query, q_dev)[0], cuda_ms(eng4.query, q_dev)[0])
+        _log(f"[multi] v8 1024 x 1M k={k}: equal to nns(version=4); staged query {v8_ms[k][0]:.4f} "
+             f"ms on four shards, v4 {v8_ms[k][1]:.4f} ms (CUDA events, median of 5; {label})")
+        if k == 3:
+            shard_q, shard_blk, shard_n = q_dev, eng8.blocks[0], eng8.shard_n
+        del eng8, eng4
+
+    # The ring over 2^24 refs: bit-equal to the v4 kernel over them, recall
+    # 1.0, and ids past 2^23 reached.
+    q_r, r_r = make_dataset(3, 1024, RING_REFS, SEED)
+    t0 = time.perf_counter()
+    got = path("ring_argmin", lambda: ring_argmin(q_r, r_r, mesh4).cpu().numpy(),
+               ("fused_argmin",))
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    equal("ring 2^24", got, FusedBruteForce(r_r, device=dev).query(q_r).cpu().numpy())
+    if got.max() < RING_REFS // 2:
+        raise AssertionError(f"the ring's largest id {got.max()} is below {RING_REFS // 2}")
+    _gate("ring 1024 x 2^24 k=3 (float64 scan on the card)", got, q_r, r_r,
+          _oracle_f64_card(q_r, r_r, dev)[1])
+    _log(f"[multi] ring 1024 x 2^24 k=3 on four shards: {ring_ms:.1f} ms one-shot (host padding, "
+         f"upload and 16 launches); equal to the v4 kernel; largest id {got.max()}")
+    del q_r, r_r
+
+    # The sharded supercell drain over the main path's 1M refs and batches.
+    queue = list(batches) + [ood]
+    single = CellListEngine(refs, device=dev)
+    sc = ShardedCellEngine(refs, mesh4)
+    got, cov = path("the sharded drain", lambda: sc.query_queue(queue, return_coverage=True),
+                    ("cell_scan", "fused_argmin"))
+    want, cov_s = single.query_queue(queue, return_coverage=True)
+    if cov != cov_s:
+        raise AssertionError("the sharded drain's coverage differs from the single-device drain's")
+    for w, (a, b) in enumerate(zip(got, want)):
+        equal(f"sharded drain batch {w}", a, b)
+    sub = np.random.default_rng(8).choice(N_QUERIES, GATE_ROWS, replace=False)
+    _gate("sharded drain, out-of-box batch (512 subsample)", got[-1][sub], ood[sub], refs)
+    denses = single.stage_queue_ragged(queue)[0]
+    G = single.D ** 3
+    for w, (t, t_s) in enumerate(zip(sc.query_queue_staged(denses),
+                                     single.query_queue_staged(denses))):
+        if not torch.equal(t[:G], t_s):
+            raise AssertionError(f"sharded winner table {w} differs from the single-device one")
+    tokens = path("two submit tokens", lambda: [sc.query_submit(b) for b in batches[:2]],
+                  ("cell_scan",))
+    for b, t in zip(batches[:2], tokens):
+        for x, y in zip(sc.query_collect(t), single.query_with_flags(b)):
+            equal("submit/collect", x, y)
+    topk = path("sharded query_topk", lambda: sc.query_topk(queries, K_NN), ())
+    for x, y in zip(topk, single.query_topk(queries, K_NN)):
+        equal("sharded query_topk", x, y)
+    with tempfile.TemporaryDirectory() as tmp:
+        p = os.path.join(tmp, "cells.npz")
+        sc.save(p)
+        want0 = sc.query(batches[0])
+        equal("CellListEngine.load", CellListEngine.load(p, device=dev).query(batches[0]), want0)
+        equal("ShardedCellEngine.load (2 shards)",
+              ShardedCellEngine.load(p, Mesh.virtual(2, dev)).query(batches[0]), want0)
+    _log(f"[multi] sharded drain over W={len(queue)} (the out-of-box batch last): answers, "
+         f"coverage and {len(denses)} winner tables equal the single-device drain's "
+         f"(G={G}, g_pad={sc.g_pad}); two submit tokens, query_topk k={K_NN} and save/load onto "
+         f"1 and 2 shards agree")
+    # Timed in turns (four shards, one device, one device, four shards),
+    # each after the warm drains above.
+    drain = {"four shards": [], "one device": []}
+    for name, eng in (("four shards", sc), ("one device", single), ("one device", single),
+                      ("four shards", sc)):
+        t0 = time.perf_counter()
+        eng.query_queue(batches)
+        drain[name].append((time.perf_counter() - t0) * 1e3 / len(batches))
+    _log(f"[multi] uniform drain W={len(batches)}, in turns: "
+         f"{' / '.join(f'{x:.3f}' for x in drain['four shards'])} ms/batch on four shards, "
+         f"{' / '.join(f'{x:.3f}' for x in drain['one device'])} on one device (host clock; "
+         f"{label})")
+
+    # The kernels at the shard shapes: v4 on one shard's block of v8, the
+    # scan on one shard's group range of batch 0.
+    rows = {}
+    err, ms, p_ms = _compare(f"fused 1024 x {shard_n} k=3 (one of v8's four shards)",
+                             fused_min_idx, fused_min_idx_plain, (shard_q, shard_blk, shard_n))
+    rows["fused_argmin"] = {"shard": (f"1024 x {shard_n} k=3 (one of v8's four shards)", err, ms,
+                                      p_ms, fused_bound(1024, shard_n, K)[0])}
+    packed, _, q_max = single.stage(batches[0])
+    dense, _ = single._dense_scatter(packed, q_max)
+    gl = sc.g_local
+    _, halo_dm, halo_ids = sc.shards[0]
+    args = (torch.as_tensor(dense[:gl], device=dev), halo_dm, halo_ids, sc.halo2)
+    shape = f"one shard's groups of one 10K batch (G={gl}, QM={q_max}, R_max={sc.R_max})"
+    err, ms, p_ms = _compare(f"cell_scan {shape}", cell_scan, cell_scan_plain, args)
+    real = int((packed[:, 3] < gl).sum())
+    rows["cell_scan"] = {"shard": (shape, err, ms, p_ms,
+                                   cell_bound(gl, q_max, sc.R_max, real, sc.avg_candidates)[0])}
+    _log(f"[multi] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, rows
+
+
 def _harness_phase() -> None:
     """Phase 10 (module docstring): ``python -m nns_tpu_torch`` over the
     reference grid, every version, in this process on the card."""
@@ -1328,15 +1508,11 @@ def _harness_phase() -> None:
             recs = [json.loads(line) for line in fh]
     if rc != 0:
         raise AssertionError(f"the harness returned {rc}")
-    v8 = [r for r in recs if r["version"] == "sharded"]
-    ported = [r for r in recs if r["version"] != "sharded"]
-    if len(v8) != 1 or not v8[0]["note"].startswith(harness.NOT_PORTED):
-        raise AssertionError(f"v8's records: {v8}")
-    bad = [r for r in ported if r["recall_at_1"] != 1.0]
-    if len(ported) != 14 * 10 or bad:
-        raise AssertionError(f"{len(ported)} records of ported versions, below recall 1.0: {bad}")
-    _log(f"[harness] {len(ported)} records of v0-v7 and v9-v14 at recall@1 1.0, v8 "
-         f"{v8[0]['note']}; phase {time.perf_counter() - t_phase:.1f} s")
+    bad = [r for r in recs if r["recall_at_1"] != 1.0]
+    if len(recs) != 15 * 10 or bad or len({r["version"] for r in recs}) != 15:
+        raise AssertionError(f"{len(recs)} records, below recall 1.0: {bad}")
+    _log(f"[harness] {len(recs)} records of v0-v14 at recall@1 1.0 (v8 on one card runs v4); "
+         f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -4,11 +4,12 @@
 Every version is a callable ``fn(queries[m,k] f32, refs[n,k] f32) ->
 idx[m] i32`` plus a build/query split (``NNEngine``), which tree versions
 use to report build time apart from query time. The registry names all 15
-versions of the JAX package; the port runs every one but v8 (refs sharded
-over several devices), which raises NotImplementedError naming the ROADMAP
-slice that ports it. Everything runs on an explicit ``device`` (default
-``"cuda"``); nothing here probes for a GPU. v0, v10 and v12 query on the
-host and never touch ``device``.
+versions of the JAX package, and the port runs every one. Everything runs
+on an explicit ``device`` (default ``"cuda"``). v0, v10 and v12 query on
+the host and never touch ``device``. The multi-device choices (v8, the
+sharded supercell index) follow how many distinct devices of ``device``'s
+type ``parallel.mesh.make_mesh`` finds: ``torch.cuda.device_count()``
+CUDA devices, one CPU.
 
 The capability-fallback contract of the JAX package holds: the KD-tree
 versions (v10/v11) fall back to the linear scan for k > 16, the octree
@@ -94,6 +95,12 @@ def _v7(q, r, cfg, device):
     return _as_idx(nns_two_level(q, r, tile_n=cfg.tile_n, device=device))
 
 
+def _v8(q, r, cfg, device):
+    from nns_tpu_torch.parallel.sharded import nns_sharded
+
+    return _as_idx(nns_sharded(q, r, device=device))
+
+
 def _v9(q, r, cfg, device):
     from nns_tpu_torch.kernels.mxu_expansion import nns_mxu_expansion
 
@@ -136,19 +143,10 @@ class VersionSpec:
     name: str
     family: str  # "cpu" | "bruteforce" | "sharded" | "tree"
     description: str
-    fn: Callable[..., np.ndarray] | None = None  # None: not ported yet
-    roadmap_slice: int | None = None  # ROADMAP queue 1 slice that ports it
-
-    def require_ported(self) -> None:
-        if self.fn is None:
-            raise NotImplementedError(
-                f"version {self.num} ({self.name}) is not ported to PyTorch "
-                f"yet: ROADMAP.md queue 1, slice {self.roadmap_slice}"
-            )
+    fn: Callable[..., np.ndarray]
 
     def __call__(self, queries, refs, config: EngineConfig | None = None,
                  device="cuda") -> np.ndarray:
-        self.require_ported()
         return self.fn(queries, refs, config or DEFAULT_ENGINE_CONFIG, device)
 
 
@@ -161,7 +159,7 @@ _SPECS = [
     VersionSpec(5, "fused_streaming", "bruteforce", "fused CUDA kernel, ref tiles streamed through a shared-memory ring of bulk copies (v5, texture analog)", fn=_v5),
     VersionSpec(6, "fused_queries_resident", "bruteforce", "fused CUDA kernel, query set resident on chip, grid over ref ranges only (v6, constant-memory analog)", fn=_v6),
     VersionSpec(7, "two_level", "bruteforce", "per-tile partial winners + second reduce (v7, multi-block analog)", fn=_v7),
-    VersionSpec(8, "sharded", "sharded", "refs sharded over devices, argmin merge (v8, 4-GPU analog)", roadmap_slice=8),
+    VersionSpec(8, "sharded", "sharded", "refs sharded over devices, argmin merge (v8, 4-GPU analog)", fn=_v8),
     VersionSpec(9, "mxu_expansion", "bruteforce", "split-bf16 expansion + band certificate + exact refine (v9)", fn=_v9),
     VersionSpec(10, "kdtree_host", "tree", "KD-tree host build + host query (v10)", fn=_v10),
     VersionSpec(11, "kdtree_device", "tree", "KD-tree host build + beam frontier device query (v11)", fn=_v11),
@@ -189,6 +187,14 @@ def list_versions() -> list[VersionSpec]:
     return list(_SPECS)
 
 
+def _multi_device(device) -> bool:
+    """Whether ``device``'s type has more than one distinct device (read at
+    call time, so that tests can hand the API a mesh of their own)."""
+    from nns_tpu_torch.parallel import mesh
+
+    return mesh.make_mesh(device=device).size > 1
+
+
 def nns(
     queries,
     refs,
@@ -198,8 +204,9 @@ def nns(
 ) -> np.ndarray:
     """Exact 1-NN: for each query, the index of its nearest reference point.
 
-    ``version="auto"`` is the one-device brute force, v4 (no index build
-    to amortize in a one-shot call; NNEngine picks the supercell index).
+    ``version="auto"`` is a brute force (no index build to amortize in a
+    one-shot call; NNEngine picks the supercell index): v8 over every
+    distinct device of ``device``'s type when there are several, else v4.
     """
     queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
     refs = np.atleast_2d(np.asarray(refs, dtype=np.float32))
@@ -211,15 +218,20 @@ def nns(
         raise ValueError("reference set is empty")
     _check_finite(queries, "queries")
     _check_finite(refs, "refs")
-    spec = REGISTRY[4] if version == "auto" else get_version(version)
+    if version == "auto":
+        spec = REGISTRY[8] if _multi_device(device) else REGISTRY[4]
+    else:
+        spec = get_version(version)
     return spec(queries, refs, config, device)
 
 
 class NNEngine:
     """Build/query split: build stages the index (v14, and the beam frontier
-    it may promote to), the tree (v10-v13, v11 and v13 with their beam
-    frontier on ``device``), the split-bf16 expansion engine (v9, k >= 8,
-    and the KD beam index its high-k ladder may promote to), the dim-major refs (v4, and v11/v13 past their trees' k), or the refs
+    it may promote to; with "auto" on several devices, the sharded index),
+    the tree (v10-v13, v11 and v13 with their beam frontier on ``device``),
+    the split-bf16 expansion engine (v9, k >= 8, and the KD beam index its
+    high-k ladder may promote to), the dim-major refs (v4, and v11/v13 past
+    their trees' k; v8 once per shard of ``best_mesh``), or the refs
     themselves (v1-v3, v5-v7, v9 at k < 8) once; query / query_many reuse
     them. v0 stages nothing: it scans on the host. Tree and index engines
     also ``save`` and ``load``, in the JAX package's file formats."""
@@ -280,6 +292,9 @@ class NNEngine:
         from nns_tpu_torch.kernels.cell_list import CellListEngine
         from nns_tpu_torch.kernels.fused import FusedBruteForce, as_f32
         from nns_tpu_torch.kernels.mxu_expansion import MXUExpansion
+        from nns_tpu_torch.parallel import mesh
+        from nns_tpu_torch.parallel.sharded import ShardedBruteForce
+        from nns_tpu_torch.parallel.sharded_cells import ShardedCellEngine
         from nns_tpu_torch.trees.kdtree import KDTree
         from nns_tpu_torch.trees.octree import Octree
 
@@ -294,20 +309,29 @@ class NNEngine:
         self._hk_budget = None
         self._hk_mxu = None
         self._hk_recent = None
+        multi = self._auto and _multi_device(self.device)
         if self._auto:
             # Build/query semantics amortize index construction: the
-            # supercell index for large 3-D sets, the expansion engine for
-            # high-k sets, else the fused kernel (nns_tpu/api.py:452-459 on
-            # one device).
+            # supercell index for large 3-D sets (sharded over the devices
+            # when there are several), v8 for other shapes on several
+            # devices, the expansion engine for high-k sets, else the fused
+            # kernel (nns_tpu/api.py:466-479).
             if refs.shape[1] == 3 and refs.shape[0] >= 65536:
                 self.spec = get_version(14)
+            elif multi:
+                self.spec = get_version(8)
             else:
                 self.spec = get_version(9 if refs.shape[1] >= 8 else 4)
-        self.spec.require_ported()
         num, k, cfg = self.spec.num, refs.shape[1], self.config
         if num == 14 and k == 3 and refs.shape[0] >= 4096:
             try:
-                self._built = CellListEngine(refs, device=self.device)
+                if multi:
+                    # Auto only: explicit v14 stays the single-device rung,
+                    # as in the JAX package. The sharded index never
+                    # promotes (its beam and fused rungs are single-device).
+                    self._built = ShardedCellEngine(refs, mesh.make_mesh(device=self.device))
+                else:
+                    self._built = CellListEngine(refs, device=self.device)
             except ValueError:
                 # Too clustered for the cell index: degrade ONCE at build
                 # time to the staged fused engine.
@@ -325,6 +349,11 @@ class NNEngine:
             self._built = Octree.build(refs, max_depth=cfg.octree_max_depth)
             if num == 13:
                 self._built.device_index(self.device)
+        elif num == 8:
+            # The refs staged once per shard; one device stages v4's engine.
+            shards = mesh.best_mesh(refs.shape[0], device=self.device)
+            self._built = (self._fused_engine() if shards.size == 1
+                           else ShardedBruteForce(refs, shards))
         elif num == 9 and k >= 8:
             # Sets past the staging bound (n >= 2^25) degrade once, at build
             # time, to the staged fused engine.
@@ -467,6 +496,7 @@ class NNEngine:
         from nns_tpu_torch.kernels.cell_list import CellListEngine
         from nns_tpu_torch.kernels.fused import FusedBruteForce
         from nns_tpu_torch.kernels.mxu_expansion import MXUExpansion
+        from nns_tpu_torch.parallel.sharded import ShardedBruteForce
         from nns_tpu_torch.trees.beam import BeamIndex
         from nns_tpu_torch.trees.kdtree import KDTree
         from nns_tpu_torch.trees.octree import Octree
@@ -477,7 +507,8 @@ class NNEngine:
             return self._query_high_k(queries)
         if isinstance(built, CellListEngine):
             idx, cov = built.query_with_coverage(queries)
-            if self._note_cell_coverage(cov, m):
+            # By exact type: the sharded index (a subclass) never promotes.
+            if self._note_cell_coverage(cov, m) and type(built) is CellListEngine:
                 self._promote_to_beam()
             return _as_idx(idx)
         if isinstance(built, BeamIndex):
@@ -492,7 +523,7 @@ class NNEngine:
             if self.spec.num in (10, 12):
                 return _as_idx(built.query_host(queries))
             return _as_idx(built.query_device(queries, self.device))
-        if isinstance(built, FusedBruteForce):
+        if isinstance(built, (FusedBruteForce, ShardedBruteForce)):
             return _as_idx(built.query(queries))
         # The version's own function (nns_tpu/api.py:637), on the staged refs.
         refs = self._refs if built is None else built
@@ -502,12 +533,14 @@ class NNEngine:
         """Exact answers for several query batches: the supercell engine
         drains the whole queue with one scan launch per batch and one
         device-to-host copy (CellListEngine.query_queue) and feeds the
-        promotion hysteresis after the drain; the beam, fused and v9
-        expansion engines answer the concatenated queue in one call; the
+        promotion hysteresis after the drain (the sharded index drains the
+        same way and never promotes); the beam, fused, v8 and v9 expansion
+        engines answer the concatenated queue in one call; the
         other versions answer batch by batch (nns_tpu/api.py:639-692)."""
         from nns_tpu_torch.kernels.cell_list import CellListEngine
         from nns_tpu_torch.kernels.fused import FusedBruteForce
         from nns_tpu_torch.kernels.mxu_expansion import MXUExpansion
+        from nns_tpu_torch.parallel.sharded import ShardedBruteForce
         from nns_tpu_torch.trees.beam import BeamIndex
 
         batches = [self._check_queries(b) for b in batches]
@@ -518,11 +551,11 @@ class NNEngine:
             promote = False
             for qb, cov in zip(batches, covs):
                 promote |= self._note_cell_coverage(cov, qb.shape[0])
-            if promote:
+            if promote and type(self._built) is CellListEngine:
                 self._promote_to_beam()
             return [_as_idx(i) for i in results]
-        if (not isinstance(self._built, (BeamIndex, FusedBruteForce, MXUExpansion))
-                or not batches):
+        if (not isinstance(self._built, (BeamIndex, FusedBruteForce, MXUExpansion,
+                                         ShardedBruteForce)) or not batches):
             return [self.query(b) for b in batches]
         idx = self.query(np.concatenate(batches, axis=0))
         offs = np.cumsum([b.shape[0] for b in batches])[:-1]

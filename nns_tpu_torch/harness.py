@@ -15,10 +15,6 @@ config) (main.cu:76):
 - records go to a table and, optionally, a JSONL file
   (``utils/report.py``).
 
-A version that is not ported yet (v8, refs sharded over several devices)
-gives one record, on the grid's first config, whose note says so, with no
-times and no recall.
-
 CLI: ``python -m nns_tpu_torch --versions 0,4,9 --grid small --device cpu``
 (``--device`` defaults to ``cuda``).
 """
@@ -33,7 +29,7 @@ import sys
 import numpy as np
 import torch
 
-from nns_tpu_torch.api import NNEngine, get_version
+from nns_tpu_torch.api import NNEngine
 from nns_tpu_torch.config import REFERENCE_GRID, BenchConfig
 from nns_tpu_torch.data import make_dataset
 from nns_tpu_torch.kernels.oracle import nn_oracle_f64, recall_at_1
@@ -49,8 +45,6 @@ SMALL_GRID = (
     (3, 256, 16384),
     (16, 256, 16384),
 )
-
-NOT_PORTED = "not ported"
 
 _oracle_cache: dict = {}
 
@@ -82,12 +76,6 @@ def run_one(
     cfg: BenchConfig,
     device="cuda",
 ) -> RunRecord:
-    spec = get_version(version)
-    if spec.fn is None:
-        nan = float("nan")
-        return RunRecord(version=spec.name, k=k, m=m, n=n, build_ms=nan, query_ms=nan,
-                         qps=nan, note=f"{NOT_PORTED} (ROADMAP.md queue 1, slice "
-                                       f"{spec.roadmap_slice})")
     queries, refs = make_dataset(k, m, n, cfg.seed, clustered=cfg.clustered,
                                  **dict(cfg.cluster_shape))
     engine = NNEngine(version, device=device)
@@ -143,9 +131,7 @@ def run(cfg: BenchConfig, verbose: bool = True, device="cuda") -> list[RunRecord
     writer = ReportWriter(cfg.jsonl_path)
     try:
         for version in cfg.versions:
-            # A version that is not ported gives one record, not one per config.
-            grid = cfg.grid if get_version(version).fn is not None else cfg.grid[:1]
-            for k, m, n in grid:
+            for k, m, n in cfg.grid:
                 rec = run_one(version, k, m, n, cfg, device)
                 writer.add(rec)
                 if verbose:

@@ -23,6 +23,8 @@ was a workaround for its device transit and has no counterpart here.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -139,6 +141,18 @@ def _device_query_topk(q_sorted: torch.Tensor, sid: torch.Tensor, halo_dm: torch
         i_out[lo:lo + rows, :kk] = halo_ids[g[:, None], slot.long()]
     ok = d_out[:, -1] <= halo2 if kk == k_nn else torch.zeros(m, dtype=torch.bool, device=dev)
     return d_out, i_out, ok
+
+
+class CellToken(NamedTuple):
+    """A submitted batch (``CellListEngine.query_submit``): its winners at
+    the staged rows, still on the device (None when the batch was too skewed
+    for the scan), the staging order, the sentinel-risk mask and the
+    queries."""
+
+    winners: torch.Tensor | None
+    order: np.ndarray
+    risk: np.ndarray | None
+    queries: np.ndarray
 
 
 class CellListEngine:
@@ -405,7 +419,7 @@ class CellListEngine:
             return (results, [cov for _, cov in pairs]) if return_coverage \
                 else results
         rows = self.query_queue_staged(denses)
-        sizes = [d.shape[0] * d.shape[1] for d in denses]
+        sizes = [r.numel() for r in rows]
         offs = np.concatenate([[0], np.cumsum(sizes)])
         flat = torch.cat([r.reshape(-1) for r in rows]).cpu().numpy()
         results = []
@@ -419,38 +433,64 @@ class CellListEngine:
             results.append(self._exact_rows(qb, idx, ok))
         return (results, covs) if return_coverage else results
 
-    def query_with_flags_dist(self, queries: np.ndarray):
-        """(idx, certified, best_d2) for one batch in the caller's order.
-        best_d2 is the scan's f32 min over the halo candidates: it tracks
-        the true NN distance only to f32 rounding (~1 ulp can land below the
-        f64 truth), and is the distance to a sentinel slot when the halo set
-        was empty. A batch too skewed for the kernel comes back all
-        uncertified (best_d2 inf)."""
+    def query_submit(self, queries: np.ndarray) -> CellToken:
+        """Asynchronous half of one batch: host staging and dense scatter,
+        the scan launched on the current stream and its winners gathered at
+        the batch's slots, with no download. Several tokens may be in flight;
+        ``query_collect`` or ``query_collect_dist`` downloads one."""
         q = np.ascontiguousarray(queries, dtype=np.float32)
         packed, order, q_max = self.stage(q)
-        m = len(order)
         if packed is None:
+            # Too skewed for the scan: collect gives every row uncertified.
+            return CellToken(None, order, None, q)
+        dense, flat = self._dense_scatter(packed, q_max)
+        return CellToken(self._scan_at_slots(dense, flat), order, self._sentinel_risk(q), q)
+
+    def _scan_at_slots(self, dense: np.ndarray, flat: np.ndarray) -> torch.Tensor:
+        """One scan of a staged batch -> (2, m) i32 on the device: each
+        staged row's signed winner id and the bits of its f32 min d2."""
+        slots = torch.as_tensor(flat.astype(np.int64), device=self.device)
+        dmin, sgid = cell_scan(as_f32(dense, self.device), self.halo_dm, self.halo_ids_dev,
+                               self.halo2)
+        return torch.stack([sgid.reshape(-1)[slots], dmin.reshape(-1)[slots].view(torch.int32)])
+
+    def _collect_d2(self, rows: np.ndarray, inv: np.ndarray, idx: np.ndarray,
+                    token: CellToken) -> np.ndarray:
+        """best_d2 in the caller's order: the scan's f32 min."""
+        return rows[1][inv].view(np.float32)
+
+    def query_collect_dist(self, token: CellToken):
+        """(idx, certified, best_d2) of a submitted batch in the caller's
+        order, from one download. best_d2 is the scan's f32 min over the halo
+        candidates: it tracks the true NN distance only to f32 rounding (~1
+        ulp can land below the f64 truth), and is the distance to a sentinel
+        slot when the halo set was empty. A batch too skewed for the kernel
+        comes back all uncertified (best_d2 inf)."""
+        m = len(token.order)
+        if token.winners is None:
             return (np.zeros(m, dtype=np.int32), np.zeros(m, dtype=bool),
                     np.full(m, np.inf, dtype=np.float32))
-        dense, flat = self._dense_scatter(packed, q_max)
-        dmin, sgid = cell_scan(as_f32(dense, self.device), self.halo_dm,
-                               self.halo_ids_dev, self.halo2)
-        slots = torch.as_tensor(flat.astype(np.int64), device=self.device)
-        sg = sgid.reshape(-1)[slots].cpu().numpy()
-        d2 = dmin.reshape(-1)[slots].cpu().numpy()
+        rows = token.winners.cpu().numpy()
         inv = np.empty(m, dtype=np.int64)
-        inv[order] = np.arange(m)
-        sg, d2 = sg[inv], d2[inv]
+        inv[token.order] = np.arange(m)
+        sg = rows[0][inv]
         ok = sg >= 0
         idx = np.where(ok, sg, -sg - 1).astype(np.int32)
-        risk = self._sentinel_risk(q)
-        if risk is not None:
-            ok &= ~risk  # sentinel-corner proximity: force the exact path
-        return idx, ok, d2
+        if token.risk is not None:
+            ok &= ~token.risk  # sentinel-corner proximity: force the exact path
+        return idx, ok, self._collect_d2(rows, inv, idx, token)
+
+    def query_collect(self, token: CellToken):
+        idx, ok, _ = self.query_collect_dist(token)
+        return idx, ok
+
+    def query_with_flags_dist(self, queries: np.ndarray):
+        """(idx, certified, best_d2) for one batch in the caller's order (see
+        ``query_collect_dist``)."""
+        return self.query_collect_dist(self.query_submit(queries))
 
     def query_with_flags(self, queries: np.ndarray):
-        idx, ok, _ = self.query_with_flags_dist(queries)
-        return idx, ok
+        return self.query_collect(self.query_submit(queries))
 
     def query_with_coverage(self, queries: np.ndarray) -> tuple[np.ndarray, float]:
         """Exact answers plus the fraction certified by the index (callers
@@ -475,10 +515,7 @@ class CellListEngine:
         packed, order, q_max = self.stage(q)
         if packed is None:
             return nns_topk(q, self.refs, k_nn, device=self.device)
-        staged = torch.as_tensor(packed, device=self.device)
-        d2, idx, ok = (t.cpu().numpy() for t in _device_query_topk(
-            staged[:, :3], staged[:, 3].long(), self.halo_dm, self.halo_ids_dev, self.halo2,
-            k_nn))
+        d2, idx, ok = self._topk_staged(packed, k_nn)
         inv = np.empty(m, dtype=np.int64)
         inv[order] = np.arange(m)
         d2, idx, ok = d2[inv], idx[inv], ok[inv]
@@ -490,31 +527,48 @@ class CellListEngine:
             d2[bad], idx[bad] = nns_topk(q[bad], self.refs, k_nn, device=self.device)
         return d2, idx
 
+    def _topk_staged(self, packed: np.ndarray, k_nn: int):
+        """``_device_query_topk`` of the staged rows -> numpy (d2, ids,
+        certified) in staged order."""
+        staged = torch.as_tensor(packed, device=self.device)
+        return tuple(t.cpu().numpy() for t in _device_query_topk(
+            staged[:, :3], staged[:, 3].long(), self.halo_dm, self.halo_ids_dev, self.halo2,
+            k_nn))
+
     # -- persistence (the JAX package's npz keys) --------------------------
 
     def save(self, path: str) -> None:
         np.savez_compressed(
             path,
             refs=self.refs,
-            halo_pts=np.swapaxes(self.halo_dm.cpu().numpy(), 1, 2),
+            halo_pts=np.swapaxes(self._host_halo_dm(), 1, 2),
             halo_ids=self.halo_ids,
             meta=np.array([self.D, self.R_max], dtype=np.int64),
             geo=np.concatenate([self.mn, self.W, [self.halo]]).astype(np.float64),
         )
 
+    def _host_halo_dm(self) -> np.ndarray:
+        """The (G, 3, R_max) halo points on the host."""
+        return self.halo_dm.cpu().numpy()
+
     @classmethod
     def load(cls, path: str, device="cuda") -> "CellListEngine":
+        eng = cls.__new__(cls)
+        eng._restore(path, device)
+        return eng
+
+    def _restore(self, path: str, device) -> None:
+        """The index of a file that ``save`` (of either package) wrote,
+        placed by ``_place``."""
         with np.load(path) as z:
-            eng = cls.__new__(cls)
-            eng.refs = z["refs"]
-            eng.n = eng.refs.shape[0]
-            eng.D, eng.R_max = (int(v) for v in z["meta"])
+            self.refs = z["refs"]
+            self.n = self.refs.shape[0]
+            self.D, self.R_max = (int(v) for v in z["meta"])
             geo = z["geo"]
-            eng.mn, eng.W, eng.halo = geo[0:3], geo[3:6], float(geo[6])
+            self.mn, self.W, self.halo = geo[0:3], geo[3:6], float(geo[6])
             halo_pts = z["halo_pts"]
-            eng.avg_candidates = float((halo_pts[..., 0] < PAD_SENTINEL).sum() / eng.D ** 3)
-            eng._place(np.ascontiguousarray(np.swapaxes(halo_pts, 1, 2)), z["halo_ids"], device)
-            return eng
+            self.avg_candidates = float((halo_pts[..., 0] < PAD_SENTINEL).sum() / self.D ** 3)
+            self._place(np.ascontiguousarray(np.swapaxes(halo_pts, 1, 2)), z["halo_ids"], device)
 
 
 def nns_cell_list(queries, refs, d_per_dim: int | None = None, device="cuda") -> np.ndarray:

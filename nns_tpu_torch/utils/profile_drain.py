@@ -1,7 +1,8 @@
-"""Where the time of the v9 drain or the beam drain goes, on one CUDA device.
+"""Where the time of the v9 drain, the beam drain or the sharded supercell
+drain goes, on one CUDA device.
 
 Run from the repository root: ``python -m nns_tpu_torch.utils.profile_drain
-[--w 16] [--path v9|beam]``.
+[--w 16] [--path v9|beam|sharded]``.
 
 ``--path v9`` (the default) builds ``NNEngine(9, device="cuda")`` over
 bench_k16's workload on 1M refs (16-D uniform, seed 1000), answers W
@@ -21,6 +22,13 @@ distinct 10K-query batches once untimed, then:
 them), then the KD beam index's chunk scan (budget 128) over the same
 staged batches.
 
+``--path sharded`` builds ``CellListEngine`` and ``ShardedCellEngine`` on
+``Mesh.virtual(4)`` of the one card over 1M uniform 3-D refs (seed 1000)
+and traces, as in step 2, each one's ``query_queue`` over the same W 10K
+batches drawn in the refs' box, in turns (one device, four shards, four
+shards, one device). On one card the four shards show the cost of the
+merge and the per-shard launches, not scaling.
+
 It prints the card's name and power limit first, and fails without a card.
 """
 
@@ -38,7 +46,7 @@ import torch
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--w", type=int, default=16, help="10K-query batches in the queue")
-    ap.add_argument("--path", choices=("v9", "beam"), default="v9")
+    ap.add_argument("--path", choices=("v9", "beam", "sharded"), default="v9")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_drain: no CUDA device visible", file=sys.stderr)
@@ -47,6 +55,8 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     if args.path == "beam":
         return _beam(args.w)
+    if args.path == "sharded":
+        return _sharded(args.w)
 
     from nns_tpu_torch import NNEngine, nns
     from nns_tpu_torch.data import make_dataset
@@ -123,6 +133,24 @@ def _beam(w: int) -> int:
     kd = KDTree.build(refs).device_index("cuda")
     staged = [kd.stage_queries(b) for b in batches]
     _trace("scan", lambda: [kd.query_staged_with_coverage(st, budget=128) for st in staged], w)
+    return 0
+
+
+def _sharded(w: int) -> int:
+    """The 3-D supercell drain on one device and on four virtual shards."""
+    from nns_tpu_torch.data import make_dataset
+    from nns_tpu_torch.kernels.cell_list import CellListEngine
+    from nns_tpu_torch.parallel import Mesh, ShardedCellEngine
+
+    _, refs = make_dataset(3, 1, 1_000_000, 1000)
+    rng = np.random.default_rng(1001)
+    lo, hi = refs.min(axis=0), refs.max(axis=0)
+    batches = [(rng.random((10_000, 3), dtype=np.float32) * (hi - lo) + lo).astype(np.float32)
+               for _ in range(w)]
+    engines = {"one": CellListEngine(refs, device="cuda"),
+               "four": ShardedCellEngine(refs, Mesh.virtual(4, "cuda"))}
+    for tag in ("one", "four", "four", "one"):
+        _trace(tag, lambda: engines[tag].query_queue(batches), w)
     return 0
 
 

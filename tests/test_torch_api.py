@@ -1,11 +1,12 @@
 """Public API of the PyTorch port against the JAX package, on CPU torch:
-``nns`` and ``NNEngine`` for v4 and v14, v14's adaptation ladder (the
+``nns`` and ``NNEngine`` for v4, v8 and v14, v14's adaptation ladder (the
 promotion to the octree beam index and the demotion to the fused engine),
-the registry, and input validation (the rest of the ported ladder is in
+the multi-device choices of "auto" (on a four-device CPU mesh), the
+registry (every version runs), and input validation (the rest of the ported ladder is in
 test_torch_ladder.py, v9 in test_torch_mxu_expansion.py, the trees in
 test_torch_trees.py).
 
-Tolerances: v4 indices exactly equal to the JAX package's. v14 answers
+Tolerances: v4 and v8 indices exactly equal to the JAX package's. v14 answers
 must have recall@1 = 1.0 against the f64 oracle with certified rows true
 nearest neighbours; on these seeded tie-free inputs they also equal the
 JAX package's indices exactly. The ladder must land on the same engine
@@ -14,6 +15,7 @@ compared here."""
 
 import numpy as np
 import pytest
+import torch
 
 import nns_tpu
 import nns_tpu.config
@@ -23,9 +25,17 @@ from conftest import assert_exact
 from nns_tpu.data import make_dataset
 from nns_tpu_torch.kernels.cell_list import CellListEngine
 from nns_tpu_torch.kernels.fused import FusedBruteForce
+from nns_tpu_torch.parallel import mesh as mesh_mod
+from nns_tpu_torch.parallel.sharded import ShardedBruteForce
+from nns_tpu_torch.parallel.sharded_cells import ShardedCellEngine
 from nns_tpu_torch.trees.beam import BeamIndex
 
-UNPORTED = [8]
+
+@pytest.fixture
+def four_devices(monkeypatch):
+    """A machine with four CPU devices, as ``parallel.mesh`` sees it: every
+    mesh the API asks for (``make_mesh``, ``best_mesh``) has four shards."""
+    monkeypatch.setattr(mesh_mod, "_devices", lambda device: [torch.device("cpu")] * 4)
 
 
 @pytest.mark.parametrize("k,m,n", [(3, 128, 4096), (16, 64, 2048), (5, 33, 777)])
@@ -233,14 +243,78 @@ def test_engine_query_many_beam_and_fused_concatenate(monkeypatch):
         monkeypatch.undo()
 
 
-@pytest.mark.parametrize("version", UNPORTED)
-def test_unported_versions_raise(version):
-    q, r = make_dataset(3, 4, 64, seed=1)
-    spec = nns_tpu_torch.get_version(version)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, slice"):
-        nns_tpu_torch.nns(q, r, version=spec.name, device="cpu")
-    with pytest.raises(NotImplementedError, match=spec.name):
-        nns_tpu_torch.NNEngine(version, device="cpu").build(r)
+@pytest.mark.parametrize("version", [s.num for s in nns_tpu_torch.list_versions()])
+def test_every_version_runs(version):
+    # Every version of the registry answers through nns and NNEngine.
+    q, r = make_dataset(3, 16, 2048, seed=12)
+    idx = nns_tpu_torch.nns(q, r, version=version, device="cpu")
+    assert idx.dtype == np.int32
+    assert_exact(idx, q, r)
+    eng = nns_tpu_torch.NNEngine(version, device="cpu").build(r)
+    np.testing.assert_array_equal(eng.query(q), idx)
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("k,m,n", [(3, 64, 4096), (16, 33, 999)])
+def test_v8_equals_jax(shards, k, m, n, request):
+    # v8 on one CPU device runs v4; on four, the refs are sharded. The JAX
+    # package's v8 shards over its 8 virtual CPU devices.
+    if shards == 4:
+        request.getfixturevalue("four_devices")
+    q, r = make_dataset(k, m, n, seed=k + n)
+    want = np.asarray(nns_tpu.nns(q, r, version=8))
+    for version in (8, "sharded"):
+        np.testing.assert_array_equal(nns_tpu_torch.nns(q, r, version=version, device="cpu"),
+                                      want)
+    eng = nns_tpu_torch.NNEngine(8, device="cpu").build(r)
+    assert isinstance(eng._built, ShardedBruteForce if shards == 4 else FusedBruteForce)
+    np.testing.assert_array_equal(eng.query(q), want)
+    parts = eng.query_many([q[:10], q[10:]])
+    np.testing.assert_array_equal(np.concatenate(parts), want)
+    np.testing.assert_array_equal(nns_tpu_torch.nns(q, r, device="cpu"),
+                                  np.asarray(nns_tpu.nns(q, r)))
+
+
+def test_auto_multi_device_builds_sharded_flagship(four_devices):
+    # tests/test_api.py's case: "auto" on several devices builds the sharded
+    # supercell index for a large 3-D set, v8 for other shapes; explicit v14
+    # stays the single-device rung. Answers equal the JAX package's.
+    rng = np.random.default_rng(70)
+    r = rng.random((65536, 3), dtype=np.float32)
+    eng = nns_tpu_torch.NNEngine("auto", device="cpu").build(r)
+    jeng = nns_tpu.NNEngine("auto").build(r)
+    assert type(eng._built) is ShardedCellEngine and eng.spec.num == 14
+    assert type(jeng._built).__name__ == "ShardedCellEngine"
+    assert eng._built.n_dev == 4
+    q = rng.random((200, 3), dtype=np.float32)
+    np.testing.assert_array_equal(eng.query(q), np.asarray(jeng.query(q)))
+    batches = [rng.random((128, 3), dtype=np.float32) for _ in range(3)]
+    for qb, idx in zip(batches, eng.query_many(batches)):
+        assert_exact(idx, qb, r)
+    assert type(nns_tpu_torch.NNEngine(14, device="cpu").build(r)._built) is CellListEngine
+    q16, r16 = make_dataset(16, 32, 4096, seed=71)
+    eng16 = nns_tpu_torch.NNEngine("auto", device="cpu").build(r16)
+    assert eng16.spec.num == 8 and isinstance(eng16._built, ShardedBruteForce)
+    np.testing.assert_array_equal(eng16.query(q16),
+                                  np.asarray(nns_tpu.NNEngine("auto").build(r16).query(q16)))
+
+
+@pytest.mark.parametrize("via", ["query", "query_many"])
+def test_sharded_index_never_promotes(four_devices, via):
+    # A clustered stream that promotes the single-device index to the beam
+    # (LADDER "clustered_promotes") leaves the sharded index in place, as in
+    # the JAX package, whose promotion checks the exact type.
+    r, batches = _blobs(25, 256)
+    eng = nns_tpu_torch.NNEngine("auto", device="cpu").build(r)
+    assert type(eng._built) is ShardedCellEngine
+    for qb in batches:
+        got = eng.query(qb) if via == "query" else eng.query_many([qb, qb[:64]])[0]
+        assert_exact(got, qb, r)
+        assert type(eng._built) is ShardedCellEngine
+    single = nns_tpu_torch.NNEngine("cells", device="cpu").build(r)
+    for qb in batches:
+        single.query(qb)
+    assert isinstance(single._built, BeamIndex)
 
 
 def test_registry_names_match_jax():

@@ -98,6 +98,33 @@ def test_query_with_flags_equals_jax():
     assert_exact(idx_t[ok_t], q[ok_t], r)
 
 
+def test_submit_collect_equals_jax():
+    # Two tokens in flight, a skewed batch's token and the sentinel-risk
+    # rows: each collect equals the JAX engine's, and the synchronous path.
+    q, r = make_dataset(3, 1, 16384, seed=15)
+    rng = np.random.default_rng(15)
+    batches = [_queries_with_far_rows(300, 16), rng.random((257, 3), dtype=np.float32),
+               (rng.random((2100, 3), dtype=np.float32) * np.float32(1e-4))]
+    jeng = jax_cells.CellListEngine(r)
+    eng = CellListEngine(r, device="cpu")
+    tokens = [eng.query_submit(b) for b in batches]
+    jtokens = [jeng.query_submit(b) for b in batches]
+    assert tokens[2].winners is None  # too skewed for the scan
+    assert isinstance(tokens[0].winners, torch.Tensor) and tokens[0].winners.shape == (2, 300)
+    for b, t, jt in zip(batches, tokens, jtokens):
+        idx, ok, d2 = eng.query_collect_dist(t)
+        idx_j, ok_j, d2_j = jeng.query_collect_dist(jt)
+        np.testing.assert_array_equal(ok, ok_j)
+        np.testing.assert_array_equal(idx, idx_j)
+        np.testing.assert_allclose(d2, d2_j, rtol=D2_RTOL, atol=0)
+        idx2, ok2 = eng.query_collect(t)
+        np.testing.assert_array_equal(idx2, idx)
+        np.testing.assert_array_equal(ok2, ok)
+        if ok.any():
+            assert_exact(idx[ok], b[ok], r)
+    assert not eng.query_collect(tokens[2])[1].any()
+
+
 def test_cell_list_far_query_fallback():
     _, r = make_dataset(3, 1, 8192, seed=2)
     r = r * np.float32(0.1)  # compress cloud

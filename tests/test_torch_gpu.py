@@ -1155,3 +1155,62 @@ def test_promotion_and_save_load_on_card(cuda, tmp_path):
         e.save(path)
         np.testing.assert_array_equal(NNEngine.load(path, version, device="cuda").query(q),
                                       e.query(q))
+
+
+# -- the multi-device layer on a virtual four-shard mesh of the card ----------
+
+
+@pytest.mark.parametrize("k,m,n", [(3, 300, 70001), (16, 64, 5000)])
+def test_sharded_and_ring_on_a_virtual_mesh_equal_v4(cuda, k, m, n):
+    # Four shards, four v4 launches and the merge on one card; the 2-D
+    # (2, 2) mesh and the ring too. Each answer equals the single-device v4
+    # kernel's, and launches the kernel once per shard (per ring step).
+    from nns_tpu_torch.parallel import Mesh, ring_argmin, sharded_argmin, sharded_argmin_2d
+
+    q, r = make_dataset(k, m, n, seed=k + m)
+    r_dm, _ = prepare_refs(r, 4096, cuda)
+    want = fused_min_idx(torch.as_tensor(q, device=cuda), r_dm, n)[1]
+    mesh = Mesh.virtual(4, "cuda")
+    _cuda.reset_launches()
+    got = sharded_argmin(q, r, mesh)
+    assert _cuda.LAUNCHES["fused_argmin"] == 4 and got.device == want.device
+    assert torch.equal(got, want)
+    assert torch.equal(sharded_argmin_2d(q, r, Mesh.virtual((2, 2), "cuda")), want)
+    _cuda.reset_launches()
+    assert torch.equal(ring_argmin(q, r, mesh), want)
+    assert _cuda.LAUNCHES["fused_argmin"] == 16
+
+
+@pytest.mark.parametrize("n_shards", [4, 5])
+def test_sharded_cells_on_a_virtual_mesh_equal_single_device(cuda, tmp_path, n_shards):
+    # G = 216 groups: four shards of 54, or five of 44 with four padding
+    # groups (zero query rows on the card).
+    from nns_tpu_torch.parallel import Mesh, ShardedCellEngine
+
+    q, r = make_dataset(3, 3000, 65536, seed=8)
+    batches = [q[:1000], q[1000:], (q[:400] * np.float32(0.05)).astype(np.float32),
+               (q[:500] * np.float32(2.0) - np.float32(0.5)).astype(np.float32)]
+    single = CellListEngine(r, device=cuda)
+    sharded = ShardedCellEngine(r, Mesh.virtual(n_shards, "cuda"))
+    assert single.D ** 3 == 216 and sharded.g_pad == 216 + (n_shards == 5) * 4
+    _cuda.reset_launches()
+    got, cov = sharded.query_queue(batches, return_coverage=True)
+    assert _cuda.LAUNCHES["cell_scan"] == n_shards * len(batches)
+    want, cov_s = single.query_queue(batches, return_coverage=True)
+    assert cov == cov_s and min(cov) < 1.0
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    denses, _, _ = single.stage_queue_ragged(batches)
+    G = single.D ** 3
+    for t, t_s in zip(sharded.query_queue_staged(denses), single.query_queue_staged(denses)):
+        assert torch.equal(t[:G], t_s)
+    tokens = [sharded.query_submit(b) for b in batches[:2]]
+    for b, t in zip(batches[:2], tokens):
+        for x, y in zip(sharded.query_collect(t), single.query_with_flags(b)):
+            np.testing.assert_array_equal(x, y)
+    for x, y in zip(sharded.query_topk(q[:500], 8), single.query_topk(q[:500], 8)):
+        np.testing.assert_array_equal(x, y)
+    path = str(tmp_path / "cells.npz")
+    sharded.save(path)
+    np.testing.assert_array_equal(
+        ShardedCellEngine.load(path, Mesh.virtual(2, "cuda")).query(q), single.query(q))

@@ -6,8 +6,8 @@ report writer, a copy of the JAX package's.
 
 Tolerances: every record of a ported version has recall@1 = 1.0, and every
 field that is not a time (version, k, m, n, recall, note) equals the JAX
-harness's record of the same run; v8 is not ported and gives one record
-that says so."""
+harness's record of the same run (v8 too: one device of the CPU runs its
+single-device path, the JAX harness its 8-device virtual mesh)."""
 
 import ast
 import json
@@ -23,9 +23,10 @@ import nns_tpu.harness as jharness
 import nns_tpu.utils.report as jreport
 import nns_tpu_torch.utils.report as preport
 from nns_tpu.config import BenchConfig as JBenchConfig
+from nns_tpu_torch.api import list_versions
 from nns_tpu_torch.config import BenchConfig
 from nns_tpu_torch.data import make_dataset
-from nns_tpu_torch.harness import NOT_PORTED, SMALL_GRID, main, run, run_one
+from nns_tpu_torch.harness import SMALL_GRID, main, run, run_one
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -82,31 +83,21 @@ def test_records_equal_jax(version):
     kw = dict(versions=(version,), grid=SMALL_GRID, warmup_iters=0, timing_iters=1)
     got = run(BenchConfig(**kw), verbose=False, device="cpu")
     want = jharness.run(JBenchConfig(**kw), verbose=False)
-    if version == 8:
-        (rec,) = got
-        assert (rec.version, rec.k, rec.m, rec.n) == ("sharded", *SMALL_GRID[0])
-        assert rec.note.startswith(NOT_PORTED) and rec.recall_at_1 is None
-        assert math.isnan(rec.query_ms)
-        return
     assert [_fields(r) for r in got] == [_fields(r) for r in want]
     assert all(r.recall_at_1 == 1.0 for r in got)
 
 
 def test_cli_small_grid_every_version(tmp_path):
-    # The command a user runs without a card: every ported version at
-    # recall 1.0, one record for v8.
+    # The command a user runs without a card: every version at recall 1.0.
     jsonl = tmp_path / "small.jsonl"
-    out = subprocess.run(
+    subprocess.run(
         [sys.executable, "-m", "nns_tpu_torch", "--grid", "small", "--device", "cpu",
          "--jsonl", str(jsonl)],
-        cwd=_ROOT, capture_output=True, text=True, timeout=600, check=True).stdout
+        cwd=_ROOT, capture_output=True, text=True, timeout=600, check=True)
     recs = [json.loads(line) for line in jsonl.read_text().splitlines()]
-    v8 = [r for r in recs if r["version"] == "sharded"]
-    assert len(v8) == 1 and v8[0]["note"].startswith(NOT_PORTED)
-    ported = [r for r in recs if r["version"] != "sharded"]
-    assert len(ported) == 14 * len(SMALL_GRID)
-    assert all(r["recall_at_1"] == 1.0 for r in ported)
-    assert "not ported (ROADMAP.md queue 1, slice 8)" in out
+    assert len(recs) == 15 * len(SMALL_GRID)
+    assert sorted({r["version"] for r in recs}) == sorted(s.name for s in list_versions())
+    assert all(r["recall_at_1"] == 1.0 for r in recs)
 
 
 def test_profile_dir_writes_a_trace(tmp_path):
@@ -126,7 +117,7 @@ def _code(module) -> str:
 def test_report_is_the_jax_package_copy():
     assert _code(preport) == _code(jreport)
     recs = [(m.RunRecord("fused", 3, 16, 1024, 0.5, 1.25, 12800.0, 1.0),
-             m.RunRecord("sharded", 3, 1, 1024, math.nan, math.nan, math.nan, None, NOT_PORTED))
+             m.RunRecord("sharded", 3, 1, 1024, math.nan, math.nan, math.nan, None, "not ported"))
             for m in (preport, jreport)]
     assert preport.format_table(recs[0]) == jreport.format_table(recs[1])
     assert [r.to_json() for r in recs[0]] == [r.to_json() for r in recs[1]]

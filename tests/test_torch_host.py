@@ -141,7 +141,10 @@ def test_cell_stage_numpy_path_equals_native(monkeypatch):
 def test_import_leaves_jax_out():
     code = ("import sys, nns_tpu_torch, nns_tpu_torch.convert, nns_tpu_torch.kernels, "
             "nns_tpu_torch.kernels.topk, nns_tpu_torch.trees, nns_tpu_torch.utils.timing, "
-            "nns_tpu_torch.harness, nns_tpu_torch.utils.report; "
+            "nns_tpu_torch.harness, nns_tpu_torch.utils.report, nns_tpu_torch.parallel, "
+            "nns_tpu_torch.parallel.mesh, nns_tpu_torch.parallel.accounting, "
+            "nns_tpu_torch.parallel.sharded, nns_tpu_torch.parallel.ring, "
+            "nns_tpu_torch.parallel.sharded_cells, nns_tpu_torch.parallel.dryrun; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'nns_tpu')))")
     root = os.path.dirname(_PORT_DIR)
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
