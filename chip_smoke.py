@@ -21,10 +21,21 @@ result) without them. Phases, each raising on failure:
 3. the main path: ``NNEngine("cells", device="cuda").build`` over 1M uniform
    3-D refs (seed 1000) and ``query_many`` over W=64 distinct 10K-query
    batches drawn as bench.py draws them, plus one batch drawn over
-   (-0.5, 1.5)^3 whose uncertified rows go through the fused fallback. Both
+   (-0.5, 1.5)^3 whose uncertified rows go through the fused fallback. The
+   queue's (m, 5) packs go up in one copy, each batch is scattered, scanned
+   and gathered on the card (``_query_body``), and the queue's (m,) winners
+   come down in one copy. Both
    kernels' launch counts must grow during that query_many, and three f64
    oracle gates (batch 0, a random mid-queue batch, all fallback rows; up
-   to 512 queries each) must read recall 1.0;
+   to 512 queries each) must read recall 1.0. Then (``_staging_phase``)
+   ``query_staged`` is held bit-equal (ids, flags, d2; tolerance 0) to the
+   host-staged path (``_dense_scatter``, the scan, the gather at the flat
+   slots) on the uniform, the skewed and the out-of-box batch; the W=64
+   uniform drain runs host-staged (``_host_staged_drain``: the drain before
+   the device-side staging, from the public API) and device-staged
+   (``query_queue``) in five alternating turns, equal answers, both medians
+   and spreads printed; then bench.py's serial one-batch latency and the
+   bytes each drain moves per batch;
 4. the one-shot ``nns(version=4)`` and ``nns(version="cells")`` at 1M x 10K;
 5. the ladder's kernels (v3 point-major, v5 streaming, v6 queries-resident,
    v7 two-level, and v4 beside them) against their plain versions at
@@ -134,12 +145,14 @@ result) without them. Phases, each raising on failure:
    ids past 2^23; ``ShardedCellEngine`` over the main path's 1M refs and
    its W batches plus the out-of-box one: answers, coverage and every
    winner table equal to the single-device drain's, two submit tokens,
-   ``query_topk`` (k = 8) and save / load onto 1 and 2 shards; then the v4
+   ``query_topk`` (k = 8) and save / load onto 1 and 2 shards, the per-shard
+   device body's winners equal to one device's; then the v4
    kernel on one shard's block of v8 (1024 x 250,112) and the scan on one
    shard's group range of batch 0 against their plain versions (tolerance
    0). It prints v8's staged query ms beside v4's and the four-shard
-   drain's ms per batch beside the single-device drain's: on one card
-   that is the cost of the merge and the per-shard launches, not scaling;
+   drain's ms per batch beside the single-device drain's, each also
+   host-staged (``_host_staged_drain``), in turns: on one card that is
+   the cost of the merge and the per-shard launches, not scaling;
 12. one JSON line of per-kernel results, each row with the shape its ms,
    plain_ms and bound come from (the scan also on the skewed batch,
    ``*_skewed``; the ladder's kernels and v4 also at 1024 x 1M k=16,
@@ -509,9 +522,12 @@ def main() -> int:
     engine.query_many(batches[:8])
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     _log(f"[main] uniform drain W={W}: {drain_ms:.3f} ms/batch end to end "
-         f"(host staging + upload + scans + one download + unscatter); "
+         f"(per batch the host staging; one upload of the queue's (m, 5) packs; per batch "
+         f"the scatter, scan and gather on the card; one download of the queue's winners; "
+         f"the host's inverse permutation, sentinel mask and exact re-answers); "
          f"device scans alone {scan_ms / W:.4f} ms/batch (CUDA events, median of 5); "
          f"device memory peak {peak_mb:.0f} MiB")
+    _staging_phase(engine._built, batches, {"uniform": queries, "skewed": skew, "out-of-box": ood})
 
     # 4. One-shot entry points.
     for version in (4, "cells"):
@@ -968,6 +984,84 @@ def main() -> int:
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0
+
+
+def _host_staged_drain(eng, batches) -> list[np.ndarray]:
+    """The drain as it was before the device-side staging, built from the
+    public API: each batch scattered into its dense table on the host
+    (``stage_queue_ragged``), one scan per table (``query_queue_staged``),
+    one download of every table, the host unscatter, the sentinel mask and
+    the exact re-answer."""
+    denses, fslots, orders = eng.stage_queue_ragged(batches)
+    tables = eng.query_queue_staged(denses)
+    flat = torch.cat([t.reshape(-1) for t in tables]).cpu().numpy()
+    offs = np.cumsum([0] + [t.numel() for t in tables])
+    out = []
+    for w, qb in enumerate(batches):
+        idx, ok = eng.unscatter_queue(flat[offs[w]:offs[w + 1]], fslots[w], orders[w])
+        risk = eng._sentinel_risk(qb)
+        if risk is not None:
+            ok &= ~risk
+        out.append(eng._exact_rows(qb, idx, ok))
+    return out
+
+
+def _staging_phase(eng, batches, held) -> None:
+    """Phase 3's device-side staging (module docstring): ``query_staged``
+    bit-equal to the host-staged path on each batch of ``held``; the
+    host-staged and the device-staged drain over ``batches`` in turns; the
+    serial one-batch latency; the bytes each drain moves per batch."""
+    from nns_tpu_torch.kernels.cell_list import cell_scan
+
+    dev = eng.device
+    for name, qb in held.items():
+        packed, _, q_max = eng.stage(qb)
+        signed, d2 = eng.query_staged(packed, q_max)
+        dense, fslots = eng._dense_scatter(packed, q_max)
+        dmin, sgid = cell_scan(torch.as_tensor(dense, device=dev), eng.halo_dm, eng.halo_ids_dev,
+                               eng.halo2)
+        slots = torch.as_tensor(fslots.astype(np.int64), device=dev)
+        if not torch.equal(signed, sgid.reshape(-1)[slots]):
+            raise AssertionError(f"query_staged's ids or flags differ on the {name} batch")
+        if not torch.equal(d2.view(torch.int32), dmin.reshape(-1)[slots].view(torch.int32)):
+            raise AssertionError(f"query_staged's d2 is not bit-equal on the {name} batch")
+        _log(f"[stage] {name} batch (QM={q_max}): query_staged's ids, flags and d2 bit-equal "
+             f"to the host-staged path's (tolerance 0); {int((signed >= 0).sum())}/{len(qb)} "
+             f"certified")
+    drains = {"host-staged": lambda: _host_staged_drain(eng, batches),
+              "device-staged": lambda: eng.query_queue(batches)}
+    for a, b in zip(*(fn() for fn in drains.values())):  # warm, and equal
+        if not np.array_equal(a, b):
+            raise AssertionError("the device-staged drain's answers differ from the host-staged")
+    turns = {name: [] for name in drains}
+    for i in range(5):
+        for name in (("host-staged", "device-staged") if i % 2 == 0
+                     else ("device-staged", "host-staged")):
+            t0 = time.perf_counter()
+            drains[name]()
+            turns[name].append((time.perf_counter() - t0) * 1e3 / len(batches))
+    for name, ms in turns.items():
+        _log(f"[stage] {name} drain W={len(batches)}: median {np.median(ms):.3f} ms/batch, "
+             f"spread {min(ms):.3f}-{max(ms):.3f} over five turns "
+             f"({' / '.join(f'{x:.3f}' for x in ms)}; host clock, in turns)")
+    serial = []
+    for qb in batches[:4]:
+        t0 = time.perf_counter()
+        packed, _, q_max = eng.stage(qb)
+        signed, d2 = eng.query_staged(packed, q_max)
+        torch.stack([signed, d2.view(torch.int32)]).cpu()
+        serial.append((time.perf_counter() - t0) * 1e3)
+    _log(f"[stage] serial one batch (stage, query_staged, one (2, m) download; bench.py's "
+         f"serial latency): min {min(serial):.3f} ms over 4 batches "
+         f"({' / '.join(f'{x:.3f}' for x in serial)})")
+    m = np.mean([len(b) for b in batches])
+    qms = [eng.stage(b)[2] for b in batches]
+    g = eng.D ** 3
+    _log(f"[stage] bytes per batch: device-staged up {m * 5 * 4 / 1e3:.1f} KB (the (m, 5) "
+         f"pack, in the queue's one upload), down {m * 4 / 1e3:.1f} KB (the (m,) winners); host-staged up "
+         f"{np.mean(qms) * g * 3 * 4 / 1e3:.1f} KB (the (G, QM, 3) table), down "
+         f"{np.mean(qms) * g * 4 / 1e3:.1f} KB (the (G, QM) winners), G={g}, mean QM "
+         f"{np.mean(qms):.1f}")
 
 
 def _trees_phase(dev, queries, refs, oracle3) -> tuple[int, dict]:
@@ -1438,6 +1532,11 @@ def _multi_phase(dev, queries, refs, batches, ood) -> tuple[dict, dict]:
                                      single.query_queue_staged(denses))):
         if not torch.equal(t[:G], t_s):
             raise AssertionError(f"sharded winner table {w} differs from the single-device one")
+    for name, qb in (("batch 0", batches[0]), ("out-of-box", ood)):
+        packed, _, q_max = single.stage(qb)
+        got_w, want_w = sc.query_staged(packed, q_max)[0], single.query_staged(packed, q_max)[0]
+        if not torch.equal(got_w, want_w):
+            raise AssertionError(f"sharded query_staged differs from one device's on {name}")
     tokens = path("two submit tokens", lambda: [sc.query_submit(b) for b in batches[:2]],
                   ("cell_scan",))
     for b, t in zip(batches[:2], tokens):
@@ -1454,21 +1553,29 @@ def _multi_phase(dev, queries, refs, batches, ood) -> tuple[dict, dict]:
         equal("ShardedCellEngine.load (2 shards)",
               ShardedCellEngine.load(p, Mesh.virtual(2, dev)).query(batches[0]), want0)
     _log(f"[multi] sharded drain over W={len(queue)} (the out-of-box batch last): answers, "
-         f"coverage and {len(denses)} winner tables equal the single-device drain's "
+         f"coverage, {len(denses)} host-staged winner tables and the per-shard device body's "
+         f"winners (batch 0, out-of-box) equal the single-device drain's "
          f"(G={G}, g_pad={sc.g_pad}); two submit tokens, query_topk k={K_NN} and save/load onto "
          f"1 and 2 shards agree")
-    # Timed in turns (four shards, one device, one device, four shards),
-    # each after the warm drains above.
-    drain = {"four shards": [], "one device": []}
-    for name, eng in (("four shards", sc), ("one device", single), ("one device", single),
-                      ("four shards", sc)):
-        t0 = time.perf_counter()
-        eng.query_queue(batches)
-        drain[name].append((time.perf_counter() - t0) * 1e3 / len(batches))
-    _log(f"[multi] uniform drain W={len(batches)}, in turns: "
-         f"{' / '.join(f'{x:.3f}' for x in drain['four shards'])} ms/batch on four shards, "
-         f"{' / '.join(f'{x:.3f}' for x in drain['one device'])} on one device (host clock; "
-         f"{label})")
+    # Timed in turns, each drain device-staged (query_queue) and
+    # host-staged (the drain before the device-side staging), after one
+    # warm run of each, the host-staged sharded drain's answers equal.
+    drains = {"four shards": lambda: sc.query_queue(batches),
+              "one device": lambda: single.query_queue(batches),
+              "four shards, host-staged": lambda: _host_staged_drain(sc, batches),
+              "one device, host-staged": lambda: _host_staged_drain(single, batches)}
+    for w, (a, b) in enumerate(zip(drains["four shards, host-staged"](), got)):
+        equal(f"host-staged sharded drain batch {w}", a, b)
+    drains["one device, host-staged"]()
+    drain = {name: [] for name in drains}
+    for turn in range(2):
+        for name in (list(drains) if turn == 0 else list(drains)[::-1]):
+            t0 = time.perf_counter()
+            drains[name]()
+            drain[name].append((time.perf_counter() - t0) * 1e3 / len(batches))
+    _log(f"[multi] uniform drain W={len(batches)}, in turns (ms/batch, host clock; {label}): "
+         + "; ".join(f"{name} {' / '.join(f'{x:.3f}' for x in ms)}"
+                     for name, ms in drain.items()))
 
     # The kernels at the shard shapes: v4 on one shard's block of v8, the
     # scan on one shard's group range of batch 0.

@@ -8,14 +8,16 @@ padded with distance sentinels, plus the (G, R_max) global ids. The native
 C++ counting-sort build (the JAX package's ``nns_cpu.cpp``) serves halos up
 to W/2; wider halos use the numpy enumeration.
 
-Query: bucket queries by supercell and scatter them into a dense
-(G, QM, 3) tensor on the host; ``cell_scan`` (``csrc/cell_scan.cu``:
-persistent blocks walk the supercells, score each supercell's distinct
-slots once and stream its halo through a bulk-copy ring) finds each slot's
-nearest halo point and folds the
-exactness certificate into the id's sign bit (id when best <= halo^2, -id-1
-otherwise); the host unscatters. Rows the certificate cannot prove are
-re-answered exactly by the fused brute force.
+Query: the host buckets queries by supercell (``stage``: the native sort)
+into one (m, 5) f32 pack [x, y, z, sid, pos]; one upload, then on the
+device (``_query_body``) a scatter into the dense (G, QM, 3) table,
+``cell_scan`` (``csrc/cell_scan.cu``: persistent blocks walk the
+supercells, score each supercell's distinct slots once and stream its halo
+through a bulk-copy ring), which finds each slot's nearest halo point and
+folds the exactness certificate into the id's sign bit (id when best <=
+halo^2, -id-1 otherwise), and a gather of each row's winner at its slot;
+one (m,) download. Rows the certificate cannot prove are re-answered
+exactly by the fused brute force.
 
 Ids travel as int32 end to end: the JAX package's hi/lo 12-bit f32 id split
 was a workaround for its device transit and has no counterpart here.
@@ -40,6 +42,8 @@ _PLAIN_BLOCK = 1 << 26
 # Bound on the k-NN path's (queries, R_max) distance block: 16M f32, as the
 # JAX package bounds its per-group block.
 _TOPK_BLOCK = 16 << 20
+# _sentinel_risk's margin below its bound: four f32 ulps at PAD_SENTINEL.
+_SENTINEL_MARGIN = 4.0 * float(np.spacing(np.float32(PAD_SENTINEL)))
 
 
 def cell_scan_plain(dense_q: torch.Tensor, halo_dm: torch.Tensor,
@@ -117,6 +121,34 @@ def cell_scan(dense_q: torch.Tensor, halo_dm: torch.Tensor,
                            halo_ids.contiguous(), halo2)
 
 
+def _upload(rows, device) -> torch.Tensor:
+    """``rows`` (numpy or a tensor) as an f32 tensor on ``device``. A numpy
+    array bound for a CUDA device goes through a pinned staging copy, so the
+    upload is queued on the current stream and the host does not wait for
+    the work queued before it."""
+    device = torch.device(device)
+    if isinstance(rows, torch.Tensor) or device.type != "cuda":
+        return as_f32(rows, device)
+    host = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.float32)).pin_memory()
+    return host.to(device, non_blocking=True)
+
+
+def _query_body(staged: torch.Tensor, halo_dm: torch.Tensor, halo_ids: torch.Tensor,
+                halo2: float, q_max: int, g_total: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One staged batch on its device: the (m, 5) f32 pack [x, y, z, sid,
+    pos] of ``CellListEngine.stage`` is scattered into the dense
+    (g_total, q_max, 3) table (the (sid, pos) pairs are unique, so the put
+    is deterministic), scanned by ``cell_scan``, and each row's winner is
+    gathered at its (sid, pos). sid and pos are exact in f32 below 2^24.
+    Returns, in staged order, the signed winner (m,) i32 (the id, or -id-1
+    when the row is uncertified) and the f32 min d2 (m,)."""
+    sid, pos = staged[:, 3:5].long().unbind(1)
+    dense = torch.zeros((g_total, q_max, 3), dtype=torch.float32, device=staged.device)
+    dense[sid, pos] = staged[:, :3]
+    dmin, sgid = cell_scan(dense, halo_dm, halo_ids, halo2)
+    return sgid[sid, pos], dmin[sid, pos]
+
+
 def _device_query_topk(q_sorted: torch.Tensor, sid: torch.Tensor, halo_dm: torch.Tensor,
                        halo_ids: torch.Tensor, halo2: float, k_nn: int):
     """Exact k-NN of each staged query over its supercell's halo set (torch
@@ -145,9 +177,10 @@ def _device_query_topk(q_sorted: torch.Tensor, sid: torch.Tensor, halo_dm: torch
 
 class CellToken(NamedTuple):
     """A submitted batch (``CellListEngine.query_submit``): its winners at
-    the staged rows, still on the device (None when the batch was too skewed
-    for the scan), the staging order, the sentinel-risk mask and the
-    queries."""
+    the staged rows, still on the device ((2, m) i32: the signed winners and
+    the bits of their f32 min d2; (1, m), the winners alone, from the
+    sharded engine; None when the batch was too skewed for the scan), the
+    staging order, the sentinel-risk mask and the queries."""
 
     winners: torch.Tensor | None
     order: np.ndarray
@@ -236,7 +269,17 @@ class CellListEngine:
         AND pass the <= halo certificate — possible only when the data
         itself lives near 1e6. Such queries are forced uncertified on the
         host, so they take the exact fallback. None when no query is at
-        risk (the common case)."""
+        risk (the common case).
+
+        A row at risk has every coordinate within 2 halo of PAD_SENTINEL, so
+        when each row has one below PAD_SENTINEL - 2 halo (less a margin of
+        four f32 ulps at 1e6, far above the f64 pass's rounding) the f64
+        pass is skipped: it would find no row."""
+        # Each row's smallest coordinate, column by column (numpy's min
+        # over a 3-wide axis is far slower).
+        low = np.minimum(np.minimum(q[:, 0], q[:, 1]), q[:, 2])
+        if len(q) and float(low.max()) < PAD_SENTINEL - 2.0 * self.halo - _SENTINEL_MARGIN:
+            return None
         d2 = ((q.astype(np.float64) - PAD_SENTINEL) ** 2).sum(axis=1)
         risk = d2 <= (2.0 * self.halo) ** 2
         return risk if bool(risk.any()) else None
@@ -332,9 +375,21 @@ class CellListEngine:
         packed[:, 4] = pos
         return packed, order, q_max
 
+    def query_staged(self, packed, q_max: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Device half of one batch: a staged (m, 5) pack (numpy or a tensor)
+        goes up in one copy and ``_query_body`` runs on the current stream,
+        with no synchronization. Returns, on the device and in staged order,
+        the signed winners (m,) i32 and the f32 min d2 (m,). They are the
+        JAX package's packed (4, m) [idx_hi, idx_lo, ok, best_d2]: idx is
+        the winner w when w >= 0 and -w-1 otherwise (hi << 12 | lo there),
+        ok is w >= 0, best_d2 is the min d2."""
+        return _query_body(_upload(packed, self.device), self.halo_dm, self.halo_ids_dev,
+                           self.halo2, q_max, self.D ** 3)
+
     def _dense_scatter(self, packed: np.ndarray, q_max: int):
         """One staged (m, 5) pack -> (dense (G, q_max, 3) f32, flat winner
-        slots (m,) i32) — the single home of the host dense-scatter."""
+        slots (m,) i32): the host dense-scatter of ``stage_queue_ragged``.
+        The serving paths scatter on the device (``_query_body``)."""
         sid = packed[:, 3].astype(np.int64)
         pos = packed[:, 4].astype(np.int64)
         dense = np.zeros((self.D ** 3, q_max, 3), np.float32)
@@ -342,11 +397,11 @@ class CellListEngine:
         return dense, (sid * q_max + pos).astype(np.int32)
 
     def stage_queue_ragged(self, batches):
-        """Ragged queue staging: each batch keeps its OWN pow2 q_max, so one
-        skewed batch cannot inflate every other batch's dense tensor and
-        winner table. Returns (denses [list of (G, qm_b, 3)], fslots [list
-        of (m,) i32], orders), or (None, None, None) when any batch is too
-        skewed for the dense kernel."""
+        """Host-staged queue (the JAX package's queue staging; no serving
+        path of the port uses it): each batch keeps its OWN pow2 q_max and
+        is scattered on the host into a dense table. Returns (denses [list
+        of (G, qm_b, 3)], fslots [list of (m,) i32], orders), or (None,
+        None, None) when any batch is too skewed for the dense kernel."""
         denses, fslots, orders = [], [], []
         for qb in batches:
             packed, order, q_max = self.stage(qb)
@@ -359,9 +414,9 @@ class CellListEngine:
         return denses, fslots, orders
 
     def query_queue_staged(self, denses):
-        """Device half of the queue path: one scan launch per staged batch,
-        all on the current stream, no synchronization. ``denses`` is a
-        sequence of (G, qm_b, 3) arrays (numpy or tensors); returns the
+        """Device half of the host-staged queue: one scan launch per dense
+        batch, all on the current stream, no synchronization. ``denses`` is
+        a sequence of (G, qm_b, 3) arrays (numpy or tensors); returns the
         tuple of (G, qm_b) i32 winner tables on the device — winner id per
         slot, certificate in the sign bit (see unscatter_queue)."""
         if not isinstance(denses, (tuple, list)):
@@ -374,9 +429,9 @@ class CellListEngine:
     @staticmethod
     def unscatter_queue(out_w: np.ndarray, fslots: np.ndarray,
                         order: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """Host half of the queue path for one batch: dense (G*QM,) signed
-        winners + the batch's flat slots and staging order -> (idx, ok) in
-        the caller's original query order."""
+        """Host half of the host-staged queue for one batch: dense (G*QM,)
+        signed winners + the batch's flat slots and staging order -> (idx,
+        ok) in the caller's original query order."""
         got = np.asarray(out_w).reshape(-1)[fslots]  # (m,) signed, staged order
         m = len(order)
         inv = np.empty(m, dtype=np.int64)
@@ -384,6 +439,20 @@ class CellListEngine:
         got = got[inv]
         ok = got >= 0
         idx = np.where(ok, got, -got - 1).astype(np.int32)
+        return idx, ok
+
+    @staticmethod
+    def _unstage(signed: np.ndarray, order: np.ndarray,
+                 risk: np.ndarray | None) -> tuple[np.ndarray, np.ndarray]:
+        """Signed winners in staged order -> (idx, certified) in the
+        caller's order; rows near the sentinel corner (``risk``) are
+        uncertified."""
+        sg = np.empty(len(order), dtype=np.int32)
+        sg[order] = signed
+        ok = sg >= 0
+        idx = sg ^ (sg >> 31)  # sg where sg >= 0, ~sg = -sg - 1 elsewhere
+        if risk is not None:
+            ok &= ~risk  # sentinel-corner proximity: force the exact path
         return idx, ok
 
     def _exact_rows(self, queries: np.ndarray, idx: np.ndarray, ok: np.ndarray) -> np.ndarray:
@@ -401,84 +470,86 @@ class CellListEngine:
             self._fused = FusedBruteForce(self.refs, device=self.device)
         return self._fused
 
+    def _queue_winners(self, packs) -> list[torch.Tensor]:
+        """The signed winners (m,) on the device of each staged (pack,
+        q_max) of a queue, in staged order: one upload of the packs'
+        concatenation, then ``_query_body`` on each pack's rows, on the
+        current stream. (One upload per queue measured cheaper than one per
+        pack on the H100 in steady state, PERF.md.)"""
+        if not packs:
+            return []
+        rows = _upload(np.concatenate([p for p, _ in packs]), self.device)
+        offs = np.cumsum([0] + [len(p) for p, _ in packs])
+        return [_query_body(rows[offs[i]:offs[i + 1]], self.halo_dm, self.halo_ids_dev,
+                            self.halo2, q_max, self.D ** 3)[0]
+                for i, (_, q_max) in enumerate(packs)]
+
     def query_queue(self, batches, return_coverage: bool = False):
-        """EXACT answers for several query batches: ragged staging, one scan
-        launch per batch, ONE device-to-host copy (the only sync) for the
-        whole queue, host unscatter, and the exact fused re-answer of every
-        uncertified row. A queue with a batch too skewed for the dense
-        kernel falls back to per-batch querying. With ``return_coverage``,
-        also returns the per-batch certified fraction. An empty queue
-        returns [] (the JAX package raises ValueError there), as the v4 and
-        v9 engines do."""
+        """EXACT answers for several query batches: per batch the host
+        staging (``stage``); the queue's (m, 5) packs go up in one copy and
+        each runs ``_query_body`` on the current stream
+        (``_queue_winners``); the signed winners of the whole queue are
+        concatenated on the device and downloaded ONCE (the only sync); then
+        per batch the host puts them back in query order, applies the
+        sentinel mask and re-answers every uncertified row with the exact
+        fused scan. A batch too skewed for the dense kernel is re-answered
+        whole by the exact scan. With ``return_coverage``, also returns the
+        per-batch certified fraction. An empty queue returns [] (the JAX
+        package raises ValueError there), as the v4 and v9 engines do."""
         if not batches:
             return ([], []) if return_coverage else []
-        denses, fslots, orders = self.stage_queue_ragged(batches)
-        if denses is None:
-            pairs = [self.query_with_coverage(qb) for qb in batches]
-            results = [idx for idx, _ in pairs]
-            return (results, [cov for _, cov in pairs]) if return_coverage \
-                else results
-        rows = self.query_queue_staged(denses)
-        sizes = [r.numel() for r in rows]
-        offs = np.concatenate([[0], np.cumsum(sizes)])
-        flat = torch.cat([r.reshape(-1) for r in rows]).cpu().numpy()
-        results = []
-        covs = []
-        for w, qb in enumerate(batches):
-            idx, ok = self.unscatter_queue(flat[offs[w]:offs[w + 1]], fslots[w], orders[w])
-            risk = self._sentinel_risk(np.asarray(qb, dtype=np.float32))
-            if risk is not None:
-                ok &= ~risk
-            covs.append(float(ok.mean()) if len(ok) else 1.0)
-            results.append(self._exact_rows(qb, idx, ok))
+        queries = [np.ascontiguousarray(qb, dtype=np.float32) for qb in batches]
+        staged = [self.stage(q) for q in queries]
+        rows = self._queue_winners([(packed, q_max) for packed, _, q_max in staged
+                                    if packed is not None])
+        flat = torch.cat(rows).cpu().numpy() if rows else None
+        results, covs, off = [], [], 0
+        for q, (packed, order, _) in zip(queries, staged):
+            m = len(order)
+            if packed is None:
+                idx, ok = np.zeros(m, dtype=np.int32), np.zeros(m, dtype=bool)
+            else:
+                idx, ok = self._unstage(flat[off:off + m], order, self._sentinel_risk(q))
+                off += m
+            covs.append(float(ok.mean()) if m else 1.0)
+            results.append(self._exact_rows(q, idx, ok))
         return (results, covs) if return_coverage else results
 
     def query_submit(self, queries: np.ndarray) -> CellToken:
-        """Asynchronous half of one batch: host staging and dense scatter,
-        the scan launched on the current stream and its winners gathered at
-        the batch's slots, with no download. Several tokens may be in flight;
+        """Asynchronous half of one batch: host staging, then
+        ``query_staged`` (one upload, the scatter, scan and gather on the
+        current stream), with no download. Several tokens may be in flight;
         ``query_collect`` or ``query_collect_dist`` downloads one."""
         q = np.ascontiguousarray(queries, dtype=np.float32)
         packed, order, q_max = self.stage(q)
         if packed is None:
             # Too skewed for the scan: collect gives every row uncertified.
             return CellToken(None, order, None, q)
-        dense, flat = self._dense_scatter(packed, q_max)
-        return CellToken(self._scan_at_slots(dense, flat), order, self._sentinel_risk(q), q)
+        signed, d2 = self.query_staged(packed, q_max)
+        winners = signed[None] if d2 is None else torch.stack([signed, d2.view(torch.int32)])
+        return CellToken(winners, order, self._sentinel_risk(q), q)
 
-    def _scan_at_slots(self, dense: np.ndarray, flat: np.ndarray) -> torch.Tensor:
-        """One scan of a staged batch -> (2, m) i32 on the device: each
-        staged row's signed winner id and the bits of its f32 min d2."""
-        slots = torch.as_tensor(flat.astype(np.int64), device=self.device)
-        dmin, sgid = cell_scan(as_f32(dense, self.device), self.halo_dm, self.halo_ids_dev,
-                               self.halo2)
-        return torch.stack([sgid.reshape(-1)[slots], dmin.reshape(-1)[slots].view(torch.int32)])
-
-    def _collect_d2(self, rows: np.ndarray, inv: np.ndarray, idx: np.ndarray,
+    def _collect_d2(self, rows: np.ndarray, order: np.ndarray, idx: np.ndarray,
                     token: CellToken) -> np.ndarray:
         """best_d2 in the caller's order: the scan's f32 min."""
-        return rows[1][inv].view(np.float32)
+        d2 = np.empty(len(order), dtype=np.float32)
+        d2[order] = rows[1].view(np.float32)
+        return d2
 
     def query_collect_dist(self, token: CellToken):
         """(idx, certified, best_d2) of a submitted batch in the caller's
-        order, from one download. best_d2 is the scan's f32 min over the halo
-        candidates: it tracks the true NN distance only to f32 rounding (~1
-        ulp can land below the f64 truth), and is the distance to a sentinel
-        slot when the halo set was empty. A batch too skewed for the kernel
-        comes back all uncertified (best_d2 inf)."""
+        order, from one (2, m) download. best_d2 is the scan's f32 min over
+        the halo candidates: it tracks the true NN distance only to f32
+        rounding (~1 ulp can land below the f64 truth), and is the distance
+        to a sentinel slot when the halo set was empty. A batch too skewed
+        for the kernel comes back all uncertified (best_d2 inf)."""
         m = len(token.order)
         if token.winners is None:
             return (np.zeros(m, dtype=np.int32), np.zeros(m, dtype=bool),
                     np.full(m, np.inf, dtype=np.float32))
         rows = token.winners.cpu().numpy()
-        inv = np.empty(m, dtype=np.int64)
-        inv[token.order] = np.arange(m)
-        sg = rows[0][inv]
-        ok = sg >= 0
-        idx = np.where(ok, sg, -sg - 1).astype(np.int32)
-        if token.risk is not None:
-            ok &= ~token.risk  # sentinel-corner proximity: force the exact path
-        return idx, ok, self._collect_d2(rows, inv, idx, token)
+        idx, ok = self._unstage(rows[0], token.order, token.risk)
+        return idx, ok, self._collect_d2(rows, token.order, idx, token)
 
     def query_collect(self, token: CellToken):
         idx, ok, _ = self.query_collect_dist(token)

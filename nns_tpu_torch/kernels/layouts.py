@@ -29,6 +29,17 @@ def pow2_at_least(x: int) -> int:
     return p
 
 
+def pad_dims(points: torch.Tensor, k_mult: int) -> torch.Tensor:
+    """Zero-pad the trailing dim axis of (p, k) to a multiple of k_mult
+    (appending zero coordinates to queries and refs alike leaves every
+    distance unchanged)."""
+    k = points.shape[1]
+    kp = round_up(k, k_mult)
+    if kp == k:
+        return points
+    return torch.nn.functional.pad(points, (0, kp - k))
+
+
 def pad_refs(refs: torch.Tensor, n_mult: int) -> torch.Tensor:
     """Pad the point axis of (n, k) to a multiple of n_mult by replicating
     the first reference point (see the module docstring)."""

@@ -4,16 +4,22 @@ form. Counterpart of ``nns_tpu/parallel/sharded_cells.py``.
 The supercell index shards by groups. The group axis is padded to g_pad, a
 multiple of the mesh size, with sentinel-only groups, and group range j
 (g_local groups: halo points and ids) lives on ``devices[j]``. A staged
-batch's dense rows are cut the same way, each shard launches ``cell_scan``
-on its own range, and the (g_local, QM) signed winner tables go to
-``devices[0]`` (``Tensor.to``), where the host half that this class
-inherits runs unchanged: ``query_queue`` downloads once per drain,
-unscatters and re-answers the uncertified rows exactly. Build, staging,
-the certificate and the exact fallback are ``CellListEngine``'s.
+(m, 5) pack is sorted by group, so shard j's rows are one slice of it:
+each run of consecutive shards on one device uploads its rows, scatters
+them into the dense table of its groups, scans each shard that holds rows
+on its own (g_local, QM, 3) slice and gathers the rows' winners; only
+those signed winners go to ``devices[0]`` (``Tensor.to``), where they are
+concatenated in shard order, which is the staged order. The host
+half that this class inherits runs unchanged: ``query_queue`` downloads
+once per drain and re-answers the uncertified rows exactly. Build,
+staging, the certificate and the exact fallback are ``CellListEngine``'s.
+(The JAX package has every shard scatter the whole replicated pack and
+all-gathers the (G, QM) winner table; the port moves fewer bytes and gives
+the same answers.)
 
 What differs from the single-device engine, as in the JAX package:
 ``query_collect_dist`` recomputes best_d2 on the host in float64 from the
-winning candidate (the tables carry ids only), and ``save`` writes the
+winning candidate (the shards send ids only), and ``save`` writes the
 single-device npz, so one file restores as either engine on any mesh size.
 """
 
@@ -23,7 +29,7 @@ import numpy as np
 import torch
 
 from nns_tpu_torch.kernels.cell_list import (CellListEngine, CellToken, _device_query_topk,
-                                             cell_scan, nns_cell_list)
+                                             _upload, cell_scan, nns_cell_list)
 from nns_tpu_torch.kernels.fused import as_f32
 from nns_tpu_torch.kernels.layouts import PAD_SENTINEL
 from nns_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -60,15 +66,74 @@ class ShardedCellEngine(CellListEngine):
             (dev, torch.as_tensor(dm[j * self.g_local:(j + 1) * self.g_local], device=dev),
              torch.as_tensor(ids[j * self.g_local:(j + 1) * self.g_local], device=dev))
             for j, dev in enumerate(self.mesh.devices)]
+        # Runs of consecutive shards on one device: (device, first, last).
+        self._runs = []
+        for j, dev in enumerate(self.mesh.devices):
+            if self._runs and self._runs[-1][0] == dev:
+                self._runs[-1] = (dev, self._runs[-1][1], j)
+            else:
+                self._runs.append((dev, j, j))
         self._fused = None
         self.halo2 = float(np.float32(self.halo) ** 2)
 
+    def _shard_cuts(self, packed: np.ndarray) -> np.ndarray:
+        """(n_dev + 1,) row offsets of each shard's slice of a staged pack,
+        whose rows are sorted by group."""
+        return np.searchsorted(packed[:, 3], np.arange(self.n_dev + 1) * self.g_local)
+
+    def query_staged(self, packed, q_max: int) -> tuple[torch.Tensor, None]:
+        """Device half of one batch, sharded (the counterpart of the JAX
+        package's ``_build_scan`` local body). The pack is sorted by group,
+        so the rows of each run of consecutive shards on one device are one
+        slice: the run uploads it, scatters it into the dense table of its
+        groups, launches ``cell_scan`` for each of its shards that holds
+        rows, and gathers each row's signed winner; only those (m_run,)
+        winners go to ``devices[0]``, concatenated in shard order (the
+        staged order). A mesh of distinct devices has one shard per run; a
+        mesh that repeats a device, one run per device. No synchronization
+        for a numpy pack (a tensor is read back to cut it). Returns (signed
+        winners (m,) i32, None): the shards send no distances
+        (``_collect_d2`` recomputes them in float64)."""
+        if isinstance(packed, torch.Tensor):
+            packed = packed.cpu().numpy()
+        packed = np.asarray(packed, dtype=np.float32)
+        cuts, gl, parts = self._shard_cuts(packed), self.g_local, []
+        for dev, lo, hi in self._runs:
+            if cuts[lo] == cuts[hi + 1]:
+                continue  # no rows: nothing launched
+            rows = _upload(packed[cuts[lo]:cuts[hi + 1]], dev)
+            sid, pos = rows[:, 3:5].long().unbind(1)
+            if lo:
+                sid = sid - lo * gl
+            dense = torch.zeros(((hi - lo + 1) * gl, q_max, 3), dtype=torch.float32, device=dev)
+            dense[sid, pos] = rows[:, :3]
+            tables = []
+            for j in range(lo, hi + 1):
+                if cuts[j] == cuts[j + 1]:  # no launch; no row reads these slots
+                    tables.append(torch.empty((gl, q_max), dtype=torch.int32, device=dev))
+                    continue
+                _, halo_dm, halo_ids = self.shards[j]
+                part = dense[(j - lo) * gl:(j - lo + 1) * gl]
+                tables.append(cell_scan(part, halo_dm, halo_ids, self.halo2)[1])
+            table = tables[0] if len(tables) == 1 else torch.cat(tables)
+            parts.append(table[sid, pos].to(self.device))
+        if not parts:
+            return torch.empty(0, dtype=torch.int32, device=self.device), None
+        return torch.cat(parts), None
+
+    def _queue_winners(self, packs) -> list[torch.Tensor]:
+        """The signed winners of each staged (pack, q_max) of a queue on
+        ``devices[0]``: ``query_staged`` per pack, whose runs take one
+        upload each."""
+        return [self.query_staged(p, q_max)[0] for p, q_max in packs]
+
     def query_queue_staged(self, denses):
-        """Device half of the queue path: per batch, each shard scans its
-        group range of the (G, qm_b, 3) dense rows (zero rows for the
-        padding groups), and the shards' winner tables are concatenated on
-        ``devices[0]``. Returns the tuple of (g_pad, qm_b) i32 tables, rows
-        past G belonging to the padding groups; no synchronization."""
+        """Device half of the host-staged queue (no serving path uses it):
+        per batch, each shard scans its group range of the (G, qm_b, 3)
+        dense rows (zero rows for the padding groups), and the shards'
+        winner tables are concatenated on ``devices[0]``. Returns the tuple
+        of (g_pad, qm_b) i32 tables, rows past G belonging to the padding
+        groups; no synchronization."""
         if not isinstance(denses, (tuple, list)):
             raise TypeError("query_queue_staged takes a sequence of per-batch dense arrays")
         gl, tables = self.g_local, []
@@ -82,12 +147,7 @@ class ShardedCellEngine(CellListEngine):
             tables.append(torch.cat(parts))
         return tuple(tables)
 
-    def _scan_at_slots(self, dense: np.ndarray, flat: np.ndarray) -> torch.Tensor:
-        """(1, m) i32 on ``devices[0]``: each staged row's signed winner."""
-        slots = torch.as_tensor(flat.astype(np.int64), device=self.device)
-        return self.query_queue_staged([dense])[0].reshape(-1)[slots][None]
-
-    def _collect_d2(self, rows: np.ndarray, inv: np.ndarray, idx: np.ndarray,
+    def _collect_d2(self, rows: np.ndarray, order: np.ndarray, idx: np.ndarray,
                     token: CellToken) -> np.ndarray:
         """best_d2 recomputed in float64 from each row's decoded candidate:
         the true NN distance of the f32 inputs on certified rows, and a sound
@@ -102,7 +162,7 @@ class ShardedCellEngine(CellListEngine):
         """Each shard answers the staged rows of its groups (rows are sorted
         by group, so each shard's are one slice); the results go back to
         ``devices[0]`` by row."""
-        cuts = np.searchsorted(packed[:, 3], np.arange(self.n_dev + 1) * self.g_local)
+        cuts = self._shard_cuts(packed)
         parts = []
         for j, (dev, halo_dm, halo_ids) in enumerate(self.shards):
             staged = torch.as_tensor(packed[cuts[j]:cuts[j + 1]], device=dev)

@@ -1,10 +1,22 @@
-"""Where the time of the v9 drain, the beam drain or the sharded supercell
-drain goes, on one CUDA device.
+"""Where the time of the 3-D supercell drain, the v9 drain, the beam drain
+or the sharded supercell drain goes, on one CUDA device.
 
 Run from the repository root: ``python -m nns_tpu_torch.utils.profile_drain
-[--w 16] [--path v9|beam|sharded]``.
+[--w 16] [--path cells|v9|beam|sharded]``.
 
-``--path v9`` (the default) builds ``NNEngine(9, device="cuda")`` over
+``--path cells`` (the default) builds ``CellListEngine`` over bench.py's
+workload (1M uniform 3-D refs, seed 1000; W distinct 10K-query batches, the
+first make_dataset's, the others drawn in the refs' box), drains them once
+untimed, then times each host step of ``query_queue`` over the W batches
+(host clock, synchronized after each; four repetitions, ms per batch):
+``stage``, ``_sentinel_risk``, the upload and device bodies
+(``_queue_winners``: one upload of the queue's concatenated packs; beside
+it, in alternating order, one upload per batch through ``query_staged``,
+which the drain does not use), the concatenation and one download, the
+inverse permutation (``_unstage``) and the exact re-answers; and traces
+one ``query_queue`` as in step 2 below.
+
+``--path v9`` builds ``NNEngine(9, device="cuda")`` over
 bench_k16's workload on 1M refs (16-D uniform, seed 1000), answers W
 distinct 10K-query batches once untimed, then:
 
@@ -46,13 +58,15 @@ import torch
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--w", type=int, default=16, help="10K-query batches in the queue")
-    ap.add_argument("--path", choices=("v9", "beam", "sharded"), default="v9")
+    ap.add_argument("--path", choices=("cells", "v9", "beam", "sharded"), default="cells")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_drain: no CUDA device visible", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    if args.path == "cells":
+        return _cells(args.w)
     if args.path == "beam":
         return _beam(args.w)
     if args.path == "sharded":
@@ -116,6 +130,51 @@ def _trace(tag: str, fn, w: int) -> None:
     for e in events[:12]:
         print(f"[{tag}]   {e.self_device_time_total / 1e3 / w:9.4f} ms/batch  "
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
+
+
+def _cells(w: int) -> int:
+    """The 3-D supercell drain on one device: its host steps, then a trace."""
+    from nns_tpu_torch.data import make_dataset
+    from nns_tpu_torch.kernels.cell_list import CellListEngine
+
+    queries, refs = make_dataset(3, 10_000, 1_000_000, 1000)
+    rng = np.random.default_rng(1001)
+    lo, hi = refs.min(axis=0), refs.max(axis=0)
+    batches = [queries] + [(rng.random((10_000, 3), dtype=np.float32) * (hi - lo) + lo)
+                           .astype(np.float32) for _ in range(w - 1)]
+    eng = CellListEngine(refs, device="cuda")
+    eng.query_queue(batches)  # warm: the kernel library, the fallback engine
+    offs = np.cumsum([0] + [len(b) for b in batches])
+    for rep in range(4):  # the first repetition pays the process's first-touch costs
+        times = {}
+
+        def step(label, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times[label] = (time.perf_counter() - t0) * 1e3 / w
+            return out
+
+        staged = step("stage", lambda: [eng.stage(b) for b in batches])
+        risks = step("_sentinel_risk", lambda: [eng._sentinel_risk(b) for b in batches])
+        # The two upload forms in turns: which goes first alternates.
+        served = ("upload+body", lambda: eng._queue_winners([(p, q_max)
+                                                             for p, _, q_max in staged]))
+        other = ("upload per batch+body (not served)",
+                 lambda: [eng.query_staged(p, q_max)[0] for p, _, q_max in staged])
+        for label, fn in ((served, other) if rep % 2 == 0 else (other, served)):
+            out = step(label, fn)
+            if label == served[0]:
+                rows = out
+        flat = step("download", lambda: torch.cat(rows).cpu().numpy())
+        unstaged = step("_unstage", lambda: [eng._unstage(flat[offs[i]:offs[i + 1]], staged[i][1],
+                                                          risks[i]) for i in range(w)])
+        step("_exact_rows", lambda: [eng._exact_rows(b, idx, ok)
+                                     for b, (idx, ok) in zip(batches, unstaged)])
+        print(f"[steps] {rep}: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+              + " ms/batch", flush=True)
+    _trace("cells", lambda: eng.query_queue(batches), w)
+    return 0
 
 
 def _beam(w: int) -> int:

@@ -18,7 +18,9 @@ import nns_tpu.kernels.cell_list as jax_cells
 from conftest import assert_exact
 from nns_tpu.data import make_dataset
 from nns_tpu_torch.convert import cell_engine_from_numpy
-from nns_tpu_torch.kernels.cell_list import CellListEngine, cell_scan, nns_cell_list
+from nns_tpu_torch.kernels.cell_list import (_SENTINEL_MARGIN, CellListEngine, cell_scan,
+                                             nns_cell_list)
+from nns_tpu_torch.kernels.layouts import PAD_SENTINEL
 from test_torch_native import native_libraries  # noqa: F401  (the guard)
 
 # The JAX package's host library loaded in this process: its numpy fallbacks
@@ -300,3 +302,154 @@ def test_empty_queue_returns_empty_list():
     assert cells.query_many([]) == []
     with pytest.raises(ValueError):
         jax_cells.CellListEngine(r).query_queue([])
+
+
+def _skewed_rows(m, seed, centre=0.5):
+    """m rows, the first m // 2 packed into one supercell's corner (QM =
+    512 at m = 1000 over 32768 refs), the last five over (-1, 2)^3."""
+    q = _queries_with_far_rows(m, seed)[::-1].copy()
+    rng = np.random.default_rng(seed)
+    q[:m // 2] = np.float32(centre) + rng.random((m // 2, 3), dtype=np.float32) * np.float32(0.01)
+    return q
+
+
+@pytest.mark.parametrize("n,case", [(8192, "far_rows"), (32768, "far_rows"), (8192, "m1"),
+                                    (8192, "all_far"), (32768, "skewed")])
+def test_query_staged_equals_jax(n, case):
+    # The same stage pack through JAX's query_staged (its packed (4, m)
+    # hi/lo ids decoded here) and the port's device body: ids and flags
+    # exactly equal, d2 within D2_RTOL.
+    _, r = make_dataset(3, 1, n, seed=n)
+    jeng = jax_cells.CellListEngine(r)
+    eng = cell_engine_from_numpy(_jax_state(jeng), device="cpu")
+    rng = np.random.default_rng(n + len(case))
+    q = {"far_rows": lambda: _queries_with_far_rows(700, n),
+         "m1": lambda: rng.random((1, 3), dtype=np.float32),
+         "all_far": lambda: (rng.random((64, 3), dtype=np.float32) * np.float32(4.0)
+                             - np.float32(2.0)),
+         "skewed": lambda: _skewed_rows(1000, n)}[case]()
+    packed, order, q_max = eng.stage(q)
+    j_packed, j_order, j_q_max = jeng.stage(q)
+    assert packed.tobytes() == j_packed.tobytes() and j_q_max == q_max
+    np.testing.assert_array_equal(order, j_order)
+    if case == "skewed":
+        assert q_max >= 512
+    out = np.asarray(jeng.query_staged(packed, q_max))
+    idx_j = ((out[0].astype(np.int64) << 12) | out[1].astype(np.int64)).astype(np.int32)
+    ok_j = out[2].astype(bool)
+    signed, d2 = eng.query_staged(packed, q_max)
+    assert signed.dtype == torch.int32 and signed.shape == (len(q),)
+    assert d2.dtype == torch.float32 and d2.shape == (len(q),)
+    signed, d2 = signed.numpy(), d2.numpy()
+    ok = signed >= 0
+    np.testing.assert_array_equal(ok, ok_j)
+    np.testing.assert_array_equal(np.where(ok, signed, -signed - 1), idx_j)
+    np.testing.assert_allclose(d2, out[3], rtol=D2_RTOL, atol=0)  # FMA on the XLA side only
+    if case in ("far_rows", "skewed"):
+        assert ok.any() and not ok.all()
+    if case == "all_far":
+        assert not ok.all()
+    # A tensor pack takes the same path.
+    again = eng.query_staged(torch.from_numpy(packed), q_max)
+    np.testing.assert_array_equal(again[0].numpy(), signed)
+    assert again[1].numpy().tobytes() == d2.tobytes()
+
+
+def _host_staged_queue(eng, batches):
+    """The host-staged drain, built from the public API: host dense
+    scatter, one scan per dense batch, one download of every winner table,
+    the host unscatter, the sentinel mask and the exact re-answer."""
+    denses, fslots, orders = eng.stage_queue_ragged(batches)
+    tables = eng.query_queue_staged(denses)
+    flat = torch.cat([t.reshape(-1) for t in tables]).cpu().numpy()
+    offs = np.cumsum([0] + [t.numel() for t in tables])
+    results, covs = [], []
+    for w, qb in enumerate(batches):
+        idx, ok = eng.unscatter_queue(flat[offs[w]:offs[w + 1]], fslots[w], orders[w])
+        risk = eng._sentinel_risk(qb)
+        if risk is not None:
+            ok &= ~risk
+        covs.append(float(ok.mean()))
+        results.append(eng._exact_rows(qb, idx, ok))
+    return results, covs
+
+
+def test_query_queue_device_staging_equals_host_staging(monkeypatch):
+    # A ragged queue (two q_max tiers) with fallback rows: the device-staged
+    # drain (one upload of the queue's packs) equals the host-staged one bit
+    # for bit; a batch too skewed for the kernel falls back alone, as
+    # query_with_coverage answers it.
+    import nns_tpu_torch.kernels.cell_list as cl
+
+    _, r = make_dataset(3, 1, 32768, seed=34)
+    eng = CellListEngine(r, device="cpu")
+    rng = np.random.default_rng(34)
+    queue = [_queries_with_far_rows(500, 3), _skewed_rows(600, 4),
+             rng.random((300, 3), dtype=np.float32), _queries_with_far_rows(5, 5)[:1]]
+    assert len({eng.stage(b)[2] for b in queue}) >= 2
+    uploads = []
+    upload = cl._upload
+    monkeypatch.setattr(cl, "_upload", lambda rows, dev: uploads.append(len(rows))
+                        or upload(rows, dev))
+    got, cov = eng.query_queue(queue, return_coverage=True)
+    assert uploads == [sum(len(b) for b in queue)]
+    monkeypatch.setattr(cl, "_upload", upload)
+    want, cov_h = _host_staged_queue(eng, queue)
+    assert cov == cov_h and min(cov) < 1.0
+    for a, b, qb in zip(got, want, queue):
+        assert a.dtype == np.int32
+        np.testing.assert_array_equal(a, b)
+        assert_exact(a, qb, r)
+    too_skewed = (np.float32(0.5) + rng.random((2 * eng.q_max_limit(), 3), dtype=np.float32)
+                  * np.float32(1e-4))
+    mixed = [queue[0], too_skewed, queue[2]]
+    assert eng.stage(too_skewed)[0] is None
+    got, cov = eng.query_queue(mixed, return_coverage=True)
+    for a, (b, c), cv in zip(got, (eng.query_with_coverage(qb) for qb in mixed), cov):
+        np.testing.assert_array_equal(a, b)
+        assert cv == c
+    assert cov[1] == 0.0
+
+
+def test_sentinel_bound_equals_f64_pass():
+    # Refs near the PAD_SENTINEL corner: rows at, just inside and just
+    # outside PAD_SENTINEL - 2 halo (and its margin) get the mask of the
+    # f64 pass (the JAX package's _sentinel_risk is that pass alone), and
+    # the drain answers them as the JAX package and the host-staged drain do.
+    rng = np.random.default_rng(78)
+    r = np.float32(1e6) - rng.random((16384, 3), dtype=np.float32) * np.float32(64.0)
+    jeng = jax_cells.CellListEngine(r)
+    eng = CellListEngine(r, device="cpu")
+    assert eng.halo == jeng.halo
+    sent = np.float32(PAD_SENTINEL)
+    edge = np.float32(PAD_SENTINEL - 2.0 * eng.halo)
+    margin = PAD_SENTINEL - 2.0 * eng.halo - _SENTINEL_MARGIN
+    lows = [edge, np.nextafter(edge, np.float32(np.inf)), np.nextafter(edge, np.float32(0)),
+            np.float32(margin), np.nextafter(np.float32(margin), np.float32(0)),
+            np.nextafter(np.float32(margin), np.float32(np.inf)), sent]
+    corner = np.array([[x, sent, sent] for x in lows] + [[x, x, x] for x in lows]
+                      + [[sent, x, sent] for x in lows], dtype=np.float32)
+    box = (r.min(axis=0) + rng.random((2000, 3), dtype=np.float32)
+           * (r.max(axis=0) - r.min(axis=0))).astype(np.float32)
+    far = rng.random((50, 3), dtype=np.float32)
+    cases = [corner, box, far, box[box.min(axis=1) < margin - 1.0], far[:0],
+             np.concatenate([far, corner[1:2]])] + [corner[i:i + 1] for i in range(len(corner))]
+    at_risk = 0
+    for q in cases:
+        got, want = eng._sentinel_risk(q), jeng._sentinel_risk(q)
+        if want is None:
+            assert got is None
+        else:
+            np.testing.assert_array_equal(got, want)
+            at_risk += int(want.sum())
+    assert at_risk > 0 and eng._sentinel_risk(corner[1:2]) is not None  # just inside
+    assert eng._sentinel_risk(cases[2]) is None and eng._sentinel_risk(cases[3]) is None
+    queue = [box[:600], corner, far]
+    got, cov = eng.query_queue(queue, return_coverage=True)
+    want_j, cov_j = jeng.query_queue(queue, return_coverage=True)
+    want_h, cov_h = _host_staged_queue(eng, queue)
+    assert cov == cov_j == cov_h and cov[1] < 1.0
+    for a, b, c, qb in zip(got, want_j, want_h, queue):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+        assert_exact(a, qb, r)

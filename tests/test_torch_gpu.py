@@ -396,6 +396,41 @@ def test_cell_engine_cuda_equals_cpu(cuda):
     np.testing.assert_array_equal(d_g, d_c)
 
 
+@pytest.mark.parametrize("n_shards", [None, 4])
+def test_device_staging_equals_host_staging(cuda, n_shards):
+    # query_staged (upload, scatter, scan and gather on the card) against the
+    # host-staged path (dense scatter in numpy, the scan, the gather at the
+    # flat slots), on one device and on Mesh.virtual(4): signed winners and
+    # d2 bit-equal, on a uniform, a skewed (QM >= 512) and an out-of-box
+    # batch; one launch per batch, or per shard that holds rows.
+    from nns_tpu_torch.parallel import Mesh, ShardedCellEngine
+
+    q, r = make_dataset(3, 3000, 65536, seed=9)
+    skew = q.copy()
+    skew[:600] = np.float32(0.51) + q[:600] * np.float32(0.01)
+    ood = (q * np.float32(2.0) - np.float32(0.5)).astype(np.float32)
+    single = CellListEngine(r, device=cuda)
+    eng = single if n_shards is None else ShardedCellEngine(r, Mesh.virtual(n_shards, "cuda"))
+    for b in (q, skew, ood):
+        packed, _, q_max = single.stage(b)
+        dense, fslots = single._dense_scatter(packed, q_max)
+        dmin, sgid = cell_scan(torch.as_tensor(dense, device=cuda), single.halo_dm,
+                               single.halo_ids_dev, single.halo2)
+        slots = torch.as_tensor(fslots.astype(np.int64), device=cuda)
+        _cuda.reset_launches()
+        signed, d2 = eng.query_staged(packed, q_max)
+        torch.cuda.synchronize()
+        want_launches = 1 if n_shards is None else int(
+            (np.diff(eng._shard_cuts(packed)) > 0).sum())
+        assert _cuda.LAUNCHES["cell_scan"] == want_launches
+        assert signed.device == slots.device and torch.equal(signed, sgid.reshape(-1)[slots])
+        if n_shards is None:
+            assert torch.equal(d2.view(torch.int32), dmin.reshape(-1)[slots].view(torch.int32))
+        else:
+            assert d2 is None
+    assert single.stage(skew)[2] >= 512
+
+
 # The ladder's kernels: wrapper, plain twin, and whether refs are point-major.
 LADDER = {
     "fused_point_major": (fused_point_major_min_idx, fused_point_major_plain, True),
@@ -1195,7 +1230,10 @@ def test_sharded_cells_on_a_virtual_mesh_equal_single_device(cuda, tmp_path, n_s
     assert single.D ** 3 == 216 and sharded.g_pad == 216 + (n_shards == 5) * 4
     _cuda.reset_launches()
     got, cov = sharded.query_queue(batches, return_coverage=True)
-    assert _cuda.LAUNCHES["cell_scan"] == n_shards * len(batches)
+    # One launch per shard that holds rows of a batch.
+    busy = sum(int((np.diff(sharded._shard_cuts(sharded.stage(b)[0])) > 0).sum())
+               for b in batches)
+    assert _cuda.LAUNCHES["cell_scan"] == busy
     want, cov_s = single.query_queue(batches, return_coverage=True)
     assert cov == cov_s and min(cov) < 1.0
     for a, b in zip(got, want):

@@ -20,11 +20,14 @@ import nns_tpu.data as jax_data
 import nns_tpu.kernels.layouts as jax_layouts
 import nns_tpu.kernels.oracle as jax_oracle
 import nns_tpu.native as jax_native
+import nns_tpu.utils.timing as jax_timing
 import nns_tpu_torch.config as pt_config
 import nns_tpu_torch.data as pt_data
 import nns_tpu_torch.kernels.layouts as pt_layouts
 import nns_tpu_torch.kernels.oracle as pt_oracle
 import nns_tpu_torch.native as pt_native
+import nns_tpu_torch.utils as pt_utils
+import nns_tpu_torch.utils.timing as pt_timing
 from nns_tpu_torch.kernels.cell_list import CellListEngine
 from test_torch_native import native_libraries  # noqa: F401  (the guard)
 
@@ -98,6 +101,50 @@ def test_layouts_padding_contract():
         assert pt_layouts.pow2_at_least(x) == jax_layouts.pow2_at_least(x)
         assert pt_layouts.round_up(x, 128) == jax_layouts.round_up(x, 128)
     assert pt_layouts.PAD_SENTINEL == jax_layouts.PAD_SENTINEL
+
+
+@pytest.mark.parametrize("k,k_mult", [(3, 8), (16, 8), (5, 4), (1, 128)])
+def test_pad_dims_equals_jax(k, k_mult):
+    p = np.random.default_rng(k).random((37, k), dtype=np.float32)
+    got = pt_layouts.pad_dims(torch.from_numpy(p), k_mult)
+    want = np.asarray(jax_layouts.pad_dims(jnp.asarray(p), k_mult))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.shape[1] % k_mult == 0 and (got[:, k:] == 0).all()
+    assert pt_layouts.pad_dims(got, k_mult) is got  # already a multiple: no copy
+
+
+def test_timing_helpers_follow_jax():
+    # Timer, warmup and time_callable call fn as often as the JAX package's
+    # and return the same results; a result on the CPU needs no sync.
+    assert (pt_utils.Timer, pt_utils.warmup, pt_utils.time_callable) == (
+        pt_timing.Timer, pt_timing.warmup, pt_timing.time_callable)
+    calls = {"jax": 0, "torch": 0}
+
+    def fn(side, x):
+        calls[side] += 1
+        return x + 1, [x * 2]
+
+    x_t, x_j = torch.arange(4.0), jnp.arange(4.0)
+    for iters in (0, 1, 3):
+        pt_utils.warmup(fn, "torch", x_t, iters=iters)
+        jax_timing.warmup(fn, "jax", x_j, iters=iters)
+        assert calls["torch"] == calls["jax"]
+    for iters, warm in ((1, 0), (3, 2)):
+        ms_t, out_t = pt_utils.time_callable(fn, "torch", x_t, iters=iters, warmup_iters=warm)
+        ms_j, out_j = jax_timing.time_callable(fn, "jax", x_j, iters=iters, warmup_iters=warm)
+        assert calls["torch"] == calls["jax"]
+        assert ms_t > 0 and ms_j > 0
+        np.testing.assert_array_equal(out_t[0].numpy(), np.asarray(out_j[0]))
+        np.testing.assert_array_equal(out_t[1][0].numpy(), np.asarray(out_j[1][0]))
+    for timer in (pt_utils.Timer, jax_timing.Timer):
+        result = {"a": x_t}
+        with timer() as t:
+            assert t.set_result(result) is result
+        assert t.ms > 0
+        with timer() as t:  # no result: the host clock alone
+            pass
+        assert t.ms >= 0
 
 
 @pytest.mark.parametrize("n,d", [(20000, 4), (50000, 5)])

@@ -16,13 +16,14 @@ and equal to the single-device engine's."""
 
 import numpy as np
 import pytest
+import torch
 
 import nns_tpu.kernels.cell_list as jax_cells
 from conftest import assert_exact
 from nns_tpu.data import make_dataset
 from nns_tpu.parallel import sharded_cells as jax_sc
 from nns_tpu.parallel.mesh import make_mesh
-from nns_tpu_torch.kernels.cell_list import CellListEngine
+from nns_tpu_torch.kernels.cell_list import CellListEngine, _upload, cell_scan
 from nns_tpu_torch.parallel.mesh import Mesh
 from nns_tpu_torch.parallel.sharded_cells import ShardedCellEngine, nns_sharded_cells
 from test_torch_native import native_libraries  # noqa: F401  (the guard)
@@ -249,3 +250,60 @@ def test_sharded_cells_refuses_a_2d_mesh():
     _, r = make_dataset(3, 1, 8192, seed=7)
     with pytest.raises(ValueError, match="1-D mesh"):
         ShardedCellEngine(r, Mesh.virtual((2, 2), "cpu"))
+
+
+@pytest.mark.parametrize("n_dev,alternate", [(1, False), (2, False), (4, False), (5, False),
+                                             (4, True)])
+def test_sharded_device_staging_equals_jax_and_one_device(n_dev, alternate, monkeypatch):
+    # query_submit and query_queue through the sharded device body: each
+    # shard with rows scans its groups, a shard with none launches nothing
+    # (the corner batch lands on shard 0 alone), and each run of shards on
+    # one device takes one upload per batch: one run on the virtual mesh,
+    # one per shard when the devices alternate ("cpu", "cpu:0"), as on a
+    # mesh of distinct devices. Answers equal the single-device engine's
+    # and the JAX sharded engine's on as many of its virtual CPU devices.
+    import nns_tpu_torch.parallel.sharded_cells as sc_mod
+
+    rng = np.random.default_rng(70 + n_dev + alternate)
+    r = rng.random((16384, 3), dtype=np.float32)
+    mesh = (Mesh(tuple(torch.device("cpu", j % 2) if j % 2 else torch.device("cpu")
+                       for j in range(n_dev)), (n_dev,)) if alternate else _virtual(n_dev))
+    eng = ShardedCellEngine(r, mesh)
+    assert len(eng._runs) == (n_dev if alternate else 1)
+    single = CellListEngine(r, device="cpu")
+    jeng = jax_sc.ShardedCellEngine(r, make_mesh(n_dev))
+    far = rng.random((40, 3), dtype=np.float32) * np.float32(3.0) - np.float32(1.0)
+    corner = rng.random((200, 3), dtype=np.float32) * np.float32(0.05)
+    queue = [np.concatenate([rng.random((300, 3), dtype=np.float32), far]), corner,
+             rng.random((1, 3), dtype=np.float32)]
+    scans, uploads = [], []
+    monkeypatch.setattr(sc_mod, "cell_scan", lambda dense, *a: scans.append(len(dense))
+                        or cell_scan(dense, *a))
+    monkeypatch.setattr(sc_mod, "_upload", lambda rows, dev: uploads.append(len(rows))
+                        or _upload(rows, dev))
+    got, cov = eng.query_queue(queue, return_coverage=True)
+    cuts = [eng._shard_cuts(eng.stage(b)[0]) for b in queue]
+    busy = [int((np.diff(c) > 0).sum()) for c in cuts]
+    assert len(scans) == sum(busy) and set(scans) == {eng.g_local}
+    assert len(uploads) == sum(c[lo] < c[hi + 1] for c in cuts for _, lo, hi in eng._runs)
+    assert sum(uploads) == sum(len(b) for b in queue)
+    if n_dev > 1:
+        assert busy[1] == 1
+    want, cov_s = single.query_queue(queue, return_coverage=True)
+    want_j, cov_j = jeng.query_queue(queue, return_coverage=True)
+    assert cov == cov_s == cov_j and min(cov) < 1.0
+    for a, b, c, qb in zip(got, want, want_j, queue):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+        assert_exact(a, qb, r)
+    for qb in queue:
+        token = eng.query_submit(qb)
+        assert token.winners.shape == (1, len(qb)) and token.winners.dtype == torch.int32
+        idx, ok, d2 = eng.query_collect_dist(token)
+        idx_s, ok_s = single.query_with_flags(qb)
+        np.testing.assert_array_equal(ok, ok_s)
+        np.testing.assert_array_equal(idx, idx_s)
+        idx_j, ok_j, d2_j = jeng.query_collect_dist(jeng.query_submit(qb))
+        np.testing.assert_array_equal(ok, ok_j)
+        np.testing.assert_array_equal(idx, idx_j)
+        np.testing.assert_array_equal(d2, d2_j)
