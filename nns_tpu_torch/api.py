@@ -24,6 +24,7 @@ from typing import Any, Callable
 import numpy as np
 
 from nns_tpu_torch.config import DEFAULT_ENGINE_CONFIG, EngineConfig
+from nns_tpu_torch.utils.spans import span, spanned
 
 
 def _as_idx(x: Any) -> np.ndarray:
@@ -278,9 +279,10 @@ class NNEngine:
         buckets follow the data's density (nns_tpu/api.py:283-288)."""
         from nns_tpu_torch.trees.octree import Octree
 
-        self._built = Octree.build(
-            self._refs, max_depth=self.config.octree_max_depth
-        ).device_index(self.device)
+        with span("nns.api.promote"):
+            self._built = Octree.build(
+                self._refs, max_depth=self.config.octree_max_depth
+            ).device_index(self.device)
 
     def _fused_engine(self):
         """The v4 engine over the refs, staged once on ``device``."""
@@ -288,6 +290,7 @@ class NNEngine:
 
         return FusedBruteForce(self._refs, tile_n=self.config.tile_n, device=self.device)
 
+    @spanned("nns.api.build")
     def build(self, refs) -> "NNEngine":
         from nns_tpu_torch.kernels.cell_list import CellListEngine
         from nns_tpu_torch.kernels.fused import FusedBruteForce, as_f32
@@ -414,16 +417,17 @@ class NNEngine:
             idx, cov = self._built.query_with_coverage(
                 queries, beam=self._hk_beam, budget=self._hk_budget)
             if self._note_coverage(cov, queries.shape[0], good_cov=0.5, miss_frac=0.7):
-                if self._hk_budget is not None:
-                    # The scan rung's chunk locality failed on the live
-                    # stream (its probe certified per-query beam-16
-                    # coverage only): the per-query beam gets a fresh
-                    # hysteresis window before the index is given up.
-                    self._hk_budget = None
-                else:
-                    # Only the probe promotes, and it keeps the engine it
-                    # replaced.
-                    self._built = self._hk_mxu
+                with span("nns.api.promote"):
+                    if self._hk_budget is not None:
+                        # The scan rung's chunk locality failed on the live
+                        # stream (its probe certified per-query beam-16
+                        # coverage only): the per-query beam gets a fresh
+                        # hysteresis window before the index is given up.
+                        self._hk_budget = None
+                    else:
+                        # Only the probe promotes, and it keeps the engine it
+                        # replaced.
+                        self._built = self._hk_mxu
             return _as_idx(idx)
         idx = _as_idx(self._built.query(queries))
         self._maybe_promote_high_k(queries)
@@ -456,8 +460,15 @@ class NNEngine:
             return
         self._hk_probed = True
         self._hk_recent = None
+        with span("nns.api.promote"):
+            self._probe_high_k(recent)
+
+    def _probe_high_k(self, recent: np.ndarray) -> None:
+        """The probe's rungs over the ``recent`` live queries (see
+        ``_maybe_promote_high_k``)."""
         from nns_tpu_torch.trees.kdtree import KDTree
 
+        cfg = self.config
         bi = KDTree.build(self._refs).device_index(self.device)
         f_total = bi.lo.shape[0]
 
@@ -492,6 +503,7 @@ class NNEngine:
             if float(ok.mean()) >= cfg.hk_promote_cov:
                 return _promote(beam)
 
+    @spanned("nns.api.query")
     def query(self, queries) -> np.ndarray:
         from nns_tpu_torch.kernels.cell_list import CellListEngine
         from nns_tpu_torch.kernels.fused import FusedBruteForce
@@ -517,7 +529,8 @@ class NNEngine:
             # passes are pure overhead on the exact scan — demote to the
             # staged fused engine (nns_tpu/api.py:605-619).
             if self._note_coverage(cov, m, good_cov=0.5, miss_frac=0.7):
-                self._built = self._fused_engine()
+                with span("nns.api.promote"):
+                    self._built = self._fused_engine()
             return _as_idx(idx)
         if isinstance(built, (KDTree, Octree)):
             if self.spec.num in (10, 12):
@@ -529,6 +542,7 @@ class NNEngine:
         refs = self._refs if built is None else built
         return self.spec(queries, refs, self.config, self.device)
 
+    @spanned("nns.api.query_many")
     def query_many(self, batches) -> list[np.ndarray]:
         """Exact answers for several query batches: the supercell engine
         drains the whole queue with one scan launch per batch and one

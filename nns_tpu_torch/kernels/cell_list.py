@@ -34,6 +34,7 @@ from nns_tpu_torch.kernels import _cuda
 from nns_tpu_torch.kernels.fused import FusedBruteForce, as_f32, fused_fallback
 from nns_tpu_torch.kernels.layouts import PAD_SENTINEL, pow2_at_least as _pow2_at_least
 from nns_tpu_torch.kernels.topk import direct_d2, nns_topk, smallest
+from nns_tpu_torch.utils.spans import COUNTS, count_copy, span, spanned
 
 # Queries per supercell the CUDA kernel takes (kMaxQM in csrc/cell_scan.cu).
 _KERNEL_MAX_QM = 2048
@@ -130,6 +131,7 @@ def _upload(rows, device) -> torch.Tensor:
     if isinstance(rows, torch.Tensor) or device.type != "cuda":
         return as_f32(rows, device)
     host = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.float32)).pin_memory()
+    count_copy("up", host.nbytes, device)
     return host.to(device, non_blocking=True)
 
 
@@ -343,6 +345,7 @@ class CellListEngine:
         to the brute-force path."""
         return (1 << 20) // 512  # 2048
 
+    @spanned("nns.cells.stage")
     def stage(self, queries: np.ndarray):
         """Host-side bucketing: sort queries by supercell, compute slot
         positions, pack into one (m, 5) f32 array [x, y, z, sid, pos].
@@ -459,10 +462,23 @@ class CellListEngine:
         """Re-answer the uncertified rows (``ok`` False) with the exact fused
         scan, in place."""
         if not ok.all():
-            bad = np.flatnonzero(~ok)
-            q_bad = np.ascontiguousarray(queries, dtype=np.float32)[bad]
-            idx[bad] = self._fallback_engine().fallback(q_bad).cpu().numpy()
+            with span("nns.cells.exact_rows"):
+                bad = np.flatnonzero(~ok)
+                q_bad = np.ascontiguousarray(queries, dtype=np.float32)[bad]
+                count_copy("up", q_bad.nbytes, self.device)
+                got = self._fallback_engine().fallback(q_bad).cpu().numpy()
+                count_copy("down", got.nbytes, self.device)
+                idx[bad] = got
         return idx
+
+    @staticmethod
+    def _coverage(ok: np.ndarray) -> float:
+        """The certified fraction of a batch's rows (1.0 for none), counted
+        into ``cells.rows`` and ``cells.certified_rows``."""
+        m, certified = len(ok), int(np.count_nonzero(ok))
+        COUNTS["cells.rows"] += m
+        COUNTS["cells.certified_rows"] += certified
+        return certified / m if m else 1.0
 
     def _fallback_engine(self) -> FusedBruteForce:
         """The exact fallback's engine over the refs, staged once."""
@@ -500,18 +516,24 @@ class CellListEngine:
             return ([], []) if return_coverage else []
         queries = [np.ascontiguousarray(qb, dtype=np.float32) for qb in batches]
         staged = [self.stage(q) for q in queries]
-        rows = self._queue_winners([(packed, q_max) for packed, _, q_max in staged
-                                    if packed is not None])
-        flat = torch.cat(rows).cpu().numpy() if rows else None
+        with span("nns.cells.device"):
+            rows = self._queue_winners([(packed, q_max) for packed, _, q_max in staged
+                                        if packed is not None])
+        flat = None
+        if rows:
+            with span("nns.cells.download"):
+                flat = torch.cat(rows).cpu().numpy()
+            count_copy("down", flat.nbytes, self.device)
         results, covs, off = [], [], 0
         for q, (packed, order, _) in zip(queries, staged):
             m = len(order)
             if packed is None:
                 idx, ok = np.zeros(m, dtype=np.int32), np.zeros(m, dtype=bool)
             else:
-                idx, ok = self._unstage(flat[off:off + m], order, self._sentinel_risk(q))
+                with span("nns.cells.unstage"):
+                    idx, ok = self._unstage(flat[off:off + m], order, self._sentinel_risk(q))
                 off += m
-            covs.append(float(ok.mean()) if m else 1.0)
+            covs.append(self._coverage(ok))
             results.append(self._exact_rows(q, idx, ok))
         return (results, covs) if return_coverage else results
 
@@ -525,9 +547,12 @@ class CellListEngine:
         if packed is None:
             # Too skewed for the scan: collect gives every row uncertified.
             return CellToken(None, order, None, q)
-        signed, d2 = self.query_staged(packed, q_max)
-        winners = signed[None] if d2 is None else torch.stack([signed, d2.view(torch.int32)])
-        return CellToken(winners, order, self._sentinel_risk(q), q)
+        with span("nns.cells.device"):
+            signed, d2 = self.query_staged(packed, q_max)
+            winners = signed[None] if d2 is None else torch.stack([signed, d2.view(torch.int32)])
+        with span("nns.cells.unstage"):
+            risk = self._sentinel_risk(q)
+        return CellToken(winners, order, risk, q)
 
     def _collect_d2(self, rows: np.ndarray, order: np.ndarray, idx: np.ndarray,
                     token: CellToken) -> np.ndarray:
@@ -547,9 +572,12 @@ class CellListEngine:
         if token.winners is None:
             return (np.zeros(m, dtype=np.int32), np.zeros(m, dtype=bool),
                     np.full(m, np.inf, dtype=np.float32))
-        rows = token.winners.cpu().numpy()
-        idx, ok = self._unstage(rows[0], token.order, token.risk)
-        return idx, ok, self._collect_d2(rows, token.order, idx, token)
+        with span("nns.cells.download"):
+            rows = token.winners.cpu().numpy()
+        count_copy("down", rows.nbytes, self.device)
+        with span("nns.cells.unstage"):
+            idx, ok = self._unstage(rows[0], token.order, token.risk)
+            return idx, ok, self._collect_d2(rows, token.order, idx, token)
 
     def query_collect(self, token: CellToken):
         idx, ok, _ = self.query_collect_dist(token)
@@ -568,8 +596,7 @@ class CellListEngine:
         can adapt engine choice when coverage is persistently poor)."""
         idx, ok = self.query_with_flags(queries)
         idx = self._exact_rows(queries, idx, ok)
-        cov = float(ok.mean()) if len(ok) else 1.0
-        return idx, cov
+        return idx, self._coverage(ok)
 
     def query(self, queries: np.ndarray) -> np.ndarray:
         return self.query_with_coverage(queries)[0]

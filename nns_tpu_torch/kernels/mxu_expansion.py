@@ -62,6 +62,7 @@ from nns_tpu_torch.kernels import _cuda, layouts
 from nns_tpu_torch.kernels.fused import as_f32, fused_fallback, n_sm
 from nns_tpu_torch.kernels.fused_ladder import fused_point_major_min_idx
 from nns_tpu_torch.kernels.xla_bruteforce import full_fp32_matmul
+from nns_tpu_torch.utils.spans import COUNTS, count_copy, span, spanned
 
 _LANE = 128
 _SUBLANE = 8
@@ -560,6 +561,7 @@ class MXUExpansion:
         route a transposed view of ``rc_t`` (not contiguous, no copy)."""
         return self.rc_t.t() if self._rc is None else self._rc
 
+    @spanned("nns.mxu.stage_queries")
     def stage_queries(self, queries) -> StagedQueries:
         """Stage a query set on the device and compute its band ``delta``
         on the host (the upload leaves the serving drain)."""
@@ -569,8 +571,10 @@ class MXUExpansion:
             raise ValueError(f"dimension mismatch: queries k={k}, refs k={self.k}")
         q2_max = float((q_np.astype(np.float64) ** 2).sum(axis=1).max()) if m else 0.0
         delta = _DELTA_REL_PER_K * max(self.k, 1) * (q2_max + self._r2_max)
+        count_copy("up", q_np.nbytes, self.device)
         return StagedQueries(q_np, _pad_k(as_f32(q_np, self.device), self.kp), float(delta))
 
+    @spanned("nns.mxu.phase12")
     def _phase12_staged(self, st: StagedQueries):
         return _phase12(st.q_dev, self.rc, self.rc_t, self.r2h, self.refs_t, self.r2h_t,
                         st.delta, self.tile_n, self.ts)
@@ -587,27 +591,36 @@ class MXUExpansion:
         refine of the uncertified rows and the full scan of the rows it
         refuses, found with torch.nonzero. Returns idx (m,) i32."""
         _, idx, cert, tid2, t3v = self._phase12_staged(st)
-        bad = torch.nonzero(~cert).flatten()
+        with span("nns.mxu.certify"):
+            bad = torch.nonzero(~cert).flatten()
+        COUNTS["mxu.rows"] += idx.shape[0]
+        COUNTS["mxu.certified_rows"] += idx.shape[0] - bad.numel()
         if bad.numel() == 0:
             return idx
         q = st.q_dev
-        qb = q[bad]
-        q2b = (qb * qb).sum(dim=1)
-        t12 = torch.stack([idx[bad] // self.tile_n, tid2[bad]], dim=1)
-        n_total = self.refs_t.shape[0] * self.ts
-        ridx, rok = _band_refine_rows(qb, q2b, t12, t3v[bad], self.refs_t, self.r2h_t,
-                                      st.delta, self.tile_n, n_total)
-        idx[bad] = ridx
-        bad2 = bad[~rok]
+        with span("nns.mxu.band_refine"):
+            qb = q[bad]
+            q2b = (qb * qb).sum(dim=1)
+            t12 = torch.stack([idx[bad] // self.tile_n, tid2[bad]], dim=1)
+            n_total = self.refs_t.shape[0] * self.ts
+            ridx, rok = _band_refine_rows(qb, q2b, t12, t3v[bad], self.refs_t, self.r2h_t,
+                                          st.delta, self.tile_n, n_total)
+            idx[bad] = ridx
+            bad2 = bad[~rok]
         if bad2.numel():
-            idx[bad2] = _full_scan_rows(q[bad2], self.refs_t, self.n)
+            with span("nns.mxu.full_scan"):
+                idx[bad2] = _full_scan_rows(q[bad2], self.refs_t, self.n)
         return idx
 
     def query_staged(self, st: StagedQueries) -> np.ndarray:
         """Exact 1-NN indices (m,) i32 of a staged query set."""
         if st.q_np.shape[0] == 0:
             return np.zeros((0,), dtype=np.int32)
-        return self._drain_staged(st).cpu().numpy()
+        idx = self._drain_staged(st)
+        with span("nns.mxu.download"):
+            out = idx.cpu().numpy()
+        count_copy("down", out.nbytes, self.device)
+        return out
 
     def query(self, queries) -> np.ndarray:
         """Exact 1-NN indices (m,) i32: every row certified, band-refined

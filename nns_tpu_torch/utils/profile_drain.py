@@ -6,15 +6,10 @@ Run from the repository root: ``python -m nns_tpu_torch.utils.profile_drain
 
 ``--path cells`` (the default) builds ``CellListEngine`` over bench.py's
 workload (1M uniform 3-D refs, seed 1000; W distinct 10K-query batches, the
-first make_dataset's, the others drawn in the refs' box), drains them once
-untimed, then times each host step of ``query_queue`` over the W batches
-(host clock, synchronized after each; four repetitions, ms per batch):
-``stage``, ``_sentinel_risk``, the upload and device bodies
-(``_queue_winners``: one upload of the queue's concatenated packs; beside
-it, in alternating order, one upload per batch through ``query_staged``,
-which the drain does not use), the concatenation and one download, the
-inverse permutation (``_unstage``) and the exact re-answers; and traces
-one ``query_queue`` as in step 2 below.
+first make_dataset's, the others drawn in the refs' box) and traces one
+``query_queue`` over them as in step 2 below: the served drain, split by
+its own spans (``nns.cells.stage``, ``.device``, ``.download``,
+``.unstage``, ``.exact_rows``).
 
 ``--path v9`` builds ``NNEngine(9, device="cuda")`` over
 bench_k16's workload on 1M refs (16-D uniform, seed 1000), answers W
@@ -25,8 +20,9 @@ distinct 10K-query batches once untimed, then:
    whole drain at 1024 x 1M), then the same steps again, to separate the
    process's one-time costs from per-call ones (host clock, synchronized);
 2. traces one ``query_many`` over the W batches with ``torch.profiler``
-   and prints the wall time, the device time by kernel (top 12) and the
-   device's busy share.
+   and prints the wall time, the device time by kernel (top 12), the
+   device's busy share and, per program span (``nns.*``,
+   ``nns_tpu_torch.utils.spans``), its host time and count.
 
 ``--path beam`` builds ``NNEngine(13, device="cuda")`` over 1M clustered
 3-D refs (seed 1000) and traces, as in step 2, its ``query_many`` over W
@@ -107,8 +103,9 @@ def main(argv=None) -> int:
 
 def _trace(tag: str, fn, w: int) -> None:
     """Run ``fn`` once untimed, then once under torch.profiler: the wall
-    time, the device's busy share and the device time by kernel (top 12),
-    each per 10K batch of the W."""
+    time, the device's busy share, the device time by kernel (top 12) and
+    the host time and count of each program span, each per 10K batch of
+    the W."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm
@@ -119,9 +116,11 @@ def _trace(tag: str, fn, w: int) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Device-side events only (kernels and copies): an op's own entry
-    # would count its kernels' time again.
+    # would count its kernels' time again, and a span mirrored onto the
+    # device's timeline is no device work.
     events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+              if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+              and not e.is_user_annotation]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"[{tag}] W={w}: wall {wall_ms:.3f} ms ({wall_ms / w:.3f} ms/batch); "
@@ -130,10 +129,15 @@ def _trace(tag: str, fn, w: int) -> None:
     for e in events[:12]:
         print(f"[{tag}]   {e.self_device_time_total / 1e3 / w:9.4f} ms/batch  "
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
+    # The program's spans, in order of host time (inclusive of what they hold).
+    for e in sorted((e for e in prof.key_averages() if e.key.startswith("nns.")
+                     and str(e.device_type).endswith("CPU")), key=lambda e: -e.cpu_time_total):
+        print(f"[{tag}]   span {e.key:<22s} {e.cpu_time_total / 1e3 / w:9.4f} ms/batch  "
+              f"x{e.count / w:g}/batch", flush=True)
 
 
 def _cells(w: int) -> int:
-    """The 3-D supercell drain on one device: its host steps, then a trace."""
+    """The 3-D supercell drain on one device, traced."""
     from nns_tpu_torch.data import make_dataset
     from nns_tpu_torch.kernels.cell_list import CellListEngine
 
@@ -143,36 +147,6 @@ def _cells(w: int) -> int:
     batches = [queries] + [(rng.random((10_000, 3), dtype=np.float32) * (hi - lo) + lo)
                            .astype(np.float32) for _ in range(w - 1)]
     eng = CellListEngine(refs, device="cuda")
-    eng.query_queue(batches)  # warm: the kernel library, the fallback engine
-    offs = np.cumsum([0] + [len(b) for b in batches])
-    for rep in range(4):  # the first repetition pays the process's first-touch costs
-        times = {}
-
-        def step(label, fn):
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            times[label] = (time.perf_counter() - t0) * 1e3 / w
-            return out
-
-        staged = step("stage", lambda: [eng.stage(b) for b in batches])
-        risks = step("_sentinel_risk", lambda: [eng._sentinel_risk(b) for b in batches])
-        # The two upload forms in turns: which goes first alternates.
-        served = ("upload+body", lambda: eng._queue_winners([(p, q_max)
-                                                             for p, _, q_max in staged]))
-        other = ("upload per batch+body (not served)",
-                 lambda: [eng.query_staged(p, q_max)[0] for p, _, q_max in staged])
-        for label, fn in ((served, other) if rep % 2 == 0 else (other, served)):
-            out = step(label, fn)
-            if label == served[0]:
-                rows = out
-        flat = step("download", lambda: torch.cat(rows).cpu().numpy())
-        unstaged = step("_unstage", lambda: [eng._unstage(flat[offs[i]:offs[i + 1]], staged[i][1],
-                                                          risks[i]) for i in range(w)])
-        step("_exact_rows", lambda: [eng._exact_rows(b, idx, ok)
-                                     for b, (idx, ok) in zip(batches, unstaged)])
-        print(f"[steps] {rep}: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
-              + " ms/batch", flush=True)
     _trace("cells", lambda: eng.query_queue(batches), w)
     return 0
 
