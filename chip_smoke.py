@@ -22,9 +22,10 @@ result) without them. Phases, each raising on failure:
    3-D refs (seed 1000) and ``query_many`` over W=64 distinct 10K-query
    batches drawn as bench.py draws them, plus one batch drawn over
    (-0.5, 1.5)^3 whose uncertified rows go through the fused fallback. The
-   queue's (m, 5) packs go up in one copy, each batch is scattered, scanned
-   and gathered on the card (``_query_body``), and the queue's (m,) winners
-   come down in one copy. Both
+   queue's raw (m, 3) rows go up in one copy, are binned by supercell on
+   the card (``bin_queue``, ``place_queue``), each batch is scanned, one
+   gather takes every row's winner and the queue's (m,) winners come down
+   in one copy. The binning, placing, scan and v4
    kernels' launch counts must grow during that query_many, and three f64
    oracle gates (batch 0, a random mid-queue batch, all fallback rows; up
    to 512 queries each) must read recall 1.0. Then (``_staging_phase``)
@@ -475,7 +476,7 @@ def main() -> int:
     queue_s = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     _log(f"[main] launches during query_many: {launches}")
-    for name in ("cell_scan", "fused_argmin"):  # the ladder's kernels: phase 6
+    for name in ("cell_bin", "cell_place", "cell_scan", "fused_argmin"):  # ladder: phase 6
         if launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched by the main path")
 
@@ -522,9 +523,9 @@ def main() -> int:
     engine.query_many(batches[:8])
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     _log(f"[main] uniform drain W={W}: {drain_ms:.3f} ms/batch end to end "
-         f"(per batch the host staging; one upload of the queue's (m, 5) packs; per batch "
-         f"the scatter, scan and gather on the card; one download of the queue's winners; "
-         f"the host's inverse permutation, sentinel mask and exact re-answers); "
+         f"(one upload of the queue's (m, 3) rows; binning, placing, a scan per batch and "
+         f"one gather on the card; one download of the queue's winners; the host's decode, "
+         f"sentinel mask and exact re-answers); "
          f"device scans alone {scan_ms / W:.4f} ms/batch (CUDA events, median of 5); "
          f"device memory peak {peak_mb:.0f} MiB")
     _staging_phase(engine._built, batches, {"uniform": queries, "skewed": skew, "out-of-box": ood})
@@ -1057,8 +1058,9 @@ def _staging_phase(eng, batches, held) -> None:
     m = np.mean([len(b) for b in batches])
     qms = [eng.stage(b)[2] for b in batches]
     g = eng.D ** 3
-    _log(f"[stage] bytes per batch: device-staged up {m * 5 * 4 / 1e3:.1f} KB (the (m, 5) "
-         f"pack, in the queue's one upload), down {m * 4 / 1e3:.1f} KB (the (m,) winners); host-staged up "
+    _log(f"[stage] bytes per batch: device-staged up {m * 3 * 4 / 1e3:.1f} KB (the (m, 3) "
+         f"rows, in the queue's one upload), down {m * 4 / 1e3:.1f} KB (the (m,) winners), "
+         f"plus per queue the offsets and plan up, the maxima down; host-staged up "
          f"{np.mean(qms) * g * 3 * 4 / 1e3:.1f} KB (the (G, QM, 3) table), down "
          f"{np.mean(qms) * g * 4 / 1e3:.1f} KB (the (G, QM) winners), G={g}, mean QM "
          f"{np.mean(qms):.1f}")

@@ -8,16 +8,21 @@ padded with distance sentinels, plus the (G, R_max) global ids. The native
 C++ counting-sort build (the JAX package's ``nns_cpu.cpp``) serves halos up
 to W/2; wider halos use the numpy enumeration.
 
-Query: the host buckets queries by supercell (``stage``: the native sort)
-into one (m, 5) f32 pack [x, y, z, sid, pos]; one upload, then on the
-device (``_query_body``) a scatter into the dense (G, QM, 3) table,
+Query: the queries of a slot are scanned in a dense (G, QM, 3) table by
 ``cell_scan`` (``csrc/cell_scan.cu``: persistent blocks walk the
 supercells, score each supercell's distinct slots once and stream its halo
 through a bulk-copy ring), which finds each slot's nearest halo point and
 folds the exactness certificate into the id's sign bit (id when best <=
-halo^2, -id-1 otherwise), and a gather of each row's winner at its slot;
-one (m,) download. Rows the certificate cannot prove are re-answered
-exactly by the fused brute force.
+halo^2, -id-1 otherwise); a gather takes each row's winner at its slot.
+Rows the certificate cannot prove are re-answered exactly by the fused
+brute force. The queue drain (``query_queue``) bins on the device: one
+upload of the queue's raw rows, ``bin_queue`` (``csrc/cell_bin.cu``: each
+row's supercell and slot, each batch's largest supercell), one small
+download of those maxima, ``place_queue`` into one queue-wide table, a
+scan per batch, one gather, one (m,) download. A single batch
+(``query_submit``) is bucketed on the host (``stage``: the native sort)
+into one (m, 5) f32 pack [x, y, z, sid, pos], uploaded and scattered on
+the device (``_query_body``).
 
 Ids travel as int32 end to end: the JAX package's hi/lo 12-bit f32 id split
 was a workaround for its device transit and has no counterpart here.
@@ -76,20 +81,26 @@ def cell_scan_plain(dense_q: torch.Tensor, halo_dm: torch.Tensor,
     return out_d, out_i
 
 
+def _launch_scan(lib, stream, q_ptr: int, halo_dm: torch.Tensor, halo_ids: torch.Tensor,
+                 g_total: int, qm: int, halo2: float, d_ptr: int, i_ptr: int) -> None:
+    """One ``nns_cell_scan`` launch on ``stream`` over the (g_total, qm, 3)
+    table at ``q_ptr``, writing (g_total, qm) f32 / i32 at ``d_ptr`` /
+    ``i_ptr``."""
+    rc = lib.nns_cell_scan(q_ptr, halo_dm.data_ptr(), halo_ids.data_ptr(), g_total, qm,
+                           halo_dm.shape[2], halo2, d_ptr, i_ptr, stream)
+    _cuda.check(lib, rc, "cell_scan")
+    _cuda.LAUNCHES["cell_scan"] += 1
+
+
 def _cell_scan_cuda(dense_q, halo_dm, halo_ids, halo2):
     g_total, qm, _ = dense_q.shape
     dev = dense_q.device
     out_d = torch.empty((g_total, qm), dtype=torch.float32, device=dev)
     out_i = torch.empty((g_total, qm), dtype=torch.int32, device=dev)
-    lib = _cuda.library()
     with torch.cuda.device(dev):
-        rc = lib.nns_cell_scan(
-            dense_q.data_ptr(), halo_dm.data_ptr(), halo_ids.data_ptr(),
-            g_total, qm, halo_dm.shape[2], halo2, out_d.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _cuda.check(lib, rc, "cell_scan")
-    _cuda.LAUNCHES["cell_scan"] += 1
+        _launch_scan(_cuda.library(), torch.cuda.current_stream(dev).cuda_stream,
+                     dense_q.data_ptr(), halo_dm, halo_ids, g_total, qm, halo2,
+                     out_d.data_ptr(), out_i.data_ptr())
     return out_d, out_i
 
 
@@ -130,9 +141,178 @@ def _upload(rows, device) -> torch.Tensor:
     device = torch.device(device)
     if isinstance(rows, torch.Tensor) or device.type != "cuda":
         return as_f32(rows, device)
-    host = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.float32)).pin_memory()
+    return _to_device(torch.from_numpy(np.ascontiguousarray(rows, dtype=np.float32)), device)
+
+
+def _to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device``. For a CUDA device the copy goes from
+    pinned memory (``host`` is pinned first if it is not), queued on the
+    current stream, and is counted into ``copy.bytes_up``."""
+    if device.type != "cuda":
+        return host.to(device)
+    if not host.is_pinned():
+        host = host.pin_memory()
     count_copy("up", host.nbytes, device)
     return host.to(device, non_blocking=True)
+
+
+def _upload_queue(queries: list[np.ndarray], device) -> tuple[torch.Tensor, torch.Tensor]:
+    """A queue's (m, 3) f32 batches on ``device`` as their concatenation
+    (rows, 3) f32 and the (batches + 1,) i32 row offsets. For a CUDA device
+    both share one pinned buffer, filled in place, and one copy."""
+    device = torch.device(device)
+    offs = np.zeros(len(queries) + 1, dtype=np.int64)
+    np.cumsum([len(q) for q in queries], out=offs[1:])
+    rows = int(offs[-1])
+    if rows >= 1 << 30:
+        raise ValueError(f"a queue of {rows} rows: the drain takes fewer than 2^30")
+    if device.type != "cuda":
+        return (torch.from_numpy(np.concatenate(queries).reshape(rows, 3)).to(device),
+                torch.from_numpy(offs.astype(np.int32)).to(device))
+    host = torch.empty(3 * rows + len(offs), dtype=torch.float32, pin_memory=True)
+    buf = host.numpy()
+    np.concatenate(queries, out=buf[:3 * rows].reshape(rows, 3))
+    buf[3 * rows:].view(np.int32)[:] = offs
+    dev = _to_device(host, device)
+    return dev[:3 * rows].view(rows, 3), dev[3 * rows:].view(torch.int32)
+
+
+def _check_queue(rows: torch.Tensor, offs: torch.Tensor, *more: torch.Tensor) -> None:
+    """A binned queue's tensors before their pointers reach a kernel: (m, 3)
+    f32 rows, (batches + 1,) i32 offsets, on one device, contiguous."""
+    if rows.dtype != torch.float32 or rows.dim() != 2 or rows.shape[1] != 3:
+        raise ValueError(f"queue rows must be (m, 3) f32; got {tuple(rows.shape)} {rows.dtype}")
+    if offs.dtype != torch.int32 or offs.dim() != 1 or offs.shape[0] < 1:
+        raise ValueError(f"queue offsets must be (batches + 1,) i32; got {offs.dtype}")
+    for t in (rows, offs, *more):
+        if t.device != rows.device or not t.is_contiguous():
+            raise ValueError("a queue's tensors must be contiguous and on one device")
+
+
+def bin_queue_plain(rows: torch.Tensor, offs: torch.Tensor, d_per_dim: int, mn, w):
+    """Plain PyTorch binning of a queue (``bin_queue``): float64 torch ops
+    for the supercell ids (the host sort's expression), ``bincount`` for the
+    counts and a stable sort for the slots, which follow the row order
+    inside each (batch, supercell)."""
+    dev = rows.device
+    nb, groups = offs.shape[0] - 1, d_per_dim ** 3
+    mn = torch.as_tensor(np.asarray(mn, dtype=np.float64), device=dev)
+    w = torch.as_tensor(np.asarray(w, dtype=np.float64), device=dev)
+    c = torch.floor((rows.double() - mn) / w)
+    c = torch.fmin(torch.fmax(c, c.new_zeros(())), c.new_full((), d_per_dim - 1)).long()
+    sid = (c[:, 0] * d_per_dim + c[:, 1]) * d_per_dim + c[:, 2]
+    offs = offs.long()
+    batch = torch.repeat_interleave(torch.arange(nb, device=dev), offs[1:] - offs[:-1])
+    key = batch * groups + sid
+    counts = torch.bincount(key, minlength=nb * groups)
+    order = torch.argsort(key, stable=True)
+    pos = torch.empty_like(key)
+    pos[order] = torch.arange(len(key), device=dev) - (torch.cumsum(counts, 0) - counts)[key[order]]
+    counts = counts.view(nb, groups).int()
+    return sid.int(), pos.int(), counts, counts.amax(1)
+
+
+def bin_queue(rows: torch.Tensor, offs: torch.Tensor, max_rows: int, d_per_dim: int, mn, w):
+    """Bin a queue's rows into supercells: rows (rows, 3) f32 and offs
+    (batches + 1,) i32 on one device, max_rows the largest batch, the grid's
+    D per dimension, its float64 origin ``mn`` and widths ``w`` (3,) ->
+    (sid (rows,) i32, pos (rows,) i32: the row's slot in its (batch,
+    supercell), counts (batches, D^3) i32, maxima (batches,) i32: each
+    batch's largest count). sid and the counts equal the host sort's
+    (``CellListEngine.stage``); slots are an order of the rows inside their
+    supercell. CPU tensors take ``bin_queue_plain``; CUDA tensors launch
+    ``csrc/cell_bin.cu``'s kernel (or raise RuntimeError)."""
+    _check_queue(rows, offs)
+    if rows.device.type == "cpu":
+        return bin_queue_plain(rows, offs, d_per_dim, mn, w)
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    dev, nb, groups = rows.device, offs.shape[0] - 1, d_per_dim ** 3
+    sid_pos = torch.empty((2, rows.shape[0]), dtype=torch.int32, device=dev)
+    state = torch.zeros(nb * groups + nb, dtype=torch.int32, device=dev)
+    geo = np.ascontiguousarray(np.concatenate([mn, w]), dtype=np.float64)
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        rc = lib.nns_cell_bin(rows.data_ptr(), offs.data_ptr(), nb, max_rows, d_per_dim,
+                              geo.ctypes.data, sid_pos[0].data_ptr(), sid_pos[1].data_ptr(),
+                              state.data_ptr(), state[nb * groups:].data_ptr(),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(lib, rc, "cell_bin")
+    _cuda.LAUNCHES["cell_bin"] += 1
+    return sid_pos[0], sid_pos[1], state[:nb * groups].view(nb, groups), state[nb * groups:]
+
+
+def place_queue_plain(rows, offs, sid, pos, plan, slots: int):
+    """Plain PyTorch ``place_queue``: an index-put of the rows of each
+    batch with a table at their (offset, sid, pos)."""
+    dev = rows.device
+    offs = offs.long()
+    batch = torch.repeat_interleave(torch.arange(offs.shape[0] - 1, device=dev),
+                                    offs[1:] - offs[:-1])
+    base, qm = plan[batch, 0], plan[batch, 1]
+    keep = qm > 0
+    slot = torch.where(keep, base + sid.long() * qm + pos.long(), slots)
+    table = torch.zeros((slots, 3), dtype=torch.float32, device=dev)
+    table[slot[keep]] = rows[keep]
+    return table, slot
+
+
+def place_queue(rows: torch.Tensor, offs: torch.Tensor, max_rows: int, sid: torch.Tensor,
+                pos: torch.Tensor, plan: torch.Tensor, slots: int):
+    """Write each row of a binned queue (``bin_queue``) into one queue-wide
+    dense table: plan (batches, 2) i64 on the rows' device holds each
+    batch's first slot and its q_max (0 for a batch with no table), the
+    table has ``slots`` slots. Returns (table (slots, 3) f32, zero where no
+    row lands; slot (rows,) i64: each row's flat slot, ``slots`` for the
+    rows of a batch with no table). CPU tensors take
+    ``place_queue_plain``; CUDA tensors launch ``csrc/cell_bin.cu``'s
+    kernel (or raise RuntimeError)."""
+    _check_queue(rows, offs, sid, pos, plan)
+    if (sid.dtype != torch.int32 or pos.dtype != torch.int32 or plan.dtype != torch.int64
+            or sid.shape != (rows.shape[0],) or pos.shape != (rows.shape[0],)
+            or plan.shape != (offs.shape[0] - 1, 2)):
+        raise ValueError("place_queue takes (m,) i32 sid and pos and a (batches, 2) i64 plan")
+    if rows.device.type == "cpu":
+        return place_queue_plain(rows, offs, sid, pos, plan, slots)
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    dev = rows.device
+    table = torch.zeros((slots, 3), dtype=torch.float32, device=dev)
+    slot = torch.empty(rows.shape[0], dtype=torch.int64, device=dev)
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        rc = lib.nns_cell_place(rows.data_ptr(), offs.data_ptr(), offs.shape[0] - 1, max_rows,
+                                sid.data_ptr(), pos.data_ptr(), plan.data_ptr(), slots,
+                                table.data_ptr(), slot.data_ptr(),
+                                torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(lib, rc, "cell_place")
+    _cuda.LAUNCHES["cell_place"] += 1
+    return table, slot
+
+
+def _scan_table(table: torch.Tensor, plan: np.ndarray, g_total: int, halo_dm: torch.Tensor,
+                halo_ids: torch.Tensor, halo2: float) -> torch.Tensor:
+    """``cell_scan`` of each batch's (g_total, q_max, 3) part of a
+    queue-wide table (host ``plan`` (batches, 2): first slot, q_max; 0
+    scans nothing), all on the current stream -> the signed winner of every
+    slot, (slots + 1,) i32; the last entry is never written."""
+    slots, dev = table.shape[0], table.device
+    win = torch.empty(slots + 1, dtype=torch.int32, device=dev)
+    batches = [(int(base), int(qm)) for base, qm in plan if qm]
+    if dev.type == "cpu":
+        for base, qm in batches:
+            part = table[base:base + g_total * qm].view(g_total, qm, 3)
+            win[base:base + g_total * qm] = cell_scan_plain(part, halo_dm, halo_ids,
+                                                            halo2)[1].reshape(-1)
+        return win
+    dmin = torch.empty(slots, dtype=torch.float32, device=dev)
+    lib, t_ptr, d_ptr, w_ptr = _cuda.library(), table.data_ptr(), dmin.data_ptr(), win.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for base, qm in batches:
+            _launch_scan(lib, stream, t_ptr + 12 * base, halo_dm, halo_ids, g_total, qm, halo2,
+                         d_ptr + 4 * base, w_ptr + 4 * base)
+    return win
 
 
 def _query_body(staged: torch.Tensor, halo_dm: torch.Tensor, halo_ids: torch.Tensor,
@@ -445,13 +625,16 @@ class CellListEngine:
         return idx, ok
 
     @staticmethod
-    def _unstage(signed: np.ndarray, order: np.ndarray,
+    def _unstage(signed: np.ndarray, order: np.ndarray | None,
                  risk: np.ndarray | None) -> tuple[np.ndarray, np.ndarray]:
-        """Signed winners in staged order -> (idx, certified) in the
-        caller's order; rows near the sentinel corner (``risk``) are
-        uncertified."""
-        sg = np.empty(len(order), dtype=np.int32)
-        sg[order] = signed
+        """Signed winners -> (idx, certified) in the caller's order:
+        ``signed`` is in the host sort's staged order when ``order`` is
+        given, else already in the caller's order (the device-binned
+        drain). Rows near the sentinel corner (``risk``) are uncertified."""
+        sg = signed
+        if order is not None:
+            sg = np.empty(len(order), dtype=np.int32)
+            sg[order] = signed
         ok = sg >= 0
         idx = sg ^ (sg >> 31)  # sg where sg >= 0, ~sg = -sg - 1 elsewhere
         if risk is not None:
@@ -486,53 +669,60 @@ class CellListEngine:
             self._fused = FusedBruteForce(self.refs, device=self.device)
         return self._fused
 
-    def _queue_winners(self, packs) -> list[torch.Tensor]:
-        """The signed winners (m,) on the device of each staged (pack,
-        q_max) of a queue, in staged order: one upload of the packs'
-        concatenation, then ``_query_body`` on each pack's rows, on the
-        current stream. (One upload per queue measured cheaper than one per
-        pack on the H100 in steady state, PERF.md.)"""
-        if not packs:
-            return []
-        rows = _upload(np.concatenate([p for p, _ in packs]), self.device)
-        offs = np.cumsum([0] + [len(p) for p, _ in packs])
-        return [_query_body(rows[offs[i]:offs[i + 1]], self.halo_dm, self.halo_ids_dev,
-                            self.halo2, q_max, self.D ** 3)[0]
-                for i, (_, q_max) in enumerate(packs)]
-
     def query_queue(self, batches, return_coverage: bool = False):
-        """EXACT answers for several query batches: per batch the host
-        staging (``stage``); the queue's (m, 5) packs go up in one copy and
-        each runs ``_query_body`` on the current stream
-        (``_queue_winners``); the signed winners of the whole queue are
-        concatenated on the device and downloaded ONCE (the only sync); then
-        per batch the host puts them back in query order, applies the
-        sentinel mask and re-answers every uncertified row with the exact
-        fused scan. A batch too skewed for the dense kernel is re-answered
-        whole by the exact scan. With ``return_coverage``, also returns the
-        per-batch certified fraction. An empty queue returns [] (the JAX
-        package raises ValueError there), as the v4 and v9 engines do."""
+        """EXACT answers for several query batches, binned on the device:
+        the queue's raw (m, 3) rows go up in one copy (``_upload_queue``);
+        ``bin_queue`` gives each row its supercell and slot and each batch
+        its largest supercell, whose (batches,) maxima come down (the only
+        wait before the answers); the host picks each batch's q_max as
+        ``stage`` does, ``place_queue`` writes the rows into one queue-wide
+        table, ``cell_scan`` runs once per batch on its part, one gather
+        takes each row's signed winner in the caller's order and the (m,)
+        winners of the whole queue come down in one copy. Then per batch the
+        host decodes them (``_unstage``), applies the sentinel mask and re-answers every
+        uncertified row with the exact fused scan. A batch too skewed for
+        the dense kernel is re-answered whole by the exact scan. With
+        ``return_coverage``, also returns the per-batch certified fraction.
+        An empty queue returns [] (the JAX package raises ValueError there),
+        as the v4 and v9 engines do."""
         if not batches:
             return ([], []) if return_coverage else []
         queries = [np.ascontiguousarray(qb, dtype=np.float32) for qb in batches]
-        staged = [self.stage(q) for q in queries]
-        with span("nns.cells.device"):
-            rows = self._queue_winners([(packed, q_max) for packed, _, q_max in staged
-                                        if packed is not None])
-        flat = None
-        if rows:
+        for q in queries:
+            if q.ndim != 2 or q.shape[1] != 3:
+                raise ValueError(f"queries must be (m, 3); got {q.shape}")
+        sizes = np.array([len(q) for q in queries], dtype=np.int64)
+        max_rows, groups = int(sizes.max()), self.D ** 3
+        with span("nns.cells.bin"):
+            rows, offs = _upload_queue(queries, self.device)
+            sid, pos, _, maxima = bin_queue(rows, offs, max_rows, self.D, self.mn, self.W)
+            raw = maxima.cpu().numpy()
+            count_copy("down", raw.nbytes, self.device)
+        q_max = np.array([_pow2_at_least(max(int(r), 8)) for r in raw], dtype=np.int64)
+        skewed = q_max > self.q_max_limit()
+        plan = np.zeros((len(queries), 2), dtype=np.int64)
+        plan[:, 1] = np.where(skewed | (sizes == 0), 0, q_max)
+        np.cumsum(groups * plan[:-1, 1], out=plan[1:, 0])
+        COUNTS["cells.device_staged_rows"] += int(sizes[~skewed].sum())
+        flat = np.zeros(0, dtype=np.int32)
+        if plan[:, 1].any():
+            slots = int(plan[-1, 0] + groups * plan[-1, 1])
+            with span("nns.cells.device"):
+                table, slot = place_queue(rows, offs, max_rows, sid, pos,
+                                          _to_device(torch.from_numpy(plan), self.device), slots)
+                win = _scan_table(table, plan, groups, self.halo_dm, self.halo_ids_dev,
+                                  self.halo2)
+                signed = win.index_select(0, slot)
             with span("nns.cells.download"):
-                flat = torch.cat(rows).cpu().numpy()
+                flat = signed.cpu().numpy()
             count_copy("down", flat.nbytes, self.device)
-        results, covs, off = [], [], 0
-        for q, (packed, order, _) in zip(queries, staged):
-            m = len(order)
-            if packed is None:
+        results, covs = [], []
+        for q, lo, m, skew in zip(queries, np.cumsum(sizes) - sizes, sizes, skewed):
+            if skew:
                 idx, ok = np.zeros(m, dtype=np.int32), np.zeros(m, dtype=bool)
             else:
                 with span("nns.cells.unstage"):
-                    idx, ok = self._unstage(flat[off:off + m], order, self._sentinel_risk(q))
-                off += m
+                    idx, ok = self._unstage(flat[lo:lo + m], None, self._sentinel_risk(q))
             covs.append(self._coverage(ok))
             results.append(self._exact_rows(q, idx, ok))
         return (results, covs) if return_coverage else results

@@ -9,10 +9,11 @@ each run of consecutive shards on one device uploads its rows, scatters
 them into the dense table of its groups, scans each shard that holds rows
 on its own (g_local, QM, 3) slice and gathers the rows' winners; only
 those signed winners go to ``devices[0]`` (``Tensor.to``), where they are
-concatenated in shard order, which is the staged order. The host
-half that this class inherits runs unchanged: ``query_queue`` downloads
-once per drain and re-answers the uncertified rows exactly. Build,
-staging, the certificate and the exact fallback are ``CellListEngine``'s.
+concatenated in shard order, which is the staged order. The drain
+(``query_queue``) stages every batch on the host, since the shards cut the
+sorted pack, downloads once per drain and re-answers the uncertified rows
+exactly. Build, staging, the certificate and the exact fallback are
+``CellListEngine``'s.
 (The JAX package has every shard scatter the whole replicated pack and
 all-gathers the (G, QM) winner table; the port moves fewer bytes and gives
 the same answers.)
@@ -34,6 +35,7 @@ from nns_tpu_torch.kernels.fused import as_f32
 from nns_tpu_torch.kernels.layouts import PAD_SENTINEL
 from nns_tpu_torch.parallel.mesh import Mesh, make_mesh
 from nns_tpu_torch.parallel.sharded import nns_sharded
+from nns_tpu_torch.utils.spans import count_copy, span
 
 
 class ShardedCellEngine(CellListEngine):
@@ -121,11 +123,41 @@ class ShardedCellEngine(CellListEngine):
             return torch.empty(0, dtype=torch.int32, device=self.device), None
         return torch.cat(parts), None
 
-    def _queue_winners(self, packs) -> list[torch.Tensor]:
-        """The signed winners of each staged (pack, q_max) of a queue on
-        ``devices[0]``: ``query_staged`` per pack, whose runs take one
-        upload each."""
-        return [self.query_staged(p, q_max)[0] for p, q_max in packs]
+    def query_queue(self, batches, return_coverage: bool = False):
+        """EXACT answers for several query batches, staged on the host: per
+        batch the host sort (``stage``), whose pack the shards cut
+        (``_shard_cuts``), then ``query_staged`` per pack (one upload per run
+        of shards); the signed winners of the whole queue are concatenated
+        on ``devices[0]`` and downloaded once; then per batch the host puts
+        them back in query order, applies the sentinel mask and re-answers
+        every uncertified row with the exact fused scan. A batch too skewed
+        for the dense kernel is re-answered whole by the exact scan. With
+        ``return_coverage``, also returns the per-batch certified
+        fraction."""
+        if not batches:
+            return ([], []) if return_coverage else []
+        queries = [np.ascontiguousarray(qb, dtype=np.float32) for qb in batches]
+        staged = [self.stage(q) for q in queries]
+        with span("nns.cells.device"):
+            rows = [self.query_staged(packed, q_max)[0] for packed, _, q_max in staged
+                    if packed is not None]
+        flat = None
+        if rows:
+            with span("nns.cells.download"):
+                flat = torch.cat(rows).cpu().numpy()
+            count_copy("down", flat.nbytes, self.device)
+        results, covs, off = [], [], 0
+        for q, (packed, order, _) in zip(queries, staged):
+            m = len(order)
+            if packed is None:
+                idx, ok = np.zeros(m, dtype=np.int32), np.zeros(m, dtype=bool)
+            else:
+                with span("nns.cells.unstage"):
+                    idx, ok = self._unstage(flat[off:off + m], order, self._sentinel_risk(q))
+                off += m
+            covs.append(self._coverage(ok))
+            results.append(self._exact_rows(q, idx, ok))
+        return (results, covs) if return_coverage else results
 
     def query_queue_staged(self, denses):
         """Device half of the host-staged queue (no serving path uses it):

@@ -8,7 +8,7 @@ Run from the repository root: ``python -m nns_tpu_torch.utils.profile_drain
 workload (1M uniform 3-D refs, seed 1000; W distinct 10K-query batches, the
 first make_dataset's, the others drawn in the refs' box) and traces one
 ``query_queue`` over them as in step 2 below: the served drain, split by
-its own spans (``nns.cells.stage``, ``.device``, ``.download``,
+its own spans (``nns.cells.bin``, ``.device``, ``.download``,
 ``.unstage``, ``.exact_rows``).
 
 ``--path v9`` builds ``NNEngine(9, device="cuda")`` over
@@ -35,7 +35,8 @@ staged batches.
 and traces, as in step 2, each one's ``query_queue`` over the same W 10K
 batches drawn in the refs' box, in turns (one device, four shards, four
 shards, one device). On one card the four shards show the cost of the
-merge and the per-shard launches, not scaling.
+merge, the per-shard launches and the host staging the sharded drain
+keeps, not scaling.
 
 It prints the card's name and power limit first, and fails without a card.
 """
@@ -103,13 +104,16 @@ def main(argv=None) -> int:
 
 def _trace(tag: str, fn, w: int) -> None:
     """Run ``fn`` once untimed, then once under torch.profiler: the wall
-    time, the device's busy share, the device time by kernel (top 12) and
-    the host time and count of each program span, each per 10K batch of
-    the W."""
+    time, the device's busy share, the device time by kernel (top 12), the
+    host time and count of each program span, each per 10K batch of the W,
+    and the traced call's counters (``spans.COUNTS``) that moved."""
     from torch.profiler import ProfilerActivity, profile
+
+    from nns_tpu_torch.utils.spans import COUNTS
 
     fn()  # warm
     torch.cuda.synchronize()
+    before = dict(COUNTS)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -134,6 +138,8 @@ def _trace(tag: str, fn, w: int) -> None:
                      and str(e.device_type).endswith("CPU")), key=lambda e: -e.cpu_time_total):
         print(f"[{tag}]   span {e.key:<22s} {e.cpu_time_total / 1e3 / w:9.4f} ms/batch  "
               f"x{e.count / w:g}/batch", flush=True)
+    moved = {name: n - before[name] for name, n in COUNTS.items() if n != before[name]}
+    print(f"[{tag}]   counters {moved}", flush=True)
 
 
 def _cells(w: int) -> int:

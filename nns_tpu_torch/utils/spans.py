@@ -14,6 +14,8 @@ value the code already holds (no device sync, no pass over the rows).
 
 - ``cells.rows``, ``cells.certified_rows``: rows the v14 engine answered,
   and rows its certificate proved;
+- ``cells.device_staged_rows``: rows of the v14 queue drain binned on the
+  device and scanned (a batch too skewed for the scan is not);
 - ``mxu.rows``, ``mxu.certified_rows``: rows of the v9 drain, and rows
   phase 2's certificate proved;
 - ``copy.bytes_up``, ``copy.bytes_down``: bytes of the explicit copies
@@ -30,7 +32,7 @@ import torch
 _OFF = contextlib.nullcontext()
 
 COUNTS: dict[str, int] = {
-    "cells.rows": 0, "cells.certified_rows": 0,
+    "cells.rows": 0, "cells.certified_rows": 0, "cells.device_staged_rows": 0,
     "mxu.rows": 0, "mxu.certified_rows": 0,
     "copy.bytes_up": 0, "copy.bytes_down": 0,
 }

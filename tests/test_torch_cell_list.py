@@ -376,9 +376,9 @@ def _host_staged_queue(eng, batches):
 
 def test_query_queue_device_staging_equals_host_staging(monkeypatch):
     # A ragged queue (two q_max tiers) with fallback rows: the device-staged
-    # drain (one upload of the queue's packs) equals the host-staged one bit
-    # for bit; a batch too skewed for the kernel falls back alone, as
-    # query_with_coverage answers it.
+    # drain (one upload of the queue's raw rows, binned on the device)
+    # equals the host-staged one bit for bit; a batch too skewed for the
+    # kernel falls back alone, as query_with_coverage answers it.
     import nns_tpu_torch.kernels.cell_list as cl
 
     _, r = make_dataset(3, 1, 32768, seed=34)
@@ -388,12 +388,13 @@ def test_query_queue_device_staging_equals_host_staging(monkeypatch):
              rng.random((300, 3), dtype=np.float32), _queries_with_far_rows(5, 5)[:1]]
     assert len({eng.stage(b)[2] for b in queue}) >= 2
     uploads = []
-    upload = cl._upload
-    monkeypatch.setattr(cl, "_upload", lambda rows, dev: uploads.append(len(rows))
-                        or upload(rows, dev))
+    upload = cl._upload_queue
+    monkeypatch.setattr(cl, "_upload_queue", lambda qs, dev: uploads.append(
+        [len(q) for q in qs]) or upload(qs, dev))
+    monkeypatch.setattr(eng, "stage", None)  # the drain never sorts on the host
     got, cov = eng.query_queue(queue, return_coverage=True)
-    assert uploads == [sum(len(b) for b in queue)]
-    monkeypatch.setattr(cl, "_upload", upload)
+    assert uploads == [[len(b) for b in queue]]
+    monkeypatch.undo()
     want, cov_h = _host_staged_queue(eng, queue)
     assert cov == cov_h and min(cov) < 1.0
     for a, b, qb in zip(got, want, queue):
@@ -453,3 +454,96 @@ def test_sentinel_bound_equals_f64_pass():
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, c)
         assert_exact(a, qb, r)
+
+
+def _face_rows(eng, m, seed):
+    """m rows on supercell faces: each coordinate f32(mn + j W) for a
+    random face j = 0..D, or one f32 ulp either side of it."""
+    rng = np.random.default_rng(seed)
+    j = rng.integers(0, eng.D + 1, (m, 3))
+    q = (eng.mn + j * eng.W).astype(np.float32)
+    step = rng.integers(-1, 2, (m, 3))
+    q = np.where(step > 0, np.nextafter(q, np.float32(np.inf)), q)
+    return np.where(step < 0, np.nextafter(q, np.float32(-np.inf)), q).astype(np.float32)
+
+
+def _binning_queue(eng, seed):
+    """A uniform batch, a batch on supercell faces, one over (-1, 2)^3 and
+    an empty one."""
+    rng = np.random.default_rng(seed)
+    outside = (rng.random((150, 3), dtype=np.float32) * np.float32(3.0)
+               - np.float32(1.0)).astype(np.float32)
+    return [rng.random((300, 3), dtype=np.float32), _face_rows(eng, 400, seed), outside,
+            np.zeros((0, 3), np.float32)]
+
+
+@pytest.mark.parametrize("seed", [61, 62])
+def test_bin_queue_plain_equals_native_stage(seed):
+    # The device drain's CPU twin bins as the host's counting sort stages:
+    # each row's supercell id, each supercell's count and each batch's
+    # largest count equal nns_cells_stage's; a row's slot is its rank among
+    # the earlier rows of its (batch, supercell), which is the host's pos.
+    from nns_tpu_torch.kernels.cell_list import _upload_queue, bin_queue
+    from nns_tpu_torch.native import native_cells_stage
+
+    _, r = make_dataset(3, 1, 32768, seed=seed)
+    eng = CellListEngine(r, device="cpu")
+    queue = _binning_queue(eng, seed)
+    rows, offs = _upload_queue(queue, "cpu")
+    assert rows.shape == (sum(len(q) for q in queue), 3) and offs.dtype == torch.int32
+    sid, pos, counts, maxima = bin_queue(rows, offs, 400, eng.D, eng.mn, eng.W)
+    assert counts.shape == (len(queue), eng.D ** 3)
+    for b, q in enumerate(queue):
+        lo, hi = int(offs[b]), int(offs[b + 1])
+        packed, order, raw_max = native_cells_stage(q, eng.D, eng.mn, eng.W)
+        want_sid = np.empty(len(q), np.int64)
+        want_pos = np.empty(len(q), np.int64)
+        want_sid[order] = packed[:, 3]
+        want_pos[order] = packed[:, 4]
+        np.testing.assert_array_equal(sid[lo:hi].numpy(), want_sid)
+        np.testing.assert_array_equal(pos[lo:hi].numpy(), want_pos)
+        np.testing.assert_array_equal(counts[b].numpy(),
+                                      np.bincount(want_sid, minlength=eng.D ** 3))
+        assert int(maxima[b]) == raw_max
+    assert sid.dtype == pos.dtype == counts.dtype == maxima.dtype == torch.int32
+    assert int(maxima[3]) == 0 and (sid[300:700] != sid[300:700][0]).any()
+
+
+@pytest.mark.parametrize("case", ["mixed", "one_batch"])
+def test_query_queue_equals_jax_on_faces_skew_and_outside(case):
+    # The device-binned drain against the JAX package's queue drain, idx
+    # and coverage: uniform batches, rows on supercell faces, rows outside
+    # the box, and a batch above the 2048 skew limit (the JAX drain then
+    # answers every batch alone; the port's answers that batch alone);
+    # also a queue of one batch. The staged-rows counter counts the
+    # batches the scan took.
+    from nns_tpu_torch.utils.spans import COUNTS
+
+    _, r = make_dataset(3, 1, 16384, seed=63)
+    jeng = jax_cells.CellListEngine(r)
+    eng = CellListEngine(r, device="cpu")
+    rng = np.random.default_rng(63)
+    uniform = rng.random((300, 3), dtype=np.float32)
+    faces = _face_rows(eng, 300, 63)
+    outside = (rng.random((120, 3), dtype=np.float32) * np.float32(3.0)
+               - np.float32(1.0)).astype(np.float32)
+    too_skewed = (np.float32(0.5) + rng.random((2 * eng.q_max_limit() + 100, 3),
+                                               dtype=np.float32) * np.float32(1e-4))
+    assert eng.stage(too_skewed)[0] is None
+    if case == "mixed":
+        queue = [uniform, faces, too_skewed, outside, rng.random((200, 3), dtype=np.float32)]
+    else:
+        queue = [np.concatenate([uniform, faces, outside])]
+    before = COUNTS["cells.device_staged_rows"]
+    got, cov = eng.query_queue(queue, return_coverage=True)
+    assert COUNTS["cells.device_staged_rows"] - before == sum(
+        len(q) for q in queue if q is not too_skewed)
+    want, cov_j = jeng.query_queue(queue, return_coverage=True)
+    assert cov == cov_j and min(cov) < 1.0
+    for a, b, qb in zip(got, want, queue, strict=True):
+        np.testing.assert_array_equal(a, b)
+        if qb is not too_skewed:
+            assert_exact(a, qb, r)
+    if case == "mixed":
+        assert cov[2] == 0.0
+        assert_exact(got[2][:64], too_skewed[:64], r)

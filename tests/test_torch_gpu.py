@@ -72,6 +72,7 @@ from nns_tpu_torch.kernels.mxu_expansion import (
     phase1_splits,
     split_bf16x3,
 )
+from nns_tpu_torch.kernels.layouts import pow2_at_least
 from nns_tpu_torch.kernels.oracle import recall_at_1
 
 pytestmark = pytest.mark.gpu
@@ -429,6 +430,139 @@ def test_device_staging_equals_host_staging(cuda, n_shards):
         else:
             assert d2 is None
     assert single.stage(skew)[2] >= 512
+
+
+def _bin_queue_case(case, eng, rng):
+    """A queue for the binning kernels: uniform batches, rows on supercell
+    faces (and one f32 ulp off them), rows outside the box, a batch above
+    the 2048 skew limit, an empty batch; "large" has one batch past the
+    kernels' 1024 blocks of 256 rows, "many" more batches than a grid has
+    rows (65535)."""
+    if case == "large":
+        return [rng.random((300_000, 3), dtype=np.float32), rng.random((7, 3), dtype=np.float32)]
+    if case == "many":
+        return [rng.random((int(k), 3), dtype=np.float32) for k in rng.integers(0, 3, 70_000)]
+    j = rng.integers(0, eng.D + 1, (500, 3))
+    faces = (eng.mn + j * eng.W).astype(np.float32)
+    faces[::3] = np.nextafter(faces[::3], np.float32(np.inf))
+    faces[1::3] = np.nextafter(faces[1::3], np.float32(-np.inf))
+    outside = (rng.random((200, 3), dtype=np.float32) * np.float32(3.0)
+               - np.float32(1.0)).astype(np.float32)
+    skewed = (np.float32(0.5) + rng.random((2 * eng.q_max_limit() + 10, 3), dtype=np.float32)
+              * np.float32(1e-4)).astype(np.float32)
+    return [rng.random((1000, 3), dtype=np.float32), faces, outside, skewed,
+            np.zeros((0, 3), np.float32), rng.random((3000, 3), dtype=np.float32)]
+
+
+@pytest.mark.parametrize("case", ["mixed", "large", "many"])
+def test_cell_bin_kernels_equal_twin(cuda, case):
+    # bin_queue's kernel against its plain twin: sids, per-supercell counts
+    # and per-batch maxima bit-equal; each (batch, supercell)'s slots are
+    # 0..count-1 in both, in any order. place_queue's kernel on the same
+    # plan: each row sits at its slot, every slot lies in the row's
+    # (batch, supercell) block as the twin's does, every other slot is
+    # zero, and a batch without a table points its rows past the last slot.
+    from nns_tpu_torch.kernels.cell_list import (_upload_queue, bin_queue, bin_queue_plain,
+                                                 place_queue, place_queue_plain)
+
+    _, r = make_dataset(3, 1, 4096 if case == "many" else 65536, seed=21)
+    eng = CellListEngine(r, device=cuda)
+    queue = _bin_queue_case(case, eng, np.random.default_rng(22))
+    sizes = [len(b) for b in queue]
+    rows, offs = _upload_queue(queue, cuda)
+    rows_c, offs_c = rows.cpu(), offs.cpu()
+    assert torch.equal(rows_c, torch.from_numpy(np.concatenate(queue)))
+    _cuda.reset_launches()
+    got = [t.cpu() for t in bin_queue(rows, offs, max(sizes), eng.D, eng.mn, eng.W)]
+    assert _cuda.LAUNCHES["cell_bin"] == 1
+    want = bin_queue_plain(rows_c, offs_c, eng.D, eng.mn, eng.W)
+    for name, a, b in zip(("sid", "pos", "counts", "maxima"), got, want):
+        assert a.dtype == b.dtype == torch.int32 and a.shape == b.shape, name
+        if name != "pos":
+            assert torch.equal(a, b), f"{name}: {int((a != b).sum())} differ"
+    sid, pos, _, maxima = got
+    batch = torch.repeat_interleave(torch.arange(len(queue)), torch.tensor(sizes))
+    key = (batch * eng.D ** 3 + sid.long()) * (int(maxima.max()) + 1)
+    assert torch.equal(torch.sort(key + pos.long())[0], torch.sort(key + want[1].long())[0])
+
+    q_max = np.array([pow2_at_least(max(x, 8)) if m else 0
+                      for m, x in zip(sizes, maxima.tolist())], dtype=np.int64)
+    q_max[q_max > eng.q_max_limit()] = 0
+    plan = np.zeros((len(queue), 2), np.int64)
+    plan[:, 1] = q_max
+    np.cumsum(eng.D ** 3 * q_max[:-1], out=plan[1:, 0])
+    slots = int(plan[-1, 0] + eng.D ** 3 * q_max[-1])
+    table, slot = place_queue(rows, offs, max(sizes), got[0].to(cuda), got[1].to(cuda),
+                              torch.from_numpy(plan).to(cuda), slots)
+    assert _cuda.LAUNCHES["cell_place"] == 1
+    table, slot = table.cpu(), slot.cpu()
+    t_table, t_slot = place_queue_plain(rows_c, offs_c, want[0], want[1],
+                                        torch.from_numpy(plan), slots)
+    placed = slot < slots
+    assert torch.equal(placed, t_slot < slots)
+    assert torch.equal(placed, torch.from_numpy(q_max)[batch] > 0)
+    assert torch.equal(slot[placed] - pos[placed], t_slot[placed] - want[1][placed])
+    assert torch.equal(table[slot[placed]], rows_c[placed])
+    assert len(torch.unique(slot[placed])) == int(placed.sum())
+    table[slot[placed]] = 0.0
+    t_table[t_slot[placed]] = 0.0
+    assert not table.any() and not t_table.any()
+    if case == "mixed":
+        assert (q_max > 0).tolist() == [True, True, True, False, False, True]
+
+
+def test_device_binned_drain_equals_host_staged_drain(cuda):
+    # query_queue bins on the card; the sharded engine keeps the host-staged
+    # drain (stage, query_staged per pack). On one virtual shard of the
+    # card both answer the same queues: idx and certified flags before the
+    # exact re-answer, the answers and the coverage bit-equal. One bin, one
+    # place and one scan per batch that is neither skewed nor empty; the
+    # staged-rows counter counts the rows of the batches not skewed.
+    from nns_tpu_torch.parallel import Mesh, ShardedCellEngine
+    from nns_tpu_torch.utils.spans import COUNTS
+
+    _, r = make_dataset(3, 1, 1 << 20, seed=23)
+    single = CellListEngine(r, device=cuda)
+    host = ShardedCellEngine(r, Mesh.virtual(1, "cuda"))
+    rng = np.random.default_rng(23)
+    corner = rng.random((1200, 3), dtype=np.float32)
+    corner[:600] = np.float32(0.3) + corner[:600] * np.float32(0.004)  # QM 1024
+    queues = [[rng.random((10_000, 3), dtype=np.float32) for _ in range(8)],
+              _bin_queue_case("mixed", single, rng) + [corner],
+              [(rng.random((10_000, 3), dtype=np.float32) * np.float32(2.0)
+                - np.float32(0.5)).astype(np.float32)]]
+    for queue in queues:
+        flags = {}
+        for name, eng in (("single", single), ("host", host)):
+            seen = flags[name] = []
+            exact = eng._exact_rows
+
+            def record(qb, idx, ok, seen=seen, exact=exact):
+                seen.append((idx.copy(), ok.copy()))
+                return exact(qb, idx, ok)
+
+            eng._exact_rows = record
+            _cuda.reset_launches()
+            before = COUNTS["cells.device_staged_rows"]
+            flags[name + "_out"] = eng.query_queue(queue, return_coverage=True)
+            flags[name + "_launches"] = dict(_cuda.LAUNCHES)
+            flags[name + "_rows"] = COUNTS["cells.device_staged_rows"] - before
+            del eng._exact_rows
+        scanned = [b for b in queue if len(b) and single.stage(b)[0] is not None]
+        assert flags["single_launches"]["cell_scan"] == len(scanned)
+        assert flags["single_launches"]["cell_bin"] == flags["single_launches"]["cell_place"] == 1
+        assert flags["host_launches"]["cell_bin"] == 0
+        assert flags["single_rows"] == sum(len(b) for b in queue
+                                           if single.stage(b)[2] is not None)
+        assert flags["host_rows"] == 0
+        (got, cov), (want, cov_h) = flags["single_out"], flags["host_out"]
+        assert cov == cov_h
+        for a, b in zip(got, want, strict=True):
+            assert a.dtype == b.dtype == np.int32
+            np.testing.assert_array_equal(a, b)
+        for (i_a, ok_a), (i_b, ok_b) in zip(flags["single"], flags["host"], strict=True):
+            np.testing.assert_array_equal(ok_a, ok_b)
+            np.testing.assert_array_equal(i_a, i_b)
 
 
 # The ladder's kernels: wrapper, plain twin, and whether refs are point-major.

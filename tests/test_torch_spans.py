@@ -54,8 +54,9 @@ def _expected(version, entry, eng, batches):
             return not built.query_with_flags(b)[1].all()
 
         if entry == "query_many":
-            names = ["nns.cells.stage"] * len(batches) + ["nns.cells.device",
-                                                          "nns.cells.download"]
+            # The drain bins the whole queue on the device: one bin span,
+            # no host sort.
+            names = ["nns.cells.bin", "nns.cells.device", "nns.cells.download"]
             for b in batches:
                 names += ["nns.cells.unstage"] + ["nns.cells.exact_rows"] * uncertified(b)
             return ["nns.api.query_many"] + names
