@@ -36,7 +36,14 @@ result) without them. Phases, each raising on failure:
    the device-side staging, from the public API) and device-staged
    (``query_queue``) in five alternating turns, equal answers, both medians
    and spreads printed; then bench.py's serial one-batch latency and the
-   bytes each drain moves per batch;
+   bytes each drain moves per batch. The binning kernels
+   (``_binning_check``) run against their plain versions on the same card
+   tensors for the drain's queue and for the skewed and out-of-box
+   batches' queue: sids, counts and maxima bit-equal, each supercell's
+   slots the same set, each row bit-equal at its slot and every other slot
+   zero. A clustered 16-batch queue (``_parts_check``) whose tables pass
+   the drain's slot budget is drained in parts, equal to the host-staged
+   drain, its device memory printed;
 4. the one-shot ``nns(version=4)`` and ``nns(version="cells")`` at 1M x 10K;
 5. the ladder's kernels (v3 point-major, v5 streaming, v6 queries-resident,
    v7 two-level, and v4 beside them) against their plain versions at
@@ -156,7 +163,8 @@ result) without them. Phases, each raising on failure:
    the cost of the merge and the per-shard launches, not scaling;
 12. one JSON line of per-kernel results, each row with the shape its ms,
    plain_ms and bound come from (the scan also on the skewed batch,
-   ``*_skewed``; the ladder's kernels and v4 also at 1024 x 1M k=16,
+   ``*_skewed``, as are the binning kernels on the skewed and out-of-box
+   batches' queue; the ladder's kernels and v4 also at 1024 x 1M k=16,
    ``*_k16``): each kernel's main path (for the wgmma kernel's row the
    drain's 640K-row launch; for the ``expansion_phase1`` row, phase 1 at
    the padded and sliced kp, v9 at 1024 x 65536 k=128 and 1024 x 1M k=24
@@ -351,7 +359,8 @@ def main() -> int:
         MXUExpansion, _cat_q, phase1, phase1_plain, split_bf16x3)
     from nns_tpu_torch.kernels.oracle import nn_oracle_f64
     from nns_tpu_torch.native import native_available
-    from nns_tpu_torch.utils.bounds import cell_bound, fused_bound, phase1_bound
+    from nns_tpu_torch.utils.bounds import (cell_bin_bound, cell_bound, cell_place_bound,
+                                            fused_bound, phase1_bound)
     from nns_tpu_torch.utils.timing import cuda_device_ms, cuda_ms
 
     LADDER_KERNELS = (  # (launch key, wrapper, plain twin, point-major refs)
@@ -529,6 +538,18 @@ def main() -> int:
          f"device scans alone {scan_ms / W:.4f} ms/batch (CUDA events, median of 5); "
          f"device memory peak {peak_mb:.0f} MiB")
     _staging_phase(engine._built, batches, {"uniform": queries, "skewed": skew, "out-of-box": ood})
+    binned = {}  # the drain's queue, then the skewed and out-of-box batches' queue
+    for name, q in (("uniform W=64 queue", batches), ("skewed + out-of-box queue", [skew, ood])):
+        binned[name] = _binning_check(name, engine._built, q)
+    _parts_check(engine._built, batches[:16])
+    for i, name in enumerate(("cell_bin", "cell_place")):
+        results[name] = [row[i] for row in binned.values()]
+    n_bin, bin_slots = binned["uniform W=64 queue"][2:]
+    bin_bounds = {"cell_bin": (cell_bin_bound(n_bin, W, cell.D ** 3),
+                               cell_bin_bound(2 * N_QUERIES, 2, cell.D ** 3)),
+                  "cell_place": (cell_place_bound(n_bin, bin_slots),
+                                 cell_place_bound(2 * N_QUERIES,
+                                                  binned["skewed + out-of-box queue"][3]))}
 
     # 4. One-shot entry points.
     for version in (4, "cells"):
@@ -903,6 +924,8 @@ def main() -> int:
                                    f"{m_main} x 1M k=16 (the v9 drain's launch)"),
         **{name: (results[name][1], fused_bound(1024, N_REFS, K), "1024 x 1M k=3")
            for name in ladder_launches},
+        **{name: (results[name][0], bin_bounds[name][0],
+                  f"the drain's queue, {W} x 10K rows (query_many)") for name in bin_bounds},
     }
     kernels = []
     for name, source, replaces in (
@@ -919,6 +942,9 @@ def main() -> int:
          "nns_tpu/kernels/mxu_expansion.py:126"),
         ("expansion_phase1_wgmma", "nns_tpu_torch/csrc/expansion_phase1.cu",
          "nns_tpu/kernels/mxu_expansion.py:126"),
+        # The drain's binning: the host's counting sort, which has no TPU kernel.
+        ("cell_bin", "nns_tpu_torch/csrc/cell_bin.cu", "nns_tpu/native/nns_cpu.cpp:618"),
+        ("cell_place", "nns_tpu_torch/csrc/cell_bin.cu", "nns_tpu/native/nns_cpu.cpp:618"),
     ):
         main, (bound_ms, bound_by), shape = main_rows[name]
         kernels.append({
@@ -926,8 +952,8 @@ def main() -> int:
             "shape": shape, "launches": ladder_launches.get(name, launches.get(name)),
             "max_abs_err": max(r[0] for r in results[name]),
             "ms": main[1], "plain_ms": main[2],
-            # No one PyTorch call computes an argmin of distances or the
-            # phase-1 carries.
+            # No one PyTorch call computes an argmin of distances, the
+            # phase-1 carries or a queue's supercell slots.
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
         if name in device_ms:
@@ -938,6 +964,11 @@ def main() -> int:
             _, ms, p_ms = results[name][1]
             kernels[-1].update(shape_skewed=f"skewed 10K batch (QM={skew_qm})", ms_skewed=ms,
                                plain_ms_skewed=p_ms, bound_ms_skewed=cell_bounds[1][0])
+        if name in bin_bounds:
+            _, ms, p_ms = results[name][1]
+            kernels[-1].update(shape_skewed="the skewed and out-of-box 10K batches' queue",
+                               ms_skewed=ms, plain_ms_skewed=p_ms,
+                               bound_ms_skewed=bin_bounds[name][1][0])
         if name in k16_row:
             _, ms, p_ms = results[name][k16_row[name]]
             kernels[-1].update(ms_k16=ms, plain_ms_k16=p_ms,
@@ -985,6 +1016,116 @@ def main() -> int:
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0
+
+
+def _binning_check(name, eng, queue):
+    """Phase 3's binning kernels against their plain versions on the same
+    card tensors, for one queue as the drain uploads it: ``bin_queue``'s
+    sids, per-supercell counts and per-batch maxima bit-equal to
+    ``bin_queue_plain``'s (tolerance 0) and each (batch, supercell)'s slots
+    the same set; ``place_queue`` on the drain's plan against
+    ``place_queue_plain``: the same rows placed, each row's slot in the
+    same (batch, supercell) block, the table bit-equal to the row at each
+    row's slot and zero at every other slot, rows of a batch without a
+    table past the last slot. Returns ((max_abs_err, ms, plain_ms) of the
+    binning, the same of the placing, rows, slots)."""
+    from nns_tpu_torch.kernels.cell_list import (_QUEUE_SLOTS, _upload_queue, bin_queue,
+                                                 bin_queue_plain, place_queue,
+                                                 place_queue_plain, queue_parts)
+    from nns_tpu_torch.kernels.layouts import pow2_at_least
+    from nns_tpu_torch.utils.timing import cuda_ms
+
+    dev, groups = eng.device, eng.D ** 3
+    sizes = [len(b) for b in queue]
+    rows, offs = _upload_queue(queue, dev)
+    b_ms, got = cuda_ms(bin_queue, rows, offs, max(sizes), eng.D, eng.mn, eng.W)
+    bp_ms, want = cuda_ms(lambda: bin_queue_plain(rows, offs, eng.D, eng.mn, eng.W))
+    sid, pos, counts, maxima = got
+    for label, a, b in (("sid", sid, want[0]), ("counts", counts, want[2]),
+                        ("maxima", maxima, want[3])):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"cell_bin {name}: {label} differs from bin_queue_plain's")
+    batch = torch.repeat_interleave(torch.arange(len(queue), device=dev),
+                                    torch.tensor(sizes, device=dev))
+    key = (batch * groups + sid.long()) * (int(maxima.max()) + 1)
+    if not torch.equal(torch.sort(key + pos.long())[0], torch.sort(key + want[1].long())[0]):
+        raise AssertionError(f"cell_bin {name}: a supercell's slots differ from the plain's")
+    q_max = np.array([pow2_at_least(max(int(x), 8)) if n else 0
+                      for n, x in zip(sizes, maxima.tolist())], dtype=np.int64)
+    q_max[q_max > eng.q_max_limit()] = 0
+    plan, parts = queue_parts(q_max, groups, _QUEUE_SLOTS)
+    if len(parts) != 1:
+        raise AssertionError(f"cell_place {name}: the queue took {len(parts)} parts, not one")
+    slots = parts[0][2]
+    plan_d = torch.from_numpy(plan).to(dev)
+    slot, t_slot = (torch.empty(len(rows), dtype=torch.int64, device=dev) for _ in range(2))
+    p_ms, table = cuda_ms(place_queue, rows, offs, max(sizes), sid, pos, plan_d, slots, slot)
+    pp_ms, t_table = cuda_ms(place_queue_plain, rows, offs, want[0], want[1], plan_d, slots,
+                             t_slot)
+    placed = slot < slots
+    bits = rows.view(torch.int32)[placed]
+    if not (torch.equal(placed, t_slot < slots)
+            and torch.equal(placed, torch.from_numpy(q_max).to(dev)[batch] > 0)):
+        raise AssertionError(f"cell_place {name}: the placed rows differ from the plain's")
+    if not torch.equal(slot[placed] - pos[placed], t_slot[placed] - want[1][placed]):
+        raise AssertionError(f"cell_place {name}: a row left its (batch, supercell) block")
+    if not (torch.equal(table.view(torch.int32)[slot[placed]], bits)
+            and torch.equal(t_table.view(torch.int32)[t_slot[placed]], bits)):
+        raise AssertionError(f"cell_place {name}: a slot does not hold its row bit for bit")
+    empty = torch.ones(slots, dtype=torch.bool, device=dev)
+    empty[slot[placed]] = False
+    if int(empty.sum()) != slots - int(placed.sum()) or table.view(torch.int32)[empty].any():
+        raise AssertionError(f"cell_place {name}: two rows share a slot or a free slot is set")
+    diff = (table[slot[placed]] - t_table[t_slot[placed]]).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    _log(f"[bin] {name} ({len(queue)} batches, {len(rows)} rows, {slots} slots, q_max "
+         f"{sorted(set(q_max.tolist()))}): bin_queue {b_ms:.4f} ms, plain {bp_ms:.4f} ms, sid, "
+         f"counts and maxima bit-equal, each supercell's slots the same set; place_queue "
+         f"{p_ms:.4f} ms, plain {pp_ms:.4f} ms, {int(placed.sum())} rows placed, each in its "
+         f"block and bit-equal at its slot, max_abs_err {err}, every other slot zero")
+    return (0.0, b_ms, bp_ms), (err, p_ms, pp_ms), len(rows), slots
+
+
+def _parts_check(eng, batches) -> None:
+    """Phase 3's clustered drain: ``batches`` with 600 rows of each packed
+    into one small box, so that every batch takes a large table and the
+    queue's tables pass the drain's slot budget. The device-binned drain
+    places, scans and gathers them part by part (one ``cell_place`` launch
+    a part), its answers equal the host-staged drain's, and its device
+    memory above what the engine holds is printed beside what one table
+    for the whole queue would take."""
+    from nns_tpu_torch.kernels import _cuda
+    from nns_tpu_torch.kernels.cell_list import _QUEUE_SLOTS, queue_parts
+
+    rng = np.random.default_rng(SEED + 2)
+    clustered = []
+    for b, qb in enumerate(batches):
+        qb = qb.copy()
+        qb[:600] = (np.float32(0.05 + 0.05 * b)
+                    + rng.random((600, 3), dtype=np.float32) * np.float32(0.004))
+        clustered.append(qb)
+    q_max = np.array([eng.stage(qb)[2] for qb in clustered], dtype=np.int64)
+    _, parts = queue_parts(q_max, eng.D ** 3, _QUEUE_SLOTS)
+    _cuda.reset_launches()
+    got = eng.query_queue(clustered)
+    if _cuda.LAUNCHES["cell_place"] != len(parts) or len(parts) < 2:
+        raise AssertionError(f"the clustered drain placed {_cuda.LAUNCHES['cell_place']} parts, "
+                             f"expected {len(parts)} (at least 2)")
+    for a, b in zip(got, _host_staged_drain(eng, clustered), strict=True):
+        if not np.array_equal(a, b):
+            raise AssertionError("the clustered drain's answers differ from the host-staged")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.query_queue(clustered)
+    ms = (time.perf_counter() - t0) * 1e3 / len(clustered)
+    grew = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    whole = 20 * int(eng.D ** 3 * q_max.sum()) / 2 ** 20
+    _log(f"[parts] clustered drain W={len(clustered)} (q_max {sorted(set(q_max.tolist()))}): "
+         f"{len(parts)} parts of at most {_QUEUE_SLOTS} slots, answers equal to the "
+         f"host-staged drain's; {ms:.3f} ms/batch (host clock, one call); device memory "
+         f"above the engine's {grew:.0f} MiB, one table for the whole queue {whole:.0f} MiB")
 
 
 def _host_staged_drain(eng, batches) -> list[np.ndarray]:

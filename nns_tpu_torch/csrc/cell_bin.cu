@@ -24,13 +24,15 @@
 //
 // cell_place_kernel: once the host has read the maxima and chosen each
 // batch's q_max and table offset (`plan`), one thread per row writes the
-// row into the queue-wide dense table at (offset, supercell, slot) and
-// records that flat slot, the inverse map the gather reads. Rows of a batch
-// with no table (plan q_max 0: too skewed for the scan) get `spare`, one
-// past the last slot.
+// row into a dense table at (offset, supercell, slot) and records that
+// flat slot, the inverse map the gather reads. `offs` may be a run of the
+// queue's offsets: the drain places a large queue part by part, each part
+// in a table of its own, and rows index the whole queue either way. Rows
+// of a batch with no table (plan q_max 0: too skewed for the scan) get
+// `spare`, one past the last slot.
 //
 // Both kernels are memory bound and tiny beside the scans: 12 bytes read
-// and 8 written per row to bin, 24 read and 20 written to place.
+// and 8 written per row to bin, 20 read and 20 written to place.
 #include <cuda_runtime.h>
 
 namespace {

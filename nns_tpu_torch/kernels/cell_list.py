@@ -18,8 +18,9 @@ Rows the certificate cannot prove are re-answered exactly by the fused
 brute force. The queue drain (``query_queue``) bins on the device: one
 upload of the queue's raw rows, ``bin_queue`` (``csrc/cell_bin.cu``: each
 row's supercell and slot, each batch's largest supercell), one small
-download of those maxima, ``place_queue`` into one queue-wide table, a
-scan per batch, one gather, one (m,) download. A single batch
+download of those maxima, then per part of at most ``_QUEUE_SLOTS``
+slots (``queue_parts``) ``place_queue`` into one table, a scan per batch
+and one gather; one (m,) download. A single batch
 (``query_submit``) is bucketed on the host (``stage``: the native sort)
 into one (m, 5) f32 pack [x, y, z, sid, pos], uploaded and scattered on
 the device (``_query_body``).
@@ -50,6 +51,11 @@ _PLAIN_BLOCK = 1 << 26
 _TOPK_BLOCK = 16 << 20
 # _sentinel_risk's margin below its bound: four f32 ulps at PAD_SENTINEL.
 _SENTINEL_MARGIN = 4.0 * float(np.spacing(np.float32(PAD_SENTINEL)))
+# Slots of one part of the queue drain's dense table: 20 bytes a slot (the
+# (slots, 3) f32 table, the scan's f32 minima and i32 winners), 160 MiB.
+# A queue whose tables need more is placed, scanned and gathered part by
+# part, so the drain's device memory does not grow with the queue.
+_QUEUE_SLOTS = 1 << 23
 
 
 def cell_scan_plain(dense_q: torch.Tensor, halo_dm: torch.Tensor,
@@ -242,43 +248,50 @@ def bin_queue(rows: torch.Tensor, offs: torch.Tensor, max_rows: int, d_per_dim: 
     return sid_pos[0], sid_pos[1], state[:nb * groups].view(nb, groups), state[nb * groups:]
 
 
-def place_queue_plain(rows, offs, sid, pos, plan, slots: int):
+def place_queue_plain(rows, offs, sid, pos, plan, slots: int, slot):
     """Plain PyTorch ``place_queue``: an index-put of the rows of each
     batch with a table at their (offset, sid, pos)."""
     dev = rows.device
+    lo, hi = int(offs[0]), int(offs[-1])
     offs = offs.long()
     batch = torch.repeat_interleave(torch.arange(offs.shape[0] - 1, device=dev),
                                     offs[1:] - offs[:-1])
     base, qm = plan[batch, 0], plan[batch, 1]
     keep = qm > 0
-    slot = torch.where(keep, base + sid.long() * qm + pos.long(), slots)
+    at = torch.where(keep, base + sid[lo:hi].long() * qm + pos[lo:hi].long(), slots)
     table = torch.zeros((slots, 3), dtype=torch.float32, device=dev)
-    table[slot[keep]] = rows[keep]
-    return table, slot
+    table[at[keep]] = rows[lo:hi][keep]
+    slot[lo:hi] = at
+    return table
 
 
 def place_queue(rows: torch.Tensor, offs: torch.Tensor, max_rows: int, sid: torch.Tensor,
-                pos: torch.Tensor, plan: torch.Tensor, slots: int):
-    """Write each row of a binned queue (``bin_queue``) into one queue-wide
-    dense table: plan (batches, 2) i64 on the rows' device holds each
-    batch's first slot and its q_max (0 for a batch with no table), the
-    table has ``slots`` slots. Returns (table (slots, 3) f32, zero where no
-    row lands; slot (rows,) i64: each row's flat slot, ``slots`` for the
-    rows of a batch with no table). CPU tensors take
+                pos: torch.Tensor, plan: torch.Tensor, slots: int,
+                slot: torch.Tensor) -> torch.Tensor:
+    """Write the rows of a binned queue (``bin_queue``) into one dense
+    table. ``offs`` is the queue's (batches + 1,) i32 offsets or a run of
+    them (``offs[a:b + 1]``: batches a to b - 1 alone), plan (batches, 2)
+    i64 on the rows' device holds each of those batches' first slot and
+    its q_max (0 for a batch with no table), the table has ``slots`` slots.
+    Writes into ``slot`` (rows,) i64, at each row of the run, the row's
+    flat slot (``slots`` for the rows of a batch with no table), leaving
+    the other rows' entries as they are, and returns the table (slots, 3)
+    f32, zero where no row lands. CPU tensors take
     ``place_queue_plain``; CUDA tensors launch ``csrc/cell_bin.cu``'s
     kernel (or raise RuntimeError)."""
-    _check_queue(rows, offs, sid, pos, plan)
+    n = rows.shape[0]
+    _check_queue(rows, offs, sid, pos, plan, slot)
     if (sid.dtype != torch.int32 or pos.dtype != torch.int32 or plan.dtype != torch.int64
-            or sid.shape != (rows.shape[0],) or pos.shape != (rows.shape[0],)
-            or plan.shape != (offs.shape[0] - 1, 2)):
-        raise ValueError("place_queue takes (m,) i32 sid and pos and a (batches, 2) i64 plan")
+            or slot.dtype != torch.int64 or sid.shape != (n,) or pos.shape != (n,)
+            or slot.shape != (n,) or plan.shape != (offs.shape[0] - 1, 2)):
+        raise ValueError("place_queue takes (m,) i32 sid and pos, a (batches, 2) i64 plan "
+                         "and an (m,) i64 slot")
     if rows.device.type == "cpu":
-        return place_queue_plain(rows, offs, sid, pos, plan, slots)
+        return place_queue_plain(rows, offs, sid, pos, plan, slots, slot)
     if rows.device.type != "cuda":
         raise ValueError(f"unsupported device {rows.device}")
     dev = rows.device
     table = torch.zeros((slots, 3), dtype=torch.float32, device=dev)
-    slot = torch.empty(rows.shape[0], dtype=torch.int64, device=dev)
     lib = _cuda.library()
     with torch.cuda.device(dev):
         rc = lib.nns_cell_place(rows.data_ptr(), offs.data_ptr(), offs.shape[0] - 1, max_rows,
@@ -287,13 +300,36 @@ def place_queue(rows: torch.Tensor, offs: torch.Tensor, max_rows: int, sid: torc
                                 torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(lib, rc, "cell_place")
     _cuda.LAUNCHES["cell_place"] += 1
-    return table, slot
+    return table
+
+
+def queue_parts(q_max: np.ndarray, groups: int, budget: int
+                ) -> tuple[np.ndarray, list[tuple[int, int, int]]]:
+    """Cut a binned queue's tables into parts of at most ``budget`` slots:
+    q_max (batches,) each batch's q_max (0: no table), ``groups`` slots
+    per unit of q_max -> (plan (batches, 2) i64: each batch's first slot
+    in its part and its q_max; parts [(first batch, end batch, slots)],
+    in order, covering every batch with a table). Batches stay in queue
+    order; a batch larger than the budget makes a part alone."""
+    size = groups * np.asarray(q_max, dtype=np.int64)
+    plan = np.zeros((len(size), 2), dtype=np.int64)
+    plan[:, 1] = q_max
+    parts, start, used = [], 0, 0
+    for b, n in enumerate(size.tolist()):
+        if used and used + n > budget:
+            parts.append((start, b, used))
+            start, used = b, 0
+        plan[b, 0] = used
+        used += n
+    if used:
+        parts.append((start, len(size), used))
+    return plan, parts
 
 
 def _scan_table(table: torch.Tensor, plan: np.ndarray, g_total: int, halo_dm: torch.Tensor,
                 halo_ids: torch.Tensor, halo2: float) -> torch.Tensor:
-    """``cell_scan`` of each batch's (g_total, q_max, 3) part of a
-    queue-wide table (host ``plan`` (batches, 2): first slot, q_max; 0
+    """``cell_scan`` of each batch's (g_total, q_max, 3) stretch of a
+    drain's table (host ``plan`` (batches, 2): first slot, q_max; 0
     scans nothing), all on the current stream -> the signed winner of every
     slot, (slots + 1,) i32; the last entry is never written."""
     slots, dev = table.shape[0], table.device
@@ -630,7 +666,11 @@ class CellListEngine:
         """Signed winners -> (idx, certified) in the caller's order:
         ``signed`` is in the host sort's staged order when ``order`` is
         given, else already in the caller's order (the device-binned
-        drain). Rows near the sentinel corner (``risk``) are uncertified."""
+        drain). Rows near the sentinel corner (``risk``) are uncertified.
+        Every path that decodes signed winners, host-staged or binned on the
+        device, decodes them here, so one method holds the decode:
+        ``portbench/tests/test_portbench_run.py`` plants its altered answer
+        in this method and expects it to reach every v14 cell."""
         sg = signed
         if order is not None:
             sg = np.empty(len(order), dtype=np.int32)
@@ -675,16 +715,18 @@ class CellListEngine:
         ``bin_queue`` gives each row its supercell and slot and each batch
         its largest supercell, whose (batches,) maxima come down (the only
         wait before the answers); the host picks each batch's q_max as
-        ``stage`` does, ``place_queue`` writes the rows into one queue-wide
-        table, ``cell_scan`` runs once per batch on its part, one gather
-        takes each row's signed winner in the caller's order and the (m,)
-        winners of the whole queue come down in one copy. Then per batch the
-        host decodes them (``_unstage``), applies the sentinel mask and re-answers every
-        uncertified row with the exact fused scan. A batch too skewed for
-        the dense kernel is re-answered whole by the exact scan. With
-        ``return_coverage``, also returns the per-batch certified fraction.
-        An empty queue returns [] (the JAX package raises ValueError there),
-        as the v4 and v9 engines do."""
+        ``stage`` does and cuts the tables into parts of at most
+        ``_QUEUE_SLOTS`` slots (``queue_parts``: one part unless the queue
+        is large or skewed); per part ``place_queue`` writes its rows into
+        one dense table, ``cell_scan`` runs once per batch on its part of
+        it and one gather takes each row's signed winner in the caller's
+        order; the (m,) winners of the whole queue come down in one copy.
+        Then the host answers each batch (``_answer_queue``): the decode,
+        the sentinel mask and the exact fused scan for every uncertified
+        row. A batch too skewed for the dense kernel is re-answered whole by
+        the exact scan. With ``return_coverage``, also returns the per-batch
+        certified fraction. An empty queue returns [] (the JAX package
+        raises ValueError there), as the v4 and v9 engines do."""
         if not batches:
             return ([], []) if return_coverage else []
         queries = [np.ascontiguousarray(qb, dtype=np.float32) for qb in batches]
@@ -700,29 +742,46 @@ class CellListEngine:
             count_copy("down", raw.nbytes, self.device)
         q_max = np.array([_pow2_at_least(max(int(r), 8)) for r in raw], dtype=np.int64)
         skewed = q_max > self.q_max_limit()
-        plan = np.zeros((len(queries), 2), dtype=np.int64)
-        plan[:, 1] = np.where(skewed | (sizes == 0), 0, q_max)
-        np.cumsum(groups * plan[:-1, 1], out=plan[1:, 0])
+        tables = np.where(skewed | (sizes == 0), 0, q_max)
+        plan, parts = queue_parts(tables, groups, _QUEUE_SLOTS)
         COUNTS["cells.device_staged_rows"] += int(sizes[~skewed].sum())
+        ends = np.cumsum(sizes)
         flat = np.zeros(0, dtype=np.int32)
-        if plan[:, 1].any():
-            slots = int(plan[-1, 0] + groups * plan[-1, 1])
+        if parts:
             with span("nns.cells.device"):
-                table, slot = place_queue(rows, offs, max_rows, sid, pos,
-                                          _to_device(torch.from_numpy(plan), self.device), slots)
-                win = _scan_table(table, plan, groups, self.halo_dm, self.halo_ids_dev,
-                                  self.halo2)
-                signed = win.index_select(0, slot)
+                dev = rows.device
+                plan_dev = _to_device(torch.from_numpy(plan), dev)
+                slot = torch.empty(len(rows), dtype=torch.int64, device=dev)
+                signed = torch.empty(len(rows), dtype=torch.int32, device=dev)
+                for a, b, slots in parts:
+                    table = place_queue(rows, offs[a:b + 1], max_rows, sid, pos,
+                                        plan_dev[a:b], slots, slot)
+                    win = _scan_table(table, plan[a:b], groups, self.halo_dm,
+                                      self.halo_ids_dev, self.halo2)
+                    lo, hi = int(ends[a] - sizes[a]), int(ends[b - 1])
+                    torch.index_select(win, 0, slot[lo:hi], out=signed[lo:hi])
             with span("nns.cells.download"):
                 flat = signed.cpu().numpy()
             count_copy("down", flat.nbytes, self.device)
+        signed_rows = [None if skew else flat[hi - m:hi]
+                       for skew, hi, m in zip(skewed, ends, sizes)]
+        return self._answer_queue(queries, signed_rows, [None] * len(queries), return_coverage)
+
+    def _answer_queue(self, queries, signed, orders, return_coverage: bool):
+        """The host's half of a queue drain, per batch: its signed winners
+        ``signed[b]`` decoded (``_unstage``; in the host sort's order when
+        ``orders[b]`` is given, else in the caller's), the sentinel mask,
+        and every uncertified row re-answered with the exact fused scan. A
+        batch whose ``signed[b]`` is None, too skewed for the scan, is
+        re-answered whole. With ``return_coverage``, also the per-batch
+        certified fraction."""
         results, covs = [], []
-        for q, lo, m, skew in zip(queries, np.cumsum(sizes) - sizes, sizes, skewed):
-            if skew:
-                idx, ok = np.zeros(m, dtype=np.int32), np.zeros(m, dtype=bool)
+        for q, sg, order in zip(queries, signed, orders):
+            if sg is None:
+                idx, ok = np.zeros(len(q), dtype=np.int32), np.zeros(len(q), dtype=bool)
             else:
                 with span("nns.cells.unstage"):
-                    idx, ok = self._unstage(flat[lo:lo + m], None, self._sentinel_risk(q))
+                    idx, ok = self._unstage(sg, order, self._sentinel_risk(q))
             covs.append(self._coverage(ok))
             results.append(self._exact_rows(q, idx, ok))
         return (results, covs) if return_coverage else results

@@ -128,12 +128,9 @@ class ShardedCellEngine(CellListEngine):
         batch the host sort (``stage``), whose pack the shards cut
         (``_shard_cuts``), then ``query_staged`` per pack (one upload per run
         of shards); the signed winners of the whole queue are concatenated
-        on ``devices[0]`` and downloaded once; then per batch the host puts
-        them back in query order, applies the sentinel mask and re-answers
-        every uncertified row with the exact fused scan. A batch too skewed
-        for the dense kernel is re-answered whole by the exact scan. With
-        ``return_coverage``, also returns the per-batch certified
-        fraction."""
+        on ``devices[0]`` and downloaded once; then the host answers each
+        batch as the base drain does (``_answer_queue``), putting its
+        winners back in query order first."""
         if not batches:
             return ([], []) if return_coverage else []
         queries = [np.ascontiguousarray(qb, dtype=np.float32) for qb in batches]
@@ -146,18 +143,13 @@ class ShardedCellEngine(CellListEngine):
             with span("nns.cells.download"):
                 flat = torch.cat(rows).cpu().numpy()
             count_copy("down", flat.nbytes, self.device)
-        results, covs, off = [], [], 0
-        for q, (packed, order, _) in zip(queries, staged):
-            m = len(order)
-            if packed is None:
-                idx, ok = np.zeros(m, dtype=np.int32), np.zeros(m, dtype=bool)
-            else:
-                with span("nns.cells.unstage"):
-                    idx, ok = self._unstage(flat[off:off + m], order, self._sentinel_risk(q))
-                off += m
-            covs.append(self._coverage(ok))
-            results.append(self._exact_rows(q, idx, ok))
-        return (results, covs) if return_coverage else results
+        signed, off = [], 0
+        for packed, order, _ in staged:
+            m = 0 if packed is None else len(order)
+            signed.append(None if packed is None else flat[off:off + m])
+            off += m
+        return self._answer_queue(queries, signed, [order for _, order, _ in staged],
+                                  return_coverage)
 
     def query_queue_staged(self, denses):
         """Device half of the host-staged queue (no serving path uses it):

@@ -22,8 +22,22 @@ def bound(nbytes, **ops) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take to
     move ``nbytes`` and to do ``ops[rate]`` operations at each peak rate."""
     t_bytes = nbytes / PEAK["bytes"]
-    t_ops = max(count / PEAK[rate] for rate, count in ops.items())
+    t_ops = max((count / PEAK[rate] for rate, count in ops.items()), default=0.0)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def cell_bin_bound(rows, batches, groups) -> tuple[float, str]:
+    """cell_bin over a queue: each (rows, 3) f32 query read once, its sid
+    and slot (i32 each) written once, the (batches, D^3) i32 counts written
+    once."""
+    return bound(20 * rows + 4 * batches * groups)
+
+
+def cell_place_bound(rows, slots) -> tuple[float, str]:
+    """place_queue over a queue: each f32 query and its sid and slot read
+    once, its i64 table slot written once, and every slot of the (slots,
+    3) f32 table written once (a row there or the zero fill)."""
+    return bound(28 * rows + 12 * slots)
 
 
 def fused_bound(m, n, k) -> tuple[float, str]:

@@ -412,6 +412,61 @@ def test_query_queue_device_staging_equals_host_staging(monkeypatch):
     assert cov[1] == 0.0
 
 
+def test_queue_parts_cut_tables_at_the_budget():
+    # Batches in queue order, each part's slots within the budget, a batch
+    # without a table (q_max 0) joins the part it falls in, a batch larger
+    # than the budget makes a part alone, and a queue without tables has
+    # no part.
+    from nns_tpu_torch.kernels.cell_list import queue_parts
+
+    plan, parts = queue_parts(np.array([16, 0, 16, 32, 0, 8]), 10, 400)
+    np.testing.assert_array_equal(plan, [[0, 16], [160, 0], [160, 16], [0, 32], [320, 0],
+                                         [320, 8]])
+    assert parts == [(0, 3, 320), (3, 6, 400)]
+    assert plan.dtype == np.int64
+    assert queue_parts(np.array([64, 8, 0]), 10, 100)[1] == [(0, 1, 640), (1, 3, 80)]
+    assert queue_parts(np.array([0, 0]), 10, 100)[1] == []
+
+
+@pytest.mark.parametrize("budget", ["one_batch_each", "largest_table"])
+def test_query_queue_in_parts_equals_one_part(monkeypatch, budget):
+    # A queue whose tables pass the drain's slot budget is placed, scanned
+    # and gathered part by part: the answers and the coverage equal the
+    # drain's in one part, the parts cover every batch with a table, and
+    # each part's table stays within the budget unless it holds one batch
+    # with a table.
+    import nns_tpu_torch.kernels.cell_list as cl
+
+    _, r = make_dataset(3, 1, 32768, seed=35)
+    eng = CellListEngine(r, device="cpu")
+    rng = np.random.default_rng(35)
+    too_skewed = (np.float32(0.5) + rng.random((2 * eng.q_max_limit(), 3), dtype=np.float32)
+                  * np.float32(1e-4))
+    queue = [_queries_with_far_rows(500, 3), _skewed_rows(600, 4), too_skewed,
+             rng.random((300, 3), dtype=np.float32), np.zeros((0, 3), np.float32),
+             _face_rows(eng, 400, 35), _skewed_rows(1000, 6, centre=0.2)]
+    want, cov_want = eng.query_queue(queue, return_coverage=True)
+    groups = eng.D ** 3
+    tables = [groups * eng.stage(b)[2] for b in queue if len(b) and eng.stage(b)[0] is not None]
+    limit = 1 if budget == "one_batch_each" else max(tables)
+    placed = []
+    place = cl.place_queue
+    monkeypatch.setattr(cl, "place_queue", lambda *a: placed.append(
+        (int((a[5][:, 1] > 0).sum()), a[6])) or place(*a))
+    monkeypatch.setattr(cl, "_QUEUE_SLOTS", limit)
+    got, cov = eng.query_queue(queue, return_coverage=True)
+    assert cov == cov_want and min(cov) < 1.0
+    for a, b, qb in zip(got, want, queue, strict=True):
+        np.testing.assert_array_equal(a, b)
+    assert_exact(got[1], queue[1], r)
+    assert sum(slots for _, slots in placed) == sum(tables)
+    assert all(slots <= limit or tabled == 1 for tabled, slots in placed)
+    if budget == "one_batch_each":
+        assert len(placed) == len(tables)
+    else:
+        assert 1 < len(placed) < len(tables)
+
+
 def test_sentinel_bound_equals_f64_pass():
     # Refs near the PAD_SENTINEL corner: rows at, just inside and just
     # outside PAD_SENTINEL - 2 halo (and its margin) get the mask of the

@@ -492,12 +492,14 @@ def test_cell_bin_kernels_equal_twin(cuda, case):
     plan[:, 1] = q_max
     np.cumsum(eng.D ** 3 * q_max[:-1], out=plan[1:, 0])
     slots = int(plan[-1, 0] + eng.D ** 3 * q_max[-1])
-    table, slot = place_queue(rows, offs, max(sizes), got[0].to(cuda), got[1].to(cuda),
-                              torch.from_numpy(plan).to(cuda), slots)
+    slot = torch.empty(len(batch), dtype=torch.int64, device=cuda)
+    table = place_queue(rows, offs, max(sizes), got[0].to(cuda), got[1].to(cuda),
+                        torch.from_numpy(plan).to(cuda), slots, slot).cpu()
     assert _cuda.LAUNCHES["cell_place"] == 1
-    table, slot = table.cpu(), slot.cpu()
-    t_table, t_slot = place_queue_plain(rows_c, offs_c, want[0], want[1],
-                                        torch.from_numpy(plan), slots)
+    slot = slot.cpu()
+    t_slot = torch.empty(len(batch), dtype=torch.int64)
+    t_table = place_queue_plain(rows_c, offs_c, want[0], want[1], torch.from_numpy(plan), slots,
+                                t_slot)
     placed = slot < slots
     assert torch.equal(placed, t_slot < slots)
     assert torch.equal(placed, torch.from_numpy(q_max)[batch] > 0)
@@ -509,6 +511,25 @@ def test_cell_bin_kernels_equal_twin(cuda, case):
     assert not table.any() and not t_table.any()
     if case == "mixed":
         assert (q_max > 0).tolist() == [True, True, True, False, False, True]
+    # The same plan cut into two runs of batches, as the drain's parts are:
+    # each run's table equals its stretch of the whole table, and each run
+    # writes its rows' slots, counted from the run's first slot, in place.
+    cut = len(queue) // 2
+    start = int(plan[cut, 0])
+    runs = plan.copy()
+    runs[cut:, 0] -= start
+    runs_dev = torch.from_numpy(runs).to(cuda)
+    slot2 = torch.full((len(batch),), -1, dtype=torch.int64, device=cuda)
+    sid_d, pos_d = got[0].to(cuda), got[1].to(cuda)
+    whole = place_queue(rows, offs, max(sizes), sid_d, pos_d, torch.from_numpy(plan).to(cuda),
+                        slots, torch.empty_like(slot2)).cpu()
+    for a, b, first, n in ((0, cut, 0, start), (cut, len(queue), start, slots - start)):
+        part = place_queue(rows, offs[a:b + 1], max(sizes), sid_d, pos_d, runs_dev[a:b], n,
+                           slot2)
+        assert torch.equal(part.cpu(), whole[first:first + n])
+        lo, hi = sum(sizes[:a]), sum(sizes[:b])
+        want_slot = torch.where(slot[lo:hi] < slots, slot[lo:hi] - first, n)
+        assert torch.equal(slot2.cpu()[lo:hi], want_slot)
 
 
 def test_device_binned_drain_equals_host_staged_drain(cuda):
@@ -563,6 +584,47 @@ def test_device_binned_drain_equals_host_staged_drain(cuda):
         for (i_a, ok_a), (i_b, ok_b) in zip(flags["single"], flags["host"], strict=True):
             np.testing.assert_array_equal(ok_a, ok_b)
             np.testing.assert_array_equal(i_a, i_b)
+
+
+def test_device_binned_drain_in_parts_equals_host_staged_drain(cuda):
+    # A clustered queue whose tables pass the drain's slot budget: one bin
+    # launch, one place launch per part (queue_parts), one scan per batch;
+    # the answers and the coverage bit-equal to the host-staged drain's;
+    # the drain's device memory above what it held before stays within
+    # the budget's 20 bytes a slot plus what its rows take.
+    import nns_tpu_torch.kernels.cell_list as cl
+    from nns_tpu_torch.parallel import Mesh, ShardedCellEngine
+
+    _, r = make_dataset(3, 1, 1 << 20, seed=24)
+    single = CellListEngine(r, device=cuda)
+    host = ShardedCellEngine(r, Mesh.virtual(1, "cuda"))
+    rng = np.random.default_rng(24)
+    queue = []
+    for b in range(8):
+        qb = rng.random((10_000, 3), dtype=np.float32)
+        qb[:600] = np.float32(0.1 * b + 0.05) + qb[:600] * np.float32(0.004)
+        queue.append(qb)
+    q_max = np.array([single.stage(b)[2] for b in queue])
+    assert (q_max == 1024).all()
+    _, parts = cl.queue_parts(q_max, single.D ** 3, cl._QUEUE_SLOTS)
+    assert len(parts) > 1
+    want, cov_want = host.query_queue(queue, return_coverage=True)
+    single.query_queue(queue)  # warm: the fallback engine is built at its first use
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    _cuda.reset_launches()
+    got, cov = single.query_queue(queue, return_coverage=True)
+    grew = torch.cuda.max_memory_allocated(cuda) - held
+    assert _cuda.LAUNCHES["cell_bin"] == 1
+    assert _cuda.LAUNCHES["cell_place"] == len(parts)
+    assert _cuda.LAUNCHES["cell_scan"] == len(queue)
+    assert cov == cov_want
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+    rows = sum(len(b) for b in queue)
+    assert grew < 20 * cl._QUEUE_SLOTS + 64 * rows + 4 * len(queue) * single.D ** 3 + (8 << 20)
+    assert grew < 20 * int(single.D ** 3 * q_max.sum()) // 2
 
 
 # The ladder's kernels: wrapper, plain twin, and whether refs are point-major.
