@@ -23,9 +23,10 @@ result) without them. Phases, each raising on failure:
    batches drawn as bench.py draws them, plus one batch drawn over
    (-0.5, 1.5)^3 whose uncertified rows go through the fused fallback. The
    queue's raw (m, 3) rows go up in one copy, are binned by supercell on
-   the card (``bin_queue``, ``place_queue``), each batch is scanned, one
-   gather takes every row's winner and the queue's (m,) winners come down
-   in one copy. The binning, placing, scan and v4
+   the card (``bin_queue``, ``place_queue``), each batch is scanned,
+   ``cell_answer`` decodes every row on the card and lists the uncertified
+   ones, one v4 call re-answers them and the queue's (m,) answers come
+   down in one copy. The binning, placing, answer, scan and v4
    kernels' launch counts must grow during that query_many, and three f64
    oracle gates (batch 0, a random mid-queue batch, all fallback rows; up
    to 512 queries each) must read recall 1.0. Then (``_staging_phase``)
@@ -41,7 +42,12 @@ result) without them. Phases, each raising on failure:
    tensors for the drain's queue and for the skewed and out-of-box
    batches' queue: sids, counts and maxima bit-equal, each supercell's
    slots the same set, each row bit-equal at its slot and every other slot
-   zero. A clustered 16-batch queue (``_parts_check``) whose tables pass
+   zero. The answer kernel (``_answer_check``) runs against its plain
+   version on the drain's binned and scanned queue, on the skewed and
+   out-of-box batches with a batch too skewed for a table and rows at the
+   PAD_SENTINEL corner, and on the clustered queue below, part by part:
+   answers bit-equal, the same certified counts and uncertified rows. A
+   clustered 16-batch queue (``_parts_check``) whose tables pass
    the drain's slot budget is drained in parts, equal to the host-staged
    drain, its device memory printed;
 4. the one-shot ``nns(version=4)`` and ``nns(version="cells")`` at 1M x 10K;
@@ -163,8 +169,8 @@ result) without them. Phases, each raising on failure:
    the cost of the merge and the per-shard launches, not scaling;
 12. one JSON line of per-kernel results, each row with the shape its ms,
    plain_ms and bound come from (the scan also on the skewed batch,
-   ``*_skewed``, as are the binning kernels on the skewed and out-of-box
-   batches' queue; the ladder's kernels and v4 also at 1024 x 1M k=16,
+   ``*_skewed``, as are the binning and answer kernels on the skewed and
+   out-of-box batches' queue; the ladder's kernels and v4 also at 1024 x 1M k=16,
    ``*_k16``): each kernel's main path (for the wgmma kernel's row the
    drain's 640K-row launch; for the ``expansion_phase1`` row, phase 1 at
    the padded and sliced kp, v9 at 1024 x 65536 k=128 and 1024 x 1M k=24
@@ -359,8 +365,8 @@ def main() -> int:
         MXUExpansion, _cat_q, phase1, phase1_plain, split_bf16x3)
     from nns_tpu_torch.kernels.oracle import nn_oracle_f64
     from nns_tpu_torch.native import native_available
-    from nns_tpu_torch.utils.bounds import (cell_bin_bound, cell_bound, cell_place_bound,
-                                            fused_bound, phase1_bound)
+    from nns_tpu_torch.utils.bounds import (cell_answer_bound, cell_bin_bound, cell_bound,
+                                            cell_place_bound, fused_bound, phase1_bound)
     from nns_tpu_torch.utils.timing import cuda_device_ms, cuda_ms
 
     LADDER_KERNELS = (  # (launch key, wrapper, plain twin, point-major refs)
@@ -485,7 +491,8 @@ def main() -> int:
     queue_s = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     _log(f"[main] launches during query_many: {launches}")
-    for name in ("cell_bin", "cell_place", "cell_scan", "fused_argmin"):  # ladder: phase 6
+    for name in ("cell_bin", "cell_place", "cell_answer", "cell_scan",
+                 "fused_argmin"):  # ladder: phase 6
         if launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched by the main path")
 
@@ -532,9 +539,9 @@ def main() -> int:
     engine.query_many(batches[:8])
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     _log(f"[main] uniform drain W={W}: {drain_ms:.3f} ms/batch end to end "
-         f"(one upload of the queue's (m, 3) rows; binning, placing, a scan per batch and "
-         f"one gather on the card; one download of the queue's winners; the host's decode, "
-         f"sentinel mask and exact re-answers); "
+         f"(one upload of the queue's (m, 3) rows; binning, placing, a scan per batch, the "
+         f"decode and the sentinel mask on the card; one download of the certified counts, "
+         f"one exact call for the queue's uncertified rows, one download of the answers); "
          f"device scans alone {scan_ms / W:.4f} ms/batch (CUDA events, median of 5); "
          f"device memory peak {peak_mb:.0f} MiB")
     _staging_phase(engine._built, batches, {"uniform": queries, "skewed": skew, "out-of-box": ood})
@@ -544,6 +551,21 @@ def main() -> int:
     _parts_check(engine._built, batches[:16])
     for i, name in enumerate(("cell_bin", "cell_place")):
         results[name] = [row[i] for row in binned.values()]
+    answer_row, device_ms["cell_answer"] = _answer_check("uniform W=64 queue", engine._built,
+                                                         batches)
+    # The answer kernel's other branches: the skewed and out-of-box batches,
+    # a batch too skewed for any table (every row listed) and rows at the
+    # PAD_SENTINEL corner (the f64 mask, at its margin too).
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from sentinel_corner import corner_rows
+
+    too_skewed = (np.float32(0.5) + np.random.default_rng(SEED + 11).random(
+        (2 * engine._built.q_max_limit() + 10, K), dtype=np.float32) * np.float32(1e-4))
+    skewed_queue = [skew, ood, too_skewed.astype(np.float32), corner_rows(engine._built)]
+    skewed_row, _ = _answer_check("skewed + out-of-box + too-skewed + corner queue",
+                                  engine._built, skewed_queue)
+    results["cell_answer"] = [answer_row, skewed_row]
+    n_answer_skewed = sum(len(b) for b in skewed_queue)
     n_bin, bin_slots = binned["uniform W=64 queue"][2:]
     bin_bounds = {"cell_bin": (cell_bin_bound(n_bin, W, cell.D ** 3),
                                cell_bin_bound(2 * N_QUERIES, 2, cell.D ** 3)),
@@ -926,7 +948,14 @@ def main() -> int:
            for name in ladder_launches},
         **{name: (results[name][0], bin_bounds[name][0],
                   f"the drain's queue, {W} x 10K rows (query_many)") for name in bin_bounds},
+        "cell_answer": (results["cell_answer"][0], cell_answer_bound(n_bin),
+                        f"the drain's queue, {W} x 10K rows (query_many)"),
     }
+    skewed_shapes = {name: ("the skewed and out-of-box 10K batches' queue",
+                            bin_bounds[name][1][0]) for name in bin_bounds}
+    skewed_shapes["cell_answer"] = (
+        "the skewed and out-of-box 10K batches, a batch too skewed for a table and "
+        "sentinel-corner rows", cell_answer_bound(n_answer_skewed)[0])
     kernels = []
     for name, source, replaces in (
         ("cell_scan", "nns_tpu_torch/csrc/cell_scan.cu", "nns_tpu/kernels/cell_list.py:55"),
@@ -945,6 +974,8 @@ def main() -> int:
         # The drain's binning: the host's counting sort, which has no TPU kernel.
         ("cell_bin", "nns_tpu_torch/csrc/cell_bin.cu", "nns_tpu/native/nns_cpu.cpp:618"),
         ("cell_place", "nns_tpu_torch/csrc/cell_bin.cu", "nns_tpu/native/nns_cpu.cpp:618"),
+        # The drain's decode and sentinel mask: the JAX drain's host unscatter.
+        ("cell_answer", "nns_tpu_torch/csrc/cell_bin.cu", "nns_tpu/kernels/cell_list.py:647"),
     ):
         main, (bound_ms, bound_by), shape = main_rows[name]
         kernels.append({
@@ -964,11 +995,11 @@ def main() -> int:
             _, ms, p_ms = results[name][1]
             kernels[-1].update(shape_skewed=f"skewed 10K batch (QM={skew_qm})", ms_skewed=ms,
                                plain_ms_skewed=p_ms, bound_ms_skewed=cell_bounds[1][0])
-        if name in bin_bounds:
+        if name in skewed_shapes:
             _, ms, p_ms = results[name][1]
-            kernels[-1].update(shape_skewed="the skewed and out-of-box 10K batches' queue",
-                               ms_skewed=ms, plain_ms_skewed=p_ms,
-                               bound_ms_skewed=bin_bounds[name][1][0])
+            shape, b_ms = skewed_shapes[name]
+            kernels[-1].update(shape_skewed=shape, ms_skewed=ms, plain_ms_skewed=p_ms,
+                               bound_ms_skewed=b_ms)
         if name in k16_row:
             _, ms, p_ms = results[name][k16_row[name]]
             kernels[-1].update(ms_k16=ms, plain_ms_k16=p_ms,
@@ -1086,6 +1117,55 @@ def _binning_check(name, eng, queue):
     return (0.0, b_ms, bp_ms), (err, p_ms, pp_ms), len(rows), slots
 
 
+def _answer_check(name, eng, queue):
+    """Phase 3's answer kernel against its plain version on the same card
+    tensors, for one queue as the drain bins and scans it, part by part:
+    ``cell_answer``'s idx bit-equal to ``cell_answer_plain``'s at every
+    row, each batch's certified count and the set of uncertified rows
+    equal (tolerance 0). Returns ((max_abs_err, ms, plain_ms), device ms
+    of the kernel), the times over every part's launch."""
+    from nns_tpu_torch.kernels.cell_list import cell_answer, cell_answer_plain
+    from nns_tpu_torch.utils.timing import cuda_device_ms, cuda_ms
+
+    binned = eng._bin(queue)
+    runs = []  # each part's (a, b, plan, win, slot); the parts' rows do not overlap in slot
+    eng._scan_parts(binned, lambda *run: runs.append(run))
+    rows, n, batches = binned.rows, len(binned.rows), len(queue)
+    max_rows, lim = int(np.diff(binned.ends).max()), (2.0 * eng.halo) ** 2
+    outs = {}
+
+    def run(fn):
+        idx, bad, counts = outs.setdefault(fn, (
+            torch.empty(n, dtype=torch.int32, device=rows.device),
+            torch.empty(n, dtype=torch.int32, device=rows.device),
+            torch.empty(batches + 1, dtype=torch.int32, device=rows.device)))
+        counts.zero_()  # the counts and the list's cursor start at 0 each call
+        for a, b, plan, win, slot in runs:
+            fn(rows, binned.offs[a:b + 1], max_rows, plan, win, slot, lim, idx, counts[a:b],
+               bad, counts[batches:])
+        return idx, counts, bad
+
+    def plain(rows, offs, max_rows, *rest):
+        return cell_answer_plain(rows, offs, *rest)
+
+    ms, (idx, counts, bad) = cuda_ms(run, cell_answer)
+    device, _ = cuda_device_ms(run, cell_answer)
+    p_ms, (t_idx, t_counts, t_bad) = cuda_ms(run, plain)
+    if not torch.equal(idx, t_idx):
+        raise AssertionError(f"cell_answer {name}: {int((idx != t_idx).sum())} answers differ "
+                             "from cell_answer_plain's")
+    listed = int(counts[batches])
+    if not (torch.equal(counts, t_counts)
+            and torch.equal(torch.sort(bad[:listed])[0], torch.sort(t_bad[:listed])[0])):
+        raise AssertionError(f"cell_answer {name}: the certified counts or the uncertified "
+                             "rows differ from cell_answer_plain's")
+    _log(f"[answer] {name} ({batches} batches, {n} rows, {len(runs)} part(s), "
+         f"{int(binned.skewed.sum())} batch(es) with no table): cell_answer {ms:.4f} ms "
+         f"(device {device:.4f} ms), plain {p_ms:.4f} ms, answers bit-equal, {n - listed} "
+         f"certified and the same {listed} uncertified rows")
+    return (0.0, ms, p_ms), device
+
+
 def _parts_check(eng, batches) -> None:
     """Phase 3's clustered drain: ``batches`` with 600 rows of each packed
     into one small box, so that every batch takes a large table and the
@@ -1114,6 +1194,7 @@ def _parts_check(eng, batches) -> None:
     for a, b in zip(got, _host_staged_drain(eng, clustered), strict=True):
         if not np.array_equal(a, b):
             raise AssertionError("the clustered drain's answers differ from the host-staged")
+    _answer_check("clustered queue in parts", eng, clustered)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()

@@ -1,10 +1,13 @@
-// Supercell binning of a whole query queue on the card: the staging half of
-// the v14 queue drain (CellListEngine.query_queue).
+// Supercell binning of a whole query queue on the card, and the answers
+// after its scans: the staging and the answering halves of the v14 queue
+// drain (CellListEngine.query_queue).
 //
 // Replaces, for the drain: the host's counting sort `nns_cells_stage`
 // (native/nns_cpu.cpp), which still stages single batches
-// (CellListEngine.stage). The JAX package stages on the host; there is no
-// TPU kernel to port.
+// (CellListEngine.stage), and the host's per-batch decode and sentinel
+// mask (CellListEngine._unstage, _sentinel_risk), which still answer
+// single batches and the sharded drain. The JAX package stages and
+// decodes on the host; there is no TPU kernel to port.
 //
 // A queue is B batches of rows, concatenated: batch b holds rows
 // [offs[b], offs[b + 1]) of the (rows, 3) f32 queries.
@@ -31,8 +34,23 @@
 // of a batch with no table (plan q_max 0: too skewed for the scan) get
 // `spare`, one past the last slot.
 //
-// Both kernels are memory bound and tiny beside the scans: 12 bytes read
-// and 8 written per row to bin, 20 read and 20 written to place.
+// cell_answer_kernel: once a part's scans have run, one thread per row of
+// that part's batches answers the row in the caller's order, as the host
+// tail (`_unstage`, `_sentinel_risk`) does for each batch. It reads the
+// signed winner at the row's slot and decodes it, idx = sg ^ (sg >> 31),
+// certified when sg >= 0; a certified row whose f64 distance to the
+// PAD_SENTINEL corner, d2 = 0, d2 = d2 + t * t over x, y, z with t = q[d] -
+// sentinel (each operation rounded to nearest, as numpy's pass rounds it),
+// is <= lim = (2 halo)^2 is uncertified, since a padded halo slot could
+// have won its scan. A row of a batch with no table (too skewed for the
+// scan) reads no slot: idx 0, uncertified. Each warp folds its certified
+// rows into a block count, added once per block and batch into that
+// batch's counter; each uncertified row's queue position is appended to
+// `bad` through one atomic cursor per warp, in no fixed order.
+//
+// The three kernels are memory bound and tiny beside the scans: 12 bytes
+// read and 8 written per row to bin, 20 read and 20 written to place, 24
+// read and 4 written to answer.
 #include <cuda_runtime.h>
 
 namespace {
@@ -101,6 +119,64 @@ __global__ void cell_place_kernel(const float* __restrict__ q, const int* __rest
   }
 }
 
+__global__ void cell_answer_kernel(const float* __restrict__ q, const int* __restrict__ offs,
+                                   int batches, const long long* __restrict__ plan,
+                                   const int* __restrict__ win,
+                                   const long long* __restrict__ slots, double sentinel,
+                                   double lim, int* __restrict__ idx,
+                                   int* __restrict__ certified, int* __restrict__ bad,
+                                   int* __restrict__ cursor) {
+  __shared__ int block_certified;
+  const int lane = threadIdx.x & 31;
+  for (int b = blockIdx.y; b < batches; b += gridDim.y) {
+    const int lo = offs[b], hi = offs[b + 1];
+    const bool tabled = plan[2 * b + 1] > 0;
+    if (threadIdx.x == 0) block_certified = 0;
+    __syncthreads();
+    int count = 0;
+    // The block walks the batch in steps of whole blocks, so every lane of
+    // a warp takes part in its ballot and its reduction.
+    for (int start = lo + blockIdx.x * blockDim.x; start < hi;
+         start += gridDim.x * blockDim.x) {
+      const int i = start + threadIdx.x;
+      bool ok = false;
+      if (i < hi) {
+        int id = 0;
+        if (tabled) {
+          const int sg = win[slots[i]];
+          id = sg ^ (sg >> 31);
+          ok = sg >= 0;
+        }
+        if (ok) {
+          const float* r = q + 3 * (long long)i;
+          double d2 = 0.0;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            const double t = __dsub_rn((double)r[d], sentinel);
+            d2 = __dadd_rn(d2, __dmul_rn(t, t));
+          }
+          ok = !(d2 <= lim);
+        }
+        idx[i] = id;
+      }
+      const bool listed = i < hi && !ok;
+      const unsigned ballot = __ballot_sync(0xffffffffu, listed);
+      if (ballot) {
+        int base = 0;
+        if (lane == 0) base = atomicAdd(cursor, __popc(ballot));
+        base = __shfl_sync(0xffffffffu, base, 0);
+        if (listed) bad[base + __popc(ballot & ((1u << lane) - 1u))] = i;
+      }
+      count += ok;
+    }
+    count = __reduce_add_sync(0xffffffffu, count);
+    if (lane == 0 && count > 0) atomicAdd(&block_certified, count);
+    __syncthreads();
+    if (threadIdx.x == 0 && block_certified > 0) atomicAdd(certified + b, block_certified);
+    __syncthreads();  // the next batch resets the block's count
+  }
+}
+
 dim3 queue_grid(int batches, int max_rows) {
   const int x = (max_rows + kThreads - 1) / kThreads;
   return dim3(x < kMaxBlocksPerBatch ? x : kMaxBlocksPerBatch,
@@ -141,5 +217,25 @@ extern "C" int nns_cell_place(const float* queries, const int* offs, int batches
   cell_place_kernel<<<queue_grid(batches, max_rows), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(queries, offs, batches, sid, pos,
                                                            plan, spare, table, slots);
+  return (int)cudaGetLastError();
+}
+
+// After a part's scans: plan (batches, 2) i64 and offs the part's run (as
+// for nns_cell_place), win the part's signed winner per slot, slots (rows)
+// i64 as nns_cell_place wrote them, geo the host's two doubles (sentinel,
+// lim). Writes idx at the run's rows; adds each batch's certified rows into
+// certified (batches) i32 and appends the uncertified rows' positions to
+// bad (rows) i32 at the i32 cursor (both zeroed by the caller once per
+// queue).
+extern "C" int nns_cell_answer(const float* queries, const int* offs, int batches, int max_rows,
+                               const long long* plan, const int* win, const long long* slots,
+                               const double* geo, int* idx, int* certified, int* bad,
+                               int* cursor, void* stream) {
+  if (batches < 0 || max_rows < 0) return (int)cudaErrorInvalidValue;
+  if (batches == 0 || max_rows == 0) return (int)cudaSuccess;
+  cell_answer_kernel<<<queue_grid(batches, max_rows), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(queries, offs, batches, plan, win,
+                                                            slots, geo[0], geo[1], idx,
+                                                            certified, bad, cursor);
   return (int)cudaGetLastError();
 }

@@ -41,8 +41,8 @@ _lib: ctypes.CDLL | None = None
 # "expansion_phase1" counts every phase-1 launch, "expansion_phase1_wgmma"
 # those of the wgmma kernel among them.
 LAUNCHES: dict[str, int] = {
-    "fused_argmin": 0, "cell_scan": 0, "cell_bin": 0, "cell_place": 0, "fused_point_major": 0,
-    "fused_streaming": 0, "fused_queries_resident": 0, "two_level": 0,
+    "fused_argmin": 0, "cell_scan": 0, "cell_bin": 0, "cell_place": 0, "cell_answer": 0,
+    "fused_point_major": 0, "fused_streaming": 0, "fused_queries_resident": 0, "two_level": 0,
     "expansion_phase1": 0, "expansion_phase1_wgmma": 0,
 }
 
@@ -124,6 +124,7 @@ SIGNATURES = {
     "nns_cell_scan": [_vp, _vp, _vp, _ci, _ci, _ci, _cf, _vp, _vp, _vp],
     "nns_cell_bin": [_vp, _vp, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp],
     "nns_cell_place": [_vp, _vp, _ci, _ci, _vp, _vp, _vp, _cll, _vp, _vp, _vp],
+    "nns_cell_answer": [_vp, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
     "nns_fused_point_major":
         [_vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp],
     "nns_fused_point_major_smem": [_ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp],

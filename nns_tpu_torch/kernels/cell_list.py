@@ -19,8 +19,12 @@ brute force. The queue drain (``query_queue``) bins on the device: one
 upload of the queue's raw rows, ``bin_queue`` (``csrc/cell_bin.cu``: each
 row's supercell and slot, each batch's largest supercell), one small
 download of those maxima, then per part of at most ``_QUEUE_SLOTS``
-slots (``queue_parts``) ``place_queue`` into one table, a scan per batch
-and one gather; one (m,) download. A single batch
+slots (``queue_parts``) ``place_queue`` into one table and a scan per
+batch. On a CUDA device ``cell_answer`` (``csrc/cell_bin.cu``) then
+decodes each part's rows, masks the sentinel corner and lists the
+uncertified rows, which one fused call per queue re-answers; one download
+of the counts, one of the (m,) answers. On a CPU device one gather per
+part, one (m,) download and the host tail (``_answer_queue``). A single batch
 (``query_submit``) is bucketed on the host (``stage``: the native sort)
 into one (m, 5) f32 pack [x, y, z, sid, pos], uploaded and scattered on
 the device (``_query_body``).
@@ -303,6 +307,73 @@ def place_queue(rows: torch.Tensor, offs: torch.Tensor, max_rows: int, sid: torc
     return table
 
 
+def cell_answer_plain(rows, offs, plan, win, slot, lim: float, idx, certified, bad,
+                      cursor) -> None:
+    """Plain PyTorch ``cell_answer``: the decode (``_unstage``'s) and the
+    sentinel mask (``_sentinel_risk``'s f64 pass, in its order) in torch
+    ops; the uncertified rows are appended in row order."""
+    dev = rows.device
+    lo, hi = int(offs[0]), int(offs[-1])
+    offs = offs.long()
+    batches = offs.shape[0] - 1
+    batch = torch.repeat_interleave(torch.arange(batches, device=dev), offs[1:] - offs[:-1])
+    tabled = plan[batch, 1] > 0
+    sg = torch.where(tabled, win[torch.where(tabled, slot[lo:hi], 0)], -1)
+    t = rows[lo:hi].double() - PAD_SENTINEL
+    d2 = torch.zeros(hi - lo, dtype=torch.float64, device=dev)
+    for d in range(3):
+        d2 = d2 + t[:, d] * t[:, d]
+    ok = (sg >= 0) & ~(d2 <= lim)
+    idx[lo:hi] = sg ^ (sg >> 31)
+    certified += torch.bincount(batch[ok], minlength=batches).int()
+    listed = torch.nonzero(~ok).flatten().int() + lo
+    n = int(cursor[0])
+    bad[n:n + len(listed)] = listed
+    cursor += len(listed)
+
+
+def cell_answer(rows: torch.Tensor, offs: torch.Tensor, max_rows: int, plan: torch.Tensor,
+                win: torch.Tensor, slot: torch.Tensor, lim: float, idx: torch.Tensor,
+                certified: torch.Tensor, bad: torch.Tensor, cursor: torch.Tensor) -> None:
+    """Answer the rows of a part of a binned queue after its scans, in the
+    caller's order, as the host tail does per batch (``_unstage``,
+    ``_sentinel_risk``). ``offs`` and ``plan`` are the part's run, as
+    ``place_queue`` took them, ``win`` the part's signed winner per slot
+    (``_scan_table``), ``slot`` (rows,) i64 as ``place_queue`` wrote it,
+    ``lim`` the f64 (2 halo)^2. Writes into ``idx`` (rows,) i32, at each
+    row of the run, the decoded winner (0 for the rows of a batch with no
+    table); adds each batch's certified rows (a winner that its scan
+    certified and no sentinel risk) into ``certified`` (batches,) i32;
+    appends every other row's queue position to ``bad`` (rows,) i32 at
+    ``cursor`` (1,) i32, which it advances. CPU tensors take
+    ``cell_answer_plain``; CUDA tensors launch ``csrc/cell_bin.cu``'s
+    kernel (or raise RuntimeError), whose list is in no fixed order."""
+    n, batches = rows.shape[0], offs.shape[0] - 1
+    _check_queue(rows, offs, plan, win, slot, idx, certified, bad, cursor)
+    if (plan.dtype != torch.int64 or plan.shape != (batches, 2) or win.dtype != torch.int32
+            or win.dim() != 1 or slot.dtype != torch.int64 or slot.shape != (n,)
+            or any(t.dtype != torch.int32 for t in (idx, certified, bad, cursor))
+            or idx.shape != (n,) or bad.shape != (n,) or certified.shape != (batches,)
+            or cursor.shape != (1,)):
+        raise ValueError("cell_answer takes a (batches, 2) i64 plan, (slots,) i32 winners, "
+                         "an (m,) i64 slot and i32 outputs")
+    if rows.device.type == "cpu":
+        return cell_answer_plain(rows, offs, plan, win, slot, lim, idx, certified, bad, cursor)
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    dev = rows.device
+    geo = np.array([PAD_SENTINEL, lim], dtype=np.float64)
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        rc = lib.nns_cell_answer(rows.data_ptr(), offs.data_ptr(), batches, max_rows,
+                                 plan.data_ptr(), win.data_ptr(), slot.data_ptr(),
+                                 geo.ctypes.data, idx.data_ptr(), certified.data_ptr(),
+                                 bad.data_ptr(), cursor.data_ptr(),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(lib, rc, "cell_answer")
+    _cuda.LAUNCHES["cell_answer"] += 1
+
+
 def queue_parts(q_max: np.ndarray, groups: int, budget: int
                 ) -> tuple[np.ndarray, list[tuple[int, int, int]]]:
     """Cut a binned queue's tables into parts of at most ``budget`` slots:
@@ -406,6 +477,23 @@ class CellToken(NamedTuple):
     queries: np.ndarray
 
 
+class BinnedQueue(NamedTuple):
+    """A queue binned on its device (``CellListEngine._bin``): its rows and
+    offsets as uploaded, each row's supercell and slot (``bin_queue``), the
+    host's plan and parts of the tables (``queue_parts``; q_max 0: no
+    table), the host's (batches + 1,) row offsets and which batches were
+    too skewed for the scan."""
+
+    rows: torch.Tensor
+    offs: torch.Tensor
+    sid: torch.Tensor
+    pos: torch.Tensor
+    plan: np.ndarray
+    parts: list
+    ends: np.ndarray
+    skewed: np.ndarray
+
+
 class CellListEngine:
     """Prepare-once/query-many exact NN for 3-D points; the index lives on
     ``device`` (other k route to the fused kernel, see nns_cell_list)."""
@@ -486,8 +574,9 @@ class CellListEngine:
         (coordinates 1e6 per dim) that a padded halo slot could win the scan
         AND pass the <= halo certificate — possible only when the data
         itself lives near 1e6. Such queries are forced uncertified on the
-        host, so they take the exact fallback. None when no query is at
-        risk (the common case).
+        host, so they take the exact fallback (the drain on a CUDA device
+        runs the same f64 pass on the card: ``cell_answer``). None when no
+        query is at risk (the common case).
 
         A row at risk has every coordinate within 2 halo of PAD_SENTINEL, so
         when each row has one below PAD_SENTINEL - 2 halo (less a margin of
@@ -667,10 +756,13 @@ class CellListEngine:
         ``signed`` is in the host sort's staged order when ``order`` is
         given, else already in the caller's order (the device-binned
         drain). Rows near the sentinel corner (``risk``) are uncertified.
-        Every path that decodes signed winners, host-staged or binned on the
-        device, decodes them here, so one method holds the decode:
-        ``portbench/tests/test_portbench_run.py`` plants its altered answer
-        in this method and expects it to reach every v14 cell."""
+        Every host path that decodes signed winners decodes them here: the
+        single batches, the sharded drain and the drain on a CPU device
+        (``_answer_queue``). The drain on a CUDA device decodes on the card
+        (``cell_answer``), which the tests hold bit-equal to this method
+        and ``_sentinel_risk``. ``portbench/tests/test_portbench_run.py``
+        plants its altered answer in this method and expects it to reach
+        every v14 cell it runs on the CPU."""
         sg = signed
         if order is not None:
             sg = np.empty(len(order), dtype=np.int32)
@@ -692,16 +784,16 @@ class CellListEngine:
                 got = self._fallback_engine().fallback(q_bad).cpu().numpy()
                 count_copy("down", got.nbytes, self.device)
                 idx[bad] = got
+            COUNTS["cells.exact_calls"] += 1
         return idx
 
     @staticmethod
-    def _coverage(ok: np.ndarray) -> float:
+    def _coverage(rows: int, certified: int) -> float:
         """The certified fraction of a batch's rows (1.0 for none), counted
         into ``cells.rows`` and ``cells.certified_rows``."""
-        m, certified = len(ok), int(np.count_nonzero(ok))
-        COUNTS["cells.rows"] += m
+        COUNTS["cells.rows"] += rows
         COUNTS["cells.certified_rows"] += certified
-        return certified / m if m else 1.0
+        return certified / rows if rows else 1.0
 
     def _fallback_engine(self) -> FusedBruteForce:
         """The exact fallback's engine over the refs, staged once."""
@@ -710,21 +802,20 @@ class CellListEngine:
         return self._fused
 
     def query_queue(self, batches, return_coverage: bool = False):
-        """EXACT answers for several query batches, binned on the device:
-        the queue's raw (m, 3) rows go up in one copy (``_upload_queue``);
-        ``bin_queue`` gives each row its supercell and slot and each batch
-        its largest supercell, whose (batches,) maxima come down (the only
-        wait before the answers); the host picks each batch's q_max as
-        ``stage`` does and cuts the tables into parts of at most
-        ``_QUEUE_SLOTS`` slots (``queue_parts``: one part unless the queue
-        is large or skewed); per part ``place_queue`` writes its rows into
-        one dense table, ``cell_scan`` runs once per batch on its part of
-        it and one gather takes each row's signed winner in the caller's
-        order; the (m,) winners of the whole queue come down in one copy.
-        Then the host answers each batch (``_answer_queue``): the decode,
-        the sentinel mask and the exact fused scan for every uncertified
-        row. A batch too skewed for the dense kernel is re-answered whole by
-        the exact scan. With ``return_coverage``, also returns the per-batch
+        """EXACT answers for several query batches, binned on the device
+        (``_bin``): the queue's raw (m, 3) rows go up in one copy, each row
+        gets its supercell and slot and each batch its largest supercell,
+        whose maxima come down (the one wait before the answers), and the
+        host cuts the tables into parts (``queue_parts``); per part
+        ``place_queue`` fills one dense table and ``cell_scan`` runs once
+        per batch on it (``_scan_parts``). On a CUDA device the card then
+        answers the whole queue (``_answer_on_device``): ``cell_answer``
+        per part, one small download of the certified counts, one exact
+        fused scan for every uncertified row of the queue, one download of
+        the answers. On a CPU device one gather takes each row's signed
+        winner and the host answers each batch (``_answer_queue``). A batch
+        too skewed for the dense kernel is re-answered whole by the exact
+        scan. With ``return_coverage``, also returns the per-batch
         certified fraction. An empty queue returns [] (the JAX package
         raises ValueError there), as the v4 and v9 engines do."""
         if not batches:
@@ -733,48 +824,124 @@ class CellListEngine:
         for q in queries:
             if q.ndim != 2 or q.shape[1] != 3:
                 raise ValueError(f"queries must be (m, 3); got {q.shape}")
+        binned = self._bin(queries)
+        if binned.rows.device.type == "cuda":
+            results, covs = self._answer_on_device(queries, binned)
+            return (results, covs) if return_coverage else results
+        return self._answer_queue(queries, self._signed_rows(binned), [None] * len(queries),
+                                  return_coverage)
+
+    def _bin(self, queries: list[np.ndarray]) -> BinnedQueue:
+        """Upload a queue's rows and bin them on the device: one upload
+        (``_upload_queue``), ``bin_queue``, one download of the per-batch
+        maxima; each batch's q_max as ``stage`` picks it, and the parts of
+        the tables (``queue_parts``, at most ``_QUEUE_SLOTS`` slots each)."""
         sizes = np.array([len(q) for q in queries], dtype=np.int64)
-        max_rows, groups = int(sizes.max()), self.D ** 3
         with span("nns.cells.bin"):
             rows, offs = _upload_queue(queries, self.device)
-            sid, pos, _, maxima = bin_queue(rows, offs, max_rows, self.D, self.mn, self.W)
+            sid, pos, _, maxima = bin_queue(rows, offs, int(sizes.max()), self.D, self.mn,
+                                            self.W)
             raw = maxima.cpu().numpy()
             count_copy("down", raw.nbytes, self.device)
         q_max = np.array([_pow2_at_least(max(int(r), 8)) for r in raw], dtype=np.int64)
         skewed = q_max > self.q_max_limit()
-        tables = np.where(skewed | (sizes == 0), 0, q_max)
-        plan, parts = queue_parts(tables, groups, _QUEUE_SLOTS)
+        plan, parts = queue_parts(np.where(skewed | (sizes == 0), 0, q_max), self.D ** 3,
+                                  _QUEUE_SLOTS)
         COUNTS["cells.device_staged_rows"] += int(sizes[~skewed].sum())
-        ends = np.cumsum(sizes)
-        flat = np.zeros(0, dtype=np.int32)
-        if parts:
+        ends = np.zeros(len(sizes) + 1, dtype=np.int64)
+        np.cumsum(sizes, out=ends[1:])
+        return BinnedQueue(rows, offs, sid, pos, plan, parts, ends, skewed)
+
+    def _scan_parts(self, binned: BinnedQueue, answer) -> None:
+        """Per part of a binned queue's tables: ``place_queue`` into one
+        table, ``cell_scan`` per batch on it (``_scan_table``), then
+        ``answer(a, b, plan, win, slot)`` over the part's batches a to
+        b - 1 (their plan on the device, the part's signed winner per slot,
+        each row's slot), all queued on the current stream. A queue with
+        no table is one part with no table and no scan."""
+        rows, plan = binned.rows, binned.plan
+        max_rows = int(np.diff(binned.ends).max())
+        plan_dev = _to_device(torch.from_numpy(plan), rows.device)
+        slot = torch.empty(len(rows), dtype=torch.int64, device=rows.device)
+        for a, b, slots in binned.parts or [(0, len(plan), 0)]:
+            if slots:
+                table = place_queue(rows, binned.offs[a:b + 1], max_rows, binned.sid,
+                                    binned.pos, plan_dev[a:b], slots, slot)
+                win = _scan_table(table, plan[a:b], self.D ** 3, self.halo_dm,
+                                  self.halo_ids_dev, self.halo2)
+            else:
+                win = torch.zeros(1, dtype=torch.int32, device=rows.device)
+            answer(a, b, plan_dev[a:b], win, slot)
+
+    def _signed_rows(self, binned: BinnedQueue) -> list[np.ndarray | None]:
+        """Each batch's signed winners in the caller's order (None for a
+        batch too skewed for the scan): one gather per part and one
+        download of the queue's winners, for the host tail."""
+        ends, flat = binned.ends, np.zeros(0, dtype=np.int32)
+        if binned.parts:
             with span("nns.cells.device"):
-                dev = rows.device
-                plan_dev = _to_device(torch.from_numpy(plan), dev)
-                slot = torch.empty(len(rows), dtype=torch.int64, device=dev)
-                signed = torch.empty(len(rows), dtype=torch.int32, device=dev)
-                for a, b, slots in parts:
-                    table = place_queue(rows, offs[a:b + 1], max_rows, sid, pos,
-                                        plan_dev[a:b], slots, slot)
-                    win = _scan_table(table, plan[a:b], groups, self.halo_dm,
-                                      self.halo_ids_dev, self.halo2)
-                    lo, hi = int(ends[a] - sizes[a]), int(ends[b - 1])
+                signed = torch.empty(len(binned.rows), dtype=torch.int32,
+                                     device=binned.rows.device)
+
+                def gather(a, b, plan, win, slot):
+                    lo, hi = int(ends[a]), int(ends[b])
                     torch.index_select(win, 0, slot[lo:hi], out=signed[lo:hi])
+
+                self._scan_parts(binned, gather)
             with span("nns.cells.download"):
                 flat = signed.cpu().numpy()
             count_copy("down", flat.nbytes, self.device)
-        signed_rows = [None if skew else flat[hi - m:hi]
-                       for skew, hi, m in zip(skewed, ends, sizes)]
-        return self._answer_queue(queries, signed_rows, [None] * len(queries), return_coverage)
+        return [None if skew else flat[lo:hi]
+                for skew, lo, hi in zip(binned.skewed, ends[:-1], ends[1:])]
+
+    def _answer_on_device(self, queries, binned: BinnedQueue):
+        """The CUDA drain's answers, on the device: ``cell_answer`` per part
+        decodes every row, masks the sentinel corner, counts each batch's
+        certified rows and lists the uncertified ones (every row of a batch
+        with no table); one download of the counts and the list's length;
+        one ``FusedBruteForce.fallback`` over the listed rows, gathered from
+        the uploaded rows, its answers scattered into place; one download
+        of the answers. Returns (answers, per-batch coverage) as
+        ``_answer_queue`` does. On a CPU device it runs the plain twins (the
+        tests' specification of this path)."""
+        rows, ends, batches = binned.rows, binned.ends, len(queries)
+        max_rows, lim = int(np.diff(ends).max()), (2.0 * self.halo) ** 2
+        with span("nns.cells.device"):
+            idx = torch.empty(len(rows), dtype=torch.int32, device=rows.device)
+            bad = torch.empty(len(rows), dtype=torch.int32, device=rows.device)
+            # Each batch's certified rows, then the length of the list.
+            counts = torch.zeros(batches + 1, dtype=torch.int32, device=rows.device)
+            self._scan_parts(binned, lambda a, b, plan, win, slot: cell_answer(
+                rows, binned.offs[a:b + 1], max_rows, plan, win, slot, lim, idx, counts[a:b],
+                bad, counts[batches:]))
+        with span("nns.cells.download"):
+            certified = counts.cpu().numpy()
+        count_copy("down", certified.nbytes, self.device)
+        listed = int(certified[batches])
+        if listed:
+            with span("nns.cells.exact_rows"):
+                at = bad[:listed].long()
+                idx.index_copy_(0, at, self._fallback_engine().fallback(rows.index_select(0, at)))
+            COUNTS["cells.exact_calls"] += 1
+        with span("nns.cells.download"):
+            flat = idx.cpu().numpy()
+        count_copy("down", flat.nbytes, self.device)
+        COUNTS["cells.device_answered_rows"] += len(flat)
+        results = [flat[lo:hi] for lo, hi in zip(ends[:-1], ends[1:])]
+        covs = [self._coverage(int(hi - lo), int(c))
+                for lo, hi, c in zip(ends[:-1], ends[1:], certified[:batches])]
+        return results, covs
 
     def _answer_queue(self, queries, signed, orders, return_coverage: bool):
-        """The host's half of a queue drain, per batch: its signed winners
+        """The host tail of a queue drain, per batch: its signed winners
         ``signed[b]`` decoded (``_unstage``; in the host sort's order when
         ``orders[b]`` is given, else in the caller's), the sentinel mask,
         and every uncertified row re-answered with the exact fused scan. A
         batch whose ``signed[b]`` is None, too skewed for the scan, is
         re-answered whole. With ``return_coverage``, also the per-batch
-        certified fraction."""
+        certified fraction. The sharded drain and the drain on a CPU device
+        answer here; the drain on a CUDA device answers on the card
+        (``_answer_on_device``)."""
         results, covs = [], []
         for q, sg, order in zip(queries, signed, orders):
             if sg is None:
@@ -782,7 +949,7 @@ class CellListEngine:
             else:
                 with span("nns.cells.unstage"):
                     idx, ok = self._unstage(sg, order, self._sentinel_risk(q))
-            covs.append(self._coverage(ok))
+            covs.append(self._coverage(len(ok), int(np.count_nonzero(ok))))
             results.append(self._exact_rows(q, idx, ok))
         return (results, covs) if return_coverage else results
 
@@ -845,7 +1012,7 @@ class CellListEngine:
         can adapt engine choice when coverage is persistently poor)."""
         idx, ok = self.query_with_flags(queries)
         idx = self._exact_rows(queries, idx, ok)
-        return idx, self._coverage(ok)
+        return idx, self._coverage(len(ok), int(np.count_nonzero(ok)))
 
     def query(self, queries: np.ndarray) -> np.ndarray:
         return self.query_with_coverage(queries)[0]

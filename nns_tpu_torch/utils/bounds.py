@@ -40,6 +40,13 @@ def cell_place_bound(rows, slots) -> tuple[float, str]:
     return bound(28 * rows + 12 * slots)
 
 
+def cell_answer_bound(rows) -> tuple[float, str]:
+    """cell_answer over a queue after its scans: each row's i64 slot, its
+    i32 signed winner and its (3,) f32 query read once, its i32 answer
+    written once (the uncertified rows' list is a few rows)."""
+    return bound(28 * rows)
+
+
 def fused_bound(m, n, k) -> tuple[float, str]:
     """A fused argmin over (m, k) queries and (n, k) refs: per pair k
     subtractions, k multiplies, k adds and a compare in f32."""

@@ -9,7 +9,7 @@ workload (1M uniform 3-D refs, seed 1000; W distinct 10K-query batches, the
 first make_dataset's, the others drawn in the refs' box) and traces one
 ``query_queue`` over them as in step 2 below: the served drain, split by
 its own spans (``nns.cells.bin``, ``.device``, ``.download``,
-``.unstage``, ``.exact_rows``).
+``.exact_rows``; the card answers the queue, so no ``.unstage``).
 
 ``--path v9`` builds ``NNEngine(9, device="cuda")`` over
 bench_k16's workload on 1M refs (16-D uniform, seed 1000), answers W

@@ -16,6 +16,12 @@ value the code already holds (no device sync, no pass over the rows).
   and rows its certificate proved;
 - ``cells.device_staged_rows``: rows of the v14 queue drain binned on the
   device and scanned (a batch too skewed for the scan is not);
+- ``cells.device_answered_rows``: rows of the v14 queue drain on a CUDA
+  device answered by ``cell_answer`` (decoded, or listed for the exact
+  fallback), not by the host tail;
+- ``cells.exact_calls``: exact fused calls the v14 engine makes for its
+  uncertified rows (one per batch on the host paths, one per queue in
+  the drain on a CUDA device);
 - ``mxu.rows``, ``mxu.certified_rows``: rows of the v9 drain, and rows
   phase 2's certificate proved;
 - ``copy.bytes_up``, ``copy.bytes_down``: bytes of the explicit copies
@@ -33,6 +39,7 @@ _OFF = contextlib.nullcontext()
 
 COUNTS: dict[str, int] = {
     "cells.rows": 0, "cells.certified_rows": 0, "cells.device_staged_rows": 0,
+    "cells.device_answered_rows": 0, "cells.exact_calls": 0,
     "mxu.rows": 0, "mxu.certified_rows": 0,
     "copy.bytes_up": 0, "copy.bytes_down": 0,
 }

@@ -21,6 +21,7 @@ from nns_tpu_torch.convert import cell_engine_from_numpy
 from nns_tpu_torch.kernels.cell_list import (_SENTINEL_MARGIN, CellListEngine, cell_scan,
                                              nns_cell_list)
 from nns_tpu_torch.kernels.layouts import PAD_SENTINEL
+from sentinel_corner import corner_rows
 from test_torch_native import native_libraries  # noqa: F401  (the guard)
 
 # The JAX package's host library loaded in this process: its numpy fallbacks
@@ -477,14 +478,8 @@ def test_sentinel_bound_equals_f64_pass():
     jeng = jax_cells.CellListEngine(r)
     eng = CellListEngine(r, device="cpu")
     assert eng.halo == jeng.halo
-    sent = np.float32(PAD_SENTINEL)
-    edge = np.float32(PAD_SENTINEL - 2.0 * eng.halo)
     margin = PAD_SENTINEL - 2.0 * eng.halo - _SENTINEL_MARGIN
-    lows = [edge, np.nextafter(edge, np.float32(np.inf)), np.nextafter(edge, np.float32(0)),
-            np.float32(margin), np.nextafter(np.float32(margin), np.float32(0)),
-            np.nextafter(np.float32(margin), np.float32(np.inf)), sent]
-    corner = np.array([[x, sent, sent] for x in lows] + [[x, x, x] for x in lows]
-                      + [[sent, x, sent] for x in lows], dtype=np.float32)
+    corner = corner_rows(eng)
     box = (r.min(axis=0) + rng.random((2000, 3), dtype=np.float32)
            * (r.max(axis=0) - r.min(axis=0))).astype(np.float32)
     far = rng.random((50, 3), dtype=np.float32)
@@ -602,3 +597,83 @@ def test_query_queue_equals_jax_on_faces_skew_and_outside(case):
     if case == "mixed":
         assert cov[2] == 0.0
         assert_exact(got[2][:64], too_skewed[:64], r)
+
+
+@pytest.mark.parametrize("parts", ["one_part", "one_batch_each"])
+@pytest.mark.parametrize("refs", ["uniform", "near_corner"])
+def test_cell_answer_plain_equals_host_tail(monkeypatch, refs, parts):
+    # The CUDA drain's answer kernel, by its plain twin, on a CPU queue's
+    # binned and scanned tables (in one part, and in one part per batch
+    # with a table): each row's decoded winner, each batch's certified
+    # count and the set of uncertified rows equal what the host tail
+    # (_answer_queue: _unstage, _sentinel_risk) hands its exact re-answer.
+    # The queue mixes uniform rows, rows over the box [-0.5, 1.5] of the
+    # refs' extent, a batch above the 2048 skew limit, an empty batch and
+    # rows at and just inside the sentinel corner, some of which the scan
+    # certifies and the mask does not. The device path, run whole on the
+    # CPU, answers as the host tail does, with one exact call per queue.
+    import nns_tpu_torch.kernels.cell_list as cl
+    from nns_tpu_torch.utils.spans import COUNTS
+
+    rng = np.random.default_rng(64)
+    if refs == "uniform":
+        _, r = make_dataset(3, 1, 16384, seed=64)
+    else:
+        r = np.float32(1e6) - rng.random((16384, 3), dtype=np.float32) * np.float32(64.0)
+    eng = CellListEngine(r, device="cpu")
+    lo, extent = r.min(axis=0), r.max(axis=0) - r.min(axis=0)
+    box = (lo + rng.random((600, 3), dtype=np.float32) * extent).astype(np.float32)
+    outside = (lo + (rng.random((300, 3), dtype=np.float32) * np.float32(2.0)
+                     - np.float32(0.5)) * extent).astype(np.float32)
+    too_skewed = (lo + extent * (np.float32(0.5) + rng.random(
+        (2 * eng.q_max_limit() + 10, 3), dtype=np.float32) * np.float32(1e-4))).astype(np.float32)
+    corner = corner_rows(eng)
+    queue = [box[:400], outside, too_skewed, np.zeros((0, 3), np.float32), corner, box[400:]]
+    assert eng.stage(too_skewed)[0] is None
+    if parts == "one_batch_each":
+        monkeypatch.setattr(cl, "_QUEUE_SLOTS", 1)
+
+    seen = []
+    exact = eng._exact_rows
+    monkeypatch.setattr(eng, "_exact_rows", lambda qb, idx, ok: seen.append(
+        (idx.copy(), ok.copy())) or exact(qb, idx, ok))
+    before = COUNTS["cells.exact_calls"]
+    want, cov = eng.query_queue(queue, return_coverage=True)
+    assert COUNTS["cells.exact_calls"] - before == sum(not ok.all() for _, ok in seen) > 1
+    want_idx = np.concatenate([idx for idx, _ in seen])
+    want_ok = np.concatenate([ok for _, ok in seen])
+    corner_signed = eng._signed_rows(eng._bin(queue))[4]
+    assert ((corner_signed >= 0) & ~seen[4][1]).any()  # certified by the scan, masked
+
+    binned = eng._bin(queue)
+    rows = len(binned.rows)
+    idx = torch.full((rows,), -7, dtype=torch.int32)
+    bad = torch.full((rows,), -1, dtype=torch.int32)
+    counts = torch.zeros(len(queue) + 1, dtype=torch.int32)
+    runs = []
+
+    def answer(a, b, plan, win, slot):
+        runs.append((a, b))
+        cl.cell_answer(binned.rows, binned.offs[a:b + 1], len(too_skewed), plan, win, slot,
+                       (2.0 * eng.halo) ** 2, idx, counts[a:b], bad, counts[len(queue):])
+
+    eng._scan_parts(binned, answer)
+    assert [a for a, _ in runs] == [0] + [b for _, b in runs[:-1]] and runs[-1][1] == len(queue)
+    assert len(runs) == (1 if parts == "one_part" else 4)
+    np.testing.assert_array_equal(idx.numpy(), want_idx)
+    assert counts[:-1].tolist() == [int(ok.sum()) for _, ok in seen]
+    listed = int(counts[-1])
+    np.testing.assert_array_equal(np.sort(bad[:listed].numpy()), np.flatnonzero(~want_ok))
+    assert (bad[listed:] == -1).all()
+    assert cov == [c / len(q) if len(q) else 1.0 for c, q in zip(counts.tolist(), queue)]
+
+    before = dict(COUNTS)
+    got, cov_d = eng._answer_on_device(queue, eng._bin(queue))
+    assert COUNTS["cells.exact_calls"] - before["cells.exact_calls"] == 1
+    assert (COUNTS["cells.device_answered_rows"] - before["cells.device_answered_rows"]
+            == COUNTS["cells.rows"] - before["cells.rows"] == rows)
+    assert cov_d == cov
+    for a, b, qb in zip(got, want, queue, strict=True):
+        assert a.dtype == np.int32
+        np.testing.assert_array_equal(a, b)
+    assert_exact(got[1], outside, r)

@@ -74,6 +74,7 @@ from nns_tpu_torch.kernels.mxu_expansion import (
 )
 from nns_tpu_torch.kernels.layouts import pow2_at_least
 from nns_tpu_torch.kernels.oracle import recall_at_1
+from sentinel_corner import corner_rows
 
 pytestmark = pytest.mark.gpu
 
@@ -533,12 +534,18 @@ def test_cell_bin_kernels_equal_twin(cuda, case):
 
 
 def test_device_binned_drain_equals_host_staged_drain(cuda):
-    # query_queue bins on the card; the sharded engine keeps the host-staged
-    # drain (stage, query_staged per pack). On one virtual shard of the
-    # card both answer the same queues: idx and certified flags before the
-    # exact re-answer, the answers and the coverage bit-equal. One bin, one
-    # place and one scan per batch that is neither skewed nor empty; the
-    # staged-rows counter counts the rows of the batches not skewed.
+    # query_queue bins and answers on the card; the sharded engine keeps the
+    # host-staged drain (stage, query_staged per pack) and the host tail.
+    # On one virtual shard of the card both answer the same queues: each
+    # row's idx before the exact re-answer, each batch's certified rows and
+    # the set of uncertified rows (the answer kernel's, against the flags
+    # the host tail hands _exact_rows), the answers and the coverage
+    # bit-equal. One bin, one place and one answer launch, one scan per
+    # batch that is neither skewed nor empty, one exact call for a queue
+    # with uncertified rows;
+    # the staged-rows counter counts the rows of the batches not skewed.
+    # The sharded drain, the reference, neither bins nor answers on the
+    # card and counts no device-staged rows.
     from nns_tpu_torch.parallel import Mesh, ShardedCellEngine
     from nns_tpu_torch.utils.spans import COUNTS
 
@@ -553,37 +560,166 @@ def test_device_binned_drain_equals_host_staged_drain(cuda):
               [(rng.random((10_000, 3), dtype=np.float32) * np.float32(2.0)
                 - np.float32(0.5)).astype(np.float32)]]
     for queue in queues:
-        flags = {}
-        for name, eng in (("single", single), ("host", host)):
-            seen = flags[name] = []
-            exact = eng._exact_rows
-
-            def record(qb, idx, ok, seen=seen, exact=exact):
-                seen.append((idx.copy(), ok.copy()))
-                return exact(qb, idx, ok)
-
-            eng._exact_rows = record
-            _cuda.reset_launches()
-            before = COUNTS["cells.device_staged_rows"]
-            flags[name + "_out"] = eng.query_queue(queue, return_coverage=True)
-            flags[name + "_launches"] = dict(_cuda.LAUNCHES)
-            flags[name + "_rows"] = COUNTS["cells.device_staged_rows"] - before
-            del eng._exact_rows
+        seen = []
+        exact = host._exact_rows
+        host._exact_rows = lambda qb, idx, ok: seen.append((idx.copy(), ok.copy())) or exact(
+            qb, idx, ok)
+        _cuda.reset_launches()
+        before = COUNTS["cells.device_staged_rows"]
+        want, cov_h = host.query_queue(queue, return_coverage=True)
+        del host._exact_rows
+        assert _cuda.LAUNCHES["cell_bin"] == _cuda.LAUNCHES["cell_answer"] == 0
+        assert COUNTS["cells.device_staged_rows"] == before
+        _cuda.reset_launches()
+        before = dict(COUNTS)
+        got, cov = single.query_queue(queue, return_coverage=True)
+        launches = dict(_cuda.LAUNCHES)
         scanned = [b for b in queue if len(b) and single.stage(b)[0] is not None]
-        assert flags["single_launches"]["cell_scan"] == len(scanned)
-        assert flags["single_launches"]["cell_bin"] == flags["single_launches"]["cell_place"] == 1
-        assert flags["host_launches"]["cell_bin"] == 0
-        assert flags["single_rows"] == sum(len(b) for b in queue
-                                           if single.stage(b)[2] is not None)
-        assert flags["host_rows"] == 0
-        (got, cov), (want, cov_h) = flags["single_out"], flags["host_out"]
+        assert launches["cell_scan"] == len(scanned)
+        assert launches["cell_bin"] == launches["cell_place"] == launches["cell_answer"] == 1
+        assert launches["fused_argmin"] == COUNTS["cells.exact_calls"] - before[
+            "cells.exact_calls"] == int(min(cov) < 1.0)
+        assert COUNTS["cells.device_staged_rows"] - before["cells.device_staged_rows"] == sum(
+            len(b) for b in queue if single.stage(b)[2] is not None)
         assert cov == cov_h
         for a, b in zip(got, want, strict=True):
             assert a.dtype == b.dtype == np.int32
             np.testing.assert_array_equal(a, b)
-        for (i_a, ok_a), (i_b, ok_b) in zip(flags["single"], flags["host"], strict=True):
-            np.testing.assert_array_equal(ok_a, ok_b)
-            np.testing.assert_array_equal(i_a, i_b)
+        idx, counts, listed = _answer_kernel(single, single._bin(queue))
+        np.testing.assert_array_equal(idx.cpu().numpy(), np.concatenate([i for i, _ in seen]))
+        assert counts.tolist() == [int(ok.sum()) for _, ok in seen]
+        np.testing.assert_array_equal(listed, np.flatnonzero(~np.concatenate(
+            [ok for _, ok in seen])))
+
+
+def _answer_kernel(eng, binned, answer=None):
+    """Run ``cell_answer`` (or ``answer``, with its arguments) over each
+    part of a binned queue after its scans: (idx (rows,) i32 on the
+    device, each batch's certified count, the sorted uncertified rows)."""
+    from nns_tpu_torch.kernels.cell_list import cell_answer
+
+    answer = answer or cell_answer
+    rows, batches = binned.rows, len(binned.plan)
+    idx = torch.full((len(rows),), -7, dtype=torch.int32, device=rows.device)
+    bad = torch.full((len(rows),), -1, dtype=torch.int32, device=rows.device)
+    counts = torch.zeros(batches + 1, dtype=torch.int32, device=rows.device)
+    max_rows = int(np.diff(binned.ends).max())
+    eng._scan_parts(binned, lambda a, b, plan, win, slot: answer(
+        rows, binned.offs[a:b + 1], max_rows, plan, win, slot, (2.0 * eng.halo) ** 2, idx,
+        counts[a:b], bad, counts[batches:]))
+    counts, bad = counts.cpu(), bad.cpu()
+    listed = int(counts[-1])
+    assert (bad[listed:] == -1).all() and len(torch.unique(bad[:listed])) == listed
+    return idx, counts[:-1], np.sort(bad[:listed].numpy())
+
+
+def _answer_case(case, cuda, rng):
+    """(engine, queue) for the answer kernel: "uniform" 8 uniform 10K
+    batches; "mixed" the binning kernels' mixed queue (uniform, faces,
+    outside, a batch above the skew limit, an empty one) with rows over the
+    box [-0.5, 1.5] and sentinel-corner rows; "clustered" 8 10K batches
+    with 600 rows each in one small box (q_max 1024, so the tables take
+    several parts) and a batch above the skew limit; "near_corner" refs and
+    queries near the PAD_SENTINEL corner, with the corner rows."""
+    n = 1 << 20 if case == "clustered" else 65536
+    if case == "near_corner":
+        r = np.float32(1e6) - rng.random((n, 3), dtype=np.float32) * np.float32(64.0)
+    else:
+        _, r = make_dataset(3, 1, n, seed=25)
+    eng = CellListEngine(r, device=cuda)
+    lo, extent = r.min(axis=0), r.max(axis=0) - r.min(axis=0)
+    uniform = [(lo + rng.random((10_000, 3), dtype=np.float32) * extent).astype(np.float32)
+               for _ in range(8)]
+    if case == "uniform":
+        return eng, uniform
+    if case == "mixed":
+        ood = (rng.random((3000, 3), dtype=np.float32) * np.float32(2.0)
+               - np.float32(0.5)).astype(np.float32)
+        return eng, _bin_queue_case("mixed", eng, rng) + [ood, corner_rows(eng)]
+    if case == "near_corner":
+        return eng, uniform[:2] + [corner_rows(eng), uniform[2][:50]]
+    for b, qb in enumerate(uniform):
+        qb[:600] = np.float32(0.1 * b + 0.05) + qb[:600] * np.float32(0.004)
+    too_skewed = (np.float32(0.5) + rng.random((2 * eng.q_max_limit() + 10, 3), dtype=np.float32)
+                  * np.float32(1e-4)).astype(np.float32)
+    return eng, uniform[:4] + [too_skewed] + uniform[4:]
+
+
+ANSWER_CASES = ["uniform", "mixed", "clustered", "near_corner"]
+
+
+@pytest.mark.parametrize("case", ANSWER_CASES)
+def test_cell_answer_kernel_equals_twin(cuda, case):
+    # cell_answer's kernel against cell_answer_plain on the same card
+    # tensors (each part's winners and slots after its scans): idx bit-equal
+    # at every row, each batch's certified count and the set of uncertified
+    # rows equal; one launch per part.
+    from nns_tpu_torch.kernels.cell_list import cell_answer_plain
+
+    eng, queue = _answer_case(case, cuda, np.random.default_rng(26))
+    binned = eng._bin(queue)
+    _cuda.reset_launches()
+    idx, counts, listed = _answer_kernel(eng, binned)
+    assert _cuda.LAUNCHES["cell_answer"] == max(len(binned.parts), 1)
+    if case == "clustered":
+        assert len(binned.parts) > 1 and binned.skewed.any()
+    t_idx, t_counts, t_listed = _answer_kernel(
+        eng, binned, lambda rows, offs, max_rows, *rest: cell_answer_plain(rows, offs, *rest))
+    assert torch.equal(idx, t_idx), f"{int((idx != t_idx).sum())} rows differ"
+    assert torch.equal(counts, t_counts)
+    np.testing.assert_array_equal(listed, t_listed)
+    assert len(listed) > 0 or case == "uniform"
+
+
+@pytest.mark.parametrize("case", ANSWER_CASES)
+def test_query_queue_on_card_equals_host_tail(cuda, case):
+    # The CUDA drain answers on the card; the host tail (_answer_queue over
+    # the same winners, gathered and downloaded as the drain did before)
+    # gives the same answers and coverages row for row. One answer launch
+    # per part, at most one exact call per queue (and one v4 launch with
+    # it), every row answered by the kernel.
+    from nns_tpu_torch.utils.spans import COUNTS
+
+    eng, queue = _answer_case(case, cuda, np.random.default_rng(27))
+    binned = eng._bin(queue)
+    want, cov_want = eng._answer_queue(queue, eng._signed_rows(binned), [None] * len(queue),
+                                       True)
+    _cuda.reset_launches()
+    before = dict(COUNTS)
+    got, cov = eng.query_queue(queue, return_coverage=True)
+    grew = {name: COUNTS[name] - before[name] for name in COUNTS}
+    assert cov == cov_want
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype == np.int32
+        np.testing.assert_array_equal(a, b)
+    rows = sum(len(b) for b in queue)
+    assert grew["cells.device_answered_rows"] == grew["cells.rows"] == rows
+    assert grew["cells.exact_calls"] == _cuda.LAUNCHES["fused_argmin"] == int(min(cov) < 1.0)
+    assert _cuda.LAUNCHES["cell_answer"] == max(len(binned.parts), 1)
+    assert grew["cells.certified_rows"] == round(sum(c * len(b) for c, b in zip(cov, queue)))
+
+
+def test_engine_auto_feeds_the_hysteresis_the_host_tails_coverage(cuda):
+    # NNEngine("auto").query_many on the card feeds _note_cell_coverage the
+    # host tail's per-batch coverage and row count, and answers exactly.
+    _, r = make_dataset(3, 1, 65536, seed=28)
+    eng = NNEngine("auto", device="cuda").build(r)
+    cell = eng._built
+    assert type(cell) is CellListEngine
+    rng = np.random.default_rng(28)
+    queue = [rng.random((2000, 3), dtype=np.float32),
+             (rng.random((2000, 3), dtype=np.float32) * np.float32(2.0)
+              - np.float32(0.5)).astype(np.float32),
+             rng.random((500, 3), dtype=np.float32)]
+    _, covs = cell._answer_queue(queue, cell._signed_rows(cell._bin(queue)), [None] * 3, True)
+    assert min(covs) < 1.0
+    fed = []
+    note = eng._note_cell_coverage
+    eng._note_cell_coverage = lambda cov, m: fed.append((cov, m)) or note(cov, m)
+    got = eng.query_many(queue)
+    assert fed == [(c, len(q)) for c, q in zip(covs, queue)]
+    for idx, q in zip(got, queue):
+        assert recall_at_1(idx, q, r) == 1.0
 
 
 def test_device_binned_drain_in_parts_equals_host_staged_drain(cuda):
