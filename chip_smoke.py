@@ -83,26 +83,23 @@ result) without them. Phases, each raising on failure:
    must grow during it (v9: ``fused_argmin`` at k = 3, ``expansion_phase1``
    at k = 16); and v6 under a query budget below m * k * 4 must launch the
    v4 kernel instead;
-7. v9's phase-1 kernels against ``phase1_plain``: the wgmma kernel, the
-   route at every kp, at 10000 x 1M and 1024 x 1M k=16, unaligned 33 x 777
+7. v9's phase-1 kernels (the wgmma kernels, at every kp) against
+   ``phase1_plain``: at 10000 x 1M and 1024 x 1M k=16, unaligned 33 x 777
    at k=16, 10 and 24, 1024 x 1M k=24 (blocks padded to 32 dims) and 1024 x
-   65536 k=128 (dimension slices, the query tile resident), plus the
-   mma.sync kernel, no route any more, through its own entry point at
-   10000 x 1M k=16, 1024 x 1M k=24 and 1024 x 65536 k=128 as the
-   yardstick: values within the engine's delta, ids equal wherever the
-   plain runner-up is more than 2 delta away (tensor cores sum in their own
-   order, so no bit equality); and 64 x 1M integer-valued k=16 refs with
-   exact duplicates, where every sum is exact and all six outputs must be
-   equal. Then ``nns(version=9)`` at 1024 x 65536 k=128, the path that
-   runs phase 1 past a resident kp, with the launch counts zeroed just
-   before: it must launch the wgmma kernel and answer as the v4 kernel;
+   65536 k=128 (dimension slices, the query tile resident): values within
+   the engine's delta, ids equal wherever the plain runner-up is more than
+   2 delta away (tensor cores sum in their own order, so no bit equality);
+   and 64 x 1M integer-valued k=16 refs with exact duplicates, where every
+   sum is exact and all six outputs must be equal. Then ``nns(version=9)``
+   at 1024 x 65536 k=128, the path that runs phase 1 past a resident kp,
+   with the launch counts zeroed just before: it must launch phase 1 and
+   answer as the v4 kernel;
 8. the v9 main path: ``NNEngine(9, device="cuda").build`` over the 1M 16-D
    refs (seed 1000) and ``query_many`` over W=64 distinct 10K batches. The
-   ``expansion_phase1_wgmma`` count must grow; the drain's own phase-1
-   launch (all 640K rows at once) is held against ``phase1_plain`` in
-   10K-row chunks with the same tolerance, and so is the mma.sync kernel on
-   the same launch (timed beside it); all 640K answers must equal the v4
-   kernel's; batch 0 passes the f64 gate on the ladder's 512-row oracle and
+   ``expansion_phase1`` count must grow; the drain's own phase-1 launch
+   (all 640K rows at once) is held against ``phase1_plain`` in 10K-row
+   chunks with the same tolerance and timed; all 640K answers must equal
+   the v4 kernel's; batch 0 passes the f64 gate on the ladder's 512-row oracle and
    up to 128 uncertified rows pass a float64 scan on the card; the rows of
    each v3 full scan the drain runs are printed. Its first call runs the
    one-time high-k probe (a KD tree and beam frontier over the 1M 16-D
@@ -171,11 +168,10 @@ result) without them. Phases, each raising on failure:
    plain_ms and bound come from (the scan also on the skewed batch,
    ``*_skewed``, as are the binning and answer kernels on the skewed and
    out-of-box batches' queue; the ladder's kernels and v4 also at 1024 x 1M k=16,
-   ``*_k16``): each kernel's main path (for the wgmma kernel's row the
-   drain's 640K-row launch; for the ``expansion_phase1`` row, phase 1 at
-   the padded and sliced kp, v9 at 1024 x 65536 k=128 and 1024 x 1M k=24
-   (``*_k24``), with the mma.sync kernel's times on the same inputs and on
-   the drain's launch as ``yardstick``s), then the device line last. ``ms`` brackets each wrapper
+   ``*_k16``): each kernel's main path (for the ``expansion_phase1`` row
+   the drain's 640K-row launch; for the ``expansion_phase1_padded_sliced``
+   row, phase 1 at the padded and sliced kp, v9 at 1024 x 65536 k=128 and
+   1024 x 1M k=24 (``*_k24``)), then the device line last. ``ms`` brackets each wrapper
    call with CUDA events, so a launch shorter than its wrapper's host time
    reads the host time; the scan's and v4's rows, whose launches are that
    short, also give ``device_ms`` (``utils/timing.cuda_device_ms``: the
@@ -276,28 +272,22 @@ def _phase1_check(name, kern, plain, delta, exact=False):
                  f"tid2 on {int(sep2.sum())}")
 
 
-def _phase1_compare(name, args, rc_t, delta, exact=False, route=None, plain=None):
-    """Phase 1 on the card (the kernel phase1 dispatches to, or ``route``'s
-    through its own entry point, which needs a contiguous rc in ``args``)
-    against phase1_plain on the same card tensors (``_phase1_check``), each
-    timed; ``plain`` = (plain_ms, outputs) when already computed. Returns
-    (launch key of the kernel that ran, (max_abs_err, kernel_ms, plain_ms),
-    plain)."""
+def _phase1_compare(name, args, rc_t, delta, exact=False):
+    """Phase 1 on the card (``phase1``, which must launch) against
+    phase1_plain on the same card tensors (``_phase1_check``), each timed.
+    Returns (max_abs_err, kernel_ms, plain_ms)."""
     from nns_tpu_torch.kernels import _cuda
-    from nns_tpu_torch.kernels.mxu_expansion import _phase1_cuda, phase1, phase1_plain
+    from nns_tpu_torch.kernels.mxu_expansion import phase1, phase1_plain
     from nns_tpu_torch.utils.timing import cuda_ms
 
-    before = _cuda.LAUNCHES["expansion_phase1_wgmma"]
-    if route is None:
-        k_ms, kern = cuda_ms(lambda: phase1(*args, rc_t=rc_t))
-    else:
-        k_ms, kern = cuda_ms(lambda: _phase1_cuda(*args, rc_t, route))
-    key = ("expansion_phase1_wgmma" if _cuda.LAUNCHES["expansion_phase1_wgmma"] > before
-           else "expansion_phase1")
-    plain = cuda_ms(phase1_plain, *args) if plain is None else plain
-    err, text = _phase1_check(name, kern, plain[1], delta, exact)
-    _log(f"[kernel] {name} ({key}): kernel {k_ms:.4f} ms, plain {plain[0]:.4f} ms, {text}")
-    return key, (err, k_ms, plain[0]), plain
+    before = _cuda.LAUNCHES["expansion_phase1"]
+    k_ms, kern = cuda_ms(lambda: phase1(*args, rc_t=rc_t))
+    if _cuda.LAUNCHES["expansion_phase1"] == before:
+        raise AssertionError(f"{name}: phase1 launched no kernel")
+    p_ms, plain = cuda_ms(phase1_plain, *args)
+    err, text = _phase1_check(name, kern, plain, delta, exact)
+    _log(f"[kernel] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, {text}")
+    return err, k_ms, p_ms
 
 
 def _oracle_f64_card(queries, refs, dev):
@@ -712,39 +702,26 @@ def main() -> int:
         _log(f"[ladder] k={k}: v6 with a {budget.vmem_query_budget_bytes}-byte budget "
              f"launched fused_argmin, not fused_queries_resident; answers equal v4")
 
-    # 7. Both phase-1 kernels against their plain version.
+    # 7. The phase-1 kernels against their plain version.
     mx16 = MXUExpansion(r16_1m, device=dev)
     q16_dev10k = torch.as_tensor(q16_10k, device=dev)
-    results["expansion_phase1"], results["expansion_phase1_wgmma"] = [], []
+    # P1: the row of phase 1 at kp % 16 == 0 with the query tile resident
+    # (the drain's launch); P1B: phase 1 at the padded and sliced kp (the
+    # k = 128 path). Both count under the one launch key, P1.
+    P1, P1B = "expansion_phase1", "expansion_phase1_padded_sliced"
+    results[P1], results[P1B] = [], []
 
-    def _phase1_case(name, eng, q, row_key, exact=False, yardstick=False):
-        # The dispatched kernel (always the wgmma kernel), and with
-        # ``yardstick`` the mma.sync kernel through its own entry point,
-        # against one plain run. The dispatched row goes to results[row_key]
-        # (the wgmma kernel's own row at kp % 16 == 0 up to 80 with the
-        # query tile resident, else the padded and sliced shapes' row),
-        # the yardstick's to the padded and sliced row. Returns the
-        # dispatched kernel's (max_abs_err, kernel_ms, plain_ms).
+    def _phase1_case(name, eng, q, row_key, exact=False):
+        # Phase 1 on the card against one plain run, the row to
+        # results[row_key]. Returns (max_abs_err, kernel_ms, plain_ms).
         st = eng.stage_queries(q)
         args = (_cat_q(*split_bf16x3(st.q_dev)), eng.rc, eng.r2h, eng.tile_n, eng.ts)
-        key, row, plain = _phase1_compare(f"phase 1 {name}", args, eng.rc_t, st.delta, exact)
-        if key != WG:
-            raise AssertionError(f"phase 1 {name}: {key} ran, {WG} expected")
+        row = _phase1_compare(f"phase 1 {name}", args, eng.rc_t, st.delta, exact)
         results[row_key].append(row)
-        if yardstick:
-            args = (args[0], eng.rc.contiguous(), *args[2:])
-            _, y_row, _ = _phase1_compare(f"phase 1 {name} (mma.sync yardstick)", args, None,
-                                          st.delta, exact, "mma_sync", plain)
-            results[P1B].append(y_row)
-            yardsticks[name] = y_row
         return row
 
-    # WG: the wgmma kernel's row (the drain's launch); P1B: phase 1 at the
-    # padded and sliced kp (the k = 128 path), with the mma.sync yardstick.
-    WG, P1B = "expansion_phase1_wgmma", "expansion_phase1"
-    yardsticks = {}
-    _phase1_case("10000 x 1M k=16", mx16, q16_10k, WG, yardstick=True)
-    _phase1_case("1024 x 1M k=16", mx16, q16_1m, WG)
+    _phase1_case("10000 x 1M k=16", mx16, q16_10k, P1)
+    _phase1_case("1024 x 1M k=16", mx16, q16_1m, P1)
     rng_int = np.random.default_rng(SEED + 2)
     r_int = rng_int.integers(0, 4, (N_REFS, K16)).astype(np.float32)
     q_int = rng_int.integers(0, 4, (64, K16)).astype(np.float32)
@@ -752,31 +729,31 @@ def main() -> int:
         r_int[j] = q_int[i]
         r_int[(j + 500_000) % N_REFS] = q_int[i]
     mx_int = MXUExpansion(r_int, device=dev)
-    _phase1_case("64 x 1M k=16 integer duplicate ties (exact)", mx_int, q_int, WG, exact=True)
+    _phase1_case("64 x 1M k=16 integer duplicate ties (exact)", mx_int, q_int, P1, exact=True)
     del mx_int, r_int
-    for k_u, key in ((16, WG), (10, WG), (24, P1B)):
+    for k_u, key in ((16, P1), (10, P1), (24, P1B)):
         q_u, r_u = make_dataset(k_u, 33, 777, SEED)
         _phase1_case(f"33 x 777 k={k_u} unaligned", MXUExpansion(r_u, device=dev), q_u, key)
     q24, r24 = make_dataset(24, 1024, N_REFS, SEED)
     p1b_k24 = _phase1_case("1024 x 1M k=24 (blocks padded to 32 dims)",
-                           MXUExpansion(r24, device=dev), q24, P1B, yardstick=True)
+                           MXUExpansion(r24, device=dev), q24, P1B)
     del q24, r24
     q128, r128 = make_dataset(128, 1024, 65536, SEED)
     p1b_row = _phase1_case("1024 x 65536 k=128 (dimension slices)",
-                           MXUExpansion(r128, device=dev), q128, P1B, yardstick=True)
+                           MXUExpansion(r128, device=dev), q128, P1B)
     # The path that runs phase 1 at a kp past a resident query tile: v9 at
     # k = 128, now on the wgmma kernel's dimension slices.
     _cuda.reset_launches()
     idx128 = nns(q128, r128, version=9, device="cuda")
-    p1b_launches = _cuda.LAUNCHES[P1B]
-    if _cuda.LAUNCHES[WG] < 1 or p1b_launches != _cuda.LAUNCHES[WG]:
+    p1b_launches = _cuda.LAUNCHES[P1]
+    if p1b_launches < 1:
         raise AssertionError(f"nns(version=9) at k=128 launched {dict(_cuda.LAUNCHES)}")
     r128_dm, _ = prepare_refs(r128, 4096, dev)
     want128 = fused_min_idx(torch.as_tensor(q128, device=dev), r128_dm, 65536)[1].cpu().numpy()
     if not np.array_equal(idx128, want128):
         raise AssertionError("nns(version=9) at k=128 differs from the v4 kernel")
-    _log(f"[kernel] nns(version=9) 1024 x 65536 k=128: {p1b_launches} wgmma phase-1 "
-         f"launch(es), no mma.sync; answers equal the v4 kernel's")
+    _log(f"[kernel] nns(version=9) 1024 x 65536 k=128: {p1b_launches} phase-1 "
+         f"launch(es); answers equal the v4 kernel's")
     del r128_dm
     v4_16_ms, _ = cuda_ms(fused_min_idx, q16_dev10k, r16_dm, N_REFS)
     _log(f"[kernel] fused_argmin 10000 x 1M k=16 (v4, same call): {v4_16_ms:.4f} ms")
@@ -815,10 +792,10 @@ def main() -> int:
         t0 = time.perf_counter()
         served16 = engine.query_many(batches16)
         queue_ms = (time.perf_counter() - t0) * 1e3
-        launches["expansion_phase1_wgmma"] = _cuda.LAUNCHES["expansion_phase1_wgmma"]
+        launches[P1] = _cuda.LAUNCHES[P1]
     finally:
         mxe.phase1, mxe._full_scan_rows = phase1, full_scan
-    launches["expansion_phase1"] = p1b_launches  # the v9 path at k = 128, phase 7
+    launches[P1B] = p1b_launches  # the v9 path at k = 128, phase 7
     # The first call ran the one-time high-k probe (a KD tree and its beam
     # frontier over the 1M 16-D refs): on uniform data it must reject.
     if not engine._hk_probed or not isinstance(engine._built, MXUExpansion):
@@ -826,8 +803,8 @@ def main() -> int:
                              f"{engine._hk_probed}, engine {type(engine._built).__name__}")
     _log(f"[v9] launches during query_many: {dict(_cuda.LAUNCHES)}; full scans of "
          f"{full_scan_rows} rows")
-    if launches["expansion_phase1_wgmma"] < 1:
-        raise AssertionError("kernel expansion_phase1_wgmma was not launched by the v9 main path")
+    if launches[P1] < 1:
+        raise AssertionError("kernel expansion_phase1 was not launched by the v9 main path")
     allq = np.concatenate(batches16)
     served_all = np.concatenate(served16)
     want = torch.cat([fused_min_idx(torch.as_tensor(b, device=dev), r16_dm, N_REFS)[1]
@@ -850,29 +827,19 @@ def main() -> int:
         parts.append(out)
     plain_main = tuple(torch.cat(p) for p in zip(*parts))
     del parts
-    err_main, text = _phase1_check("expansion_phase1_wgmma on the drain's launch", kern_main,
+    err_main, text = _phase1_check("expansion_phase1 on the drain's launch", kern_main,
                                    plain_main, delta_main)
     kern_ms_main, _ = cuda_ms(phase1, *args_main, rc_t_main)
-    # The mma.sync kernel on the same launch, through its own entry point.
-    args_mma = (qc_main, mx.rc.contiguous(), *args_main[2:])
-    mma_ms_main, mma_main = cuda_ms(mxe._phase1_cuda, *args_mma, None, "mma_sync")
-    err_mma, text_mma = _phase1_check("expansion_phase1 (mma.sync) on the drain's launch",
-                                      mma_main, plain_main, delta_main)
     main_bound = phase1_bound(m_main, N_REFS, K16)
-    lib = _cuda.library()
-    slots = {r: mxe._phase1_slots(lib, mx.kp, dev, r, mx.ts) for r in ("wgmma", "mma_sync")}
+    slots = mxe._phase1_slots(_cuda.library(), mx.kp, dev, mx.ts)
     n_tiles = mx.rc.shape[1] // mx.tile_n
     _log(f"[v9] phase 1 as the drain launched it ({m_main} x 1M k=16, bound "
          f"{main_bound[0]:.4f} ms ({main_bound[1]}), plain {plain_ms_main:.4f} ms in 10K-row "
          f"chunks): wgmma {kern_ms_main:.4f} ms ({kern_ms_main * N_QUERIES / m_main:.4f} ms "
-         f"per 10K rows, {mxe.phase1_splits(m_main, n_tiles, slots['wgmma'])} range(s), "
-         f"{slots['wgmma']} block slots; {text}); mma.sync {mma_ms_main:.4f} ms "
-         f"({mma_ms_main * N_QUERIES / m_main:.4f} per 10K rows, "
-         f"{mxe.phase1_splits(m_main, n_tiles, slots['mma_sync'])} range(s), "
-         f"{slots['mma_sync']} block slots; {text_mma})")
-    results["expansion_phase1_wgmma"].insert(0, (err_main, kern_ms_main, plain_ms_main))
-    results["expansion_phase1"].append((err_mma, mma_ms_main, plain_ms_main))
-    del drain_phase1, args_main, args_mma, kern_main, qc_main, mma_main, plain_main
+         f"per 10K rows, {mxe.phase1_splits(m_main, n_tiles, slots)} range(s), "
+         f"{slots} block slots; {text})")
+    results[P1].insert(0, (err_main, kern_ms_main, plain_ms_main))
+    del drain_phase1, args_main, kern_main, qc_main, plain_main
     sub16, dmin16 = oracles[16]
     _gate("v9 batch 0 (the ladder's 512 rows)", served16[0][sub16], q16_1m[sub16], r16_1m,
           dmin16)
@@ -931,19 +898,15 @@ def main() -> int:
     # 12. Results, each kernel at its main path's shape: one 10K batch for
     # the scan, the 8-query fallback bucket for the fused kernel, 1024 x 1M
     # k=3 for the ladder's kernels, the drain's 640K x 1M k=16 launch for
-    # the wgmma kernel's row, and for phase 1 at the padded and sliced kp
-    # (the "expansion_phase1" row, counting every phase-1 launch) the v9
-    # path at 1024 x 65536 k=128, with 1024 x 1M k=24 beside it and the
-    # mma.sync kernel's times on the same inputs and on the drain's launch
-    # as yardsticks.
+    # phase 1's row, and for phase 1 at the padded and sliced kp the v9
+    # path at 1024 x 65536 k=128, with 1024 x 1M k=24 beside it.
     main_rows = {
         "cell_scan": (results["cell_scan"][0], cell_bounds[0], "one 10K batch, k=3"),
         "fused_argmin": (results["fused_argmin"][0], fused_bound(8, N_REFS, K),
                          "8 x 1M k=3 (the fallback bucket)"),
-        "expansion_phase1": (p1b_row, phase1_bound(1024, 65536, 128),
-                             "1024 x 65536 k=128 (nns(version=9), dimension slices)"),
-        "expansion_phase1_wgmma": (results["expansion_phase1_wgmma"][0], main_bound,
-                                   f"{m_main} x 1M k=16 (the v9 drain's launch)"),
+        P1: (results[P1][0], main_bound, f"{m_main} x 1M k=16 (the v9 drain's launch)"),
+        P1B: (p1b_row, phase1_bound(1024, 65536, 128),
+              "1024 x 65536 k=128 (nns(version=9), dimension slices)"),
         **{name: (results[name][1], fused_bound(1024, N_REFS, K), "1024 x 1M k=3")
            for name in ladder_launches},
         **{name: (results[name][0], bin_bounds[name][0],
@@ -967,10 +930,8 @@ def main() -> int:
         ("fused_queries_resident", "nns_tpu_torch/csrc/fused_queries_resident.cu",
          "nns_tpu/kernels/pallas_fused.py:302"),
         ("two_level", "nns_tpu_torch/csrc/two_level.cu", "nns_tpu/kernels/pallas_fused.py:453"),
-        ("expansion_phase1", "nns_tpu_torch/csrc/expansion_phase1.cu",
-         "nns_tpu/kernels/mxu_expansion.py:126"),
-        ("expansion_phase1_wgmma", "nns_tpu_torch/csrc/expansion_phase1.cu",
-         "nns_tpu/kernels/mxu_expansion.py:126"),
+        (P1, "nns_tpu_torch/csrc/expansion_phase1.cu", "nns_tpu/kernels/mxu_expansion.py:126"),
+        (P1B, "nns_tpu_torch/csrc/expansion_phase1.cu", "nns_tpu/kernels/mxu_expansion.py:126"),
         # The drain's binning: the host's counting sort, which has no TPU kernel.
         ("cell_bin", "nns_tpu_torch/csrc/cell_bin.cu", "nns_tpu/native/nns_cpu.cpp:618"),
         ("cell_place", "nns_tpu_torch/csrc/cell_bin.cu", "nns_tpu/native/nns_cpu.cpp:618"),
@@ -1010,20 +971,10 @@ def main() -> int:
                                device_ms_1024=v4_device_1024[3],
                                bound_ms_1024=fused_bound(1024, N_REFS, K)[0],
                                device_ms_k16=v4_device_1024[16])
-        if name == "expansion_phase1":
-            # phase1_kernel (mma.sync), no route any more, on the same inputs.
-            y128, y24 = (yardsticks[n] for n in (
-                "1024 x 65536 k=128 (dimension slices)", "1024 x 1M k=24 (blocks padded to 32 dims)"))
+        if name == P1B:
             kernels[-1].update(
-                yardstick={"shape": "1024 x 65536 k=128, forced to phase1_kernel (mma.sync)",
-                           "ms": y128[1], "plain_ms": y128[2], "bound_ms": bound_ms},
-                yardstick_drain={
-                    "shape": f"{m_main} x 1M k=16 (the v9 drain's launch, forced to "
-                             "phase1_kernel)",
-                    "ms": mma_ms_main, "plain_ms": plain_ms_main, "bound_ms": main_bound[0]},
                 shape_k24="1024 x 1M k=24 (blocks padded to 32 dims)", ms_k24=p1b_k24[1],
-                plain_ms_k24=p1b_k24[2], bound_ms_k24=phase1_bound(1024, N_REFS, 24)[0],
-                yardstick_ms_k24=y24[1])
+                plain_ms_k24=p1b_k24[2], bound_ms_k24=phase1_bound(1024, N_REFS, 24)[0])
     # The launches the tree family's paths added (phase 9) beside v4's, and
     # v4 against its plain version at the shapes those paths gave it.
     kernels[1]["launches_trees"] = tree_launches
@@ -1602,9 +1553,9 @@ def _high_k_phase(dev) -> tuple[dict, dict]:
          f"{type(eng._built).__name__} (_hk_budget {eng._hk_budget})")
     if budget is not None and drain_launches["fused_argmin"] < 1:
         raise AssertionError("the chunk-scan drain did not launch fused_argmin")
-    if n_drain_fb and drain_launches["expansion_phase1_wgmma"] < 1:
+    if n_drain_fb and drain_launches["expansion_phase1"] < 1:
         raise AssertionError("the drain's _hk_fallback did not launch the wgmma kernel")
-    if n_far_fb == 0 or far_launches["expansion_phase1_wgmma"] < 1:
+    if n_far_fb == 0 or far_launches["expansion_phase1"] < 1:
         raise AssertionError("the out-of-distribution batch did not reach the wgmma kernel "
                              f"through _hk_fallback ({n_far_fb} rows)")
 
@@ -1637,8 +1588,7 @@ def _high_k_phase(dev) -> tuple[dict, dict]:
     args, rc_t, kern = p1_launches[-1]  # the out-of-distribution batch's fallback
     delta = eng._hk_mxu.stage_queries(far_fb[-1][0]).delta
     plain_ms, plain = cuda_ms(phase1_plain, *args, iters=1, warmup=0)
-    err, text = _phase1_check("expansion_phase1_wgmma on _hk_fallback's launch", kern, plain,
-                              delta)
+    err, text = _phase1_check("expansion_phase1 on _hk_fallback's launch", kern, plain, delta)
     kern_ms, _ = cuda_ms(phase1, *args, rc_t)
     m_fb = args[0].shape[0]
     shape = f"{m_fb} x 1M k=16 (_hk_fallback of the out-of-distribution batch)"
@@ -1652,7 +1602,7 @@ def _high_k_phase(dev) -> tuple[dict, dict]:
         pm_rows["hk_fallback"] = (shape, err, ms, p_ms,
                                   fused_bound(qb.shape[0], n, refs_pm.shape[1])[0])
     _log(f"[high-k] phase {time.perf_counter() - t_phase:.1f} s")
-    names = ("fused_argmin", "expansion_phase1_wgmma", "fused_point_major")
+    names = ("fused_argmin", "expansion_phase1", "fused_point_major")
     launches = {k: drain_launches[k] + far_launches[k] for k in names}
     return launches, dict(zip(names, (v4_rows, p1_rows, pm_rows)))
 

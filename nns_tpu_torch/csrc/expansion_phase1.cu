@@ -1,8 +1,7 @@
 // v9 phase 1: split-bf16 expansion products on the tensor cores, with the
-// six per-row carries of the band certificate. The wgmma kernels compute it
-// at every kp (kernels/mxu_expansion.py, phase1_plan, states which one);
-// phase1_kernel (mma.sync) stays as the yardstick that chip_smoke.py and
-// utils/phase1_report.py time through its own entry point.
+// six per-row carries of the band certificate, at every kp the engine makes
+// (a multiple of 8). kernels/mxu_expansion.py, phase1_plan, states which
+// wgmma kernel instance runs; wgmma_setup below states the same rule.
 //
 // Replaces: nns_tpu/kernels/mxu_expansion.py:126 `_phase1_kernel` (launched by
 // `_phase12`): per (query tile, ref tile) one bf16 product of the queries
@@ -16,76 +15,52 @@
 // products are 2 m n 6 kp = 1.92 TFLOP of bf16 tensor-core work, 1.94 ms at
 // 989 TFLOP/s; the rc stream is 96 MB per sweep, 0.03 ms at 3.35 TB/s if it
 // were read once. rc does not fit the 50 MB L2, so every query tile reads
-// it again from L2 or device memory (about 6 KB per 128 x 64 chunk).
+// it again from L2 or device memory.
 //
-// Both kernels: grid = (query tiles of kBM = 128 rows, S ranges of whole
-// ref tiles). A block walks the 64-column chunks of its range in ascending
-// order. After each chunk the shared epilogue (chunk_min, end_chunk) forms
-// e = r2h - cross and each row's chunk minimum (a shuffle over the 4 lanes
-// that share a row), folds subtile minima into the tile's (tmin, lowest
-// subtile, runner-up), and at each tile's end updates the six carries with
-// exactly the JAX kernel's rules. Padded columns have r2h = +inf, so they
-// never win; nothing is masked to 0.
+// Grid = (query tiles of kBM = 128 rows, S ranges of whole ref tiles). A
+// block walks the chunks of its range in ascending order. After each chunk
+// the shared epilogue (chunk_min, end_chunk) forms e = r2h - cross and each
+// row's chunk minimum (a shuffle over the 4 lanes that share a row), folds
+// subtile minima into the tile's (tmin, lowest subtile, runner-up), and at
+// each tile's end updates the six carries with exactly the JAX kernel's
+// rules. Padded columns have r2h = +inf, so they never win; nothing is
+// masked to 0.
 //
-// phase1_kernel (any kp % 8 == 0, no route; the yardstick): mma.sync
-// m16n8k16. The contraction is
-// cut into dimension slices: slice s holds dims [d0, d0 + dn) of all six
-// blocks of qc, (128, 6 dn), and the same dims of the three splits of rc,
-// (3 dn, 64) per chunk. When the whole query tile fits beside two rc
-// buffers (kp <= 88 on the H100's 227 KB) there is one slice (dn = kp): the
-// query tile is staged once and stays. Otherwise slices of 32 dims are
-// staged per (chunk, slice) with their query slice, and the accumulators
-// carry across the slices of a chunk, so any kp runs. Each unit (chunk,
-// slice) is copied into one of two buffers by cp.async while the 4 warps
-// compute on the other, one barrier per unit. Each warp runs mma.sync over
-// its 32 rows x 64 columns; the A fragments are 32-bit loads from the query
-// slice, the B fragments ldmatrix.trans loads whose row addresses pick
-// split [h, m, h, l, h, m][b] of the staged rc slice for contraction block
-// b (the 6-block partner is never stored).
+// phase1_wgmma_kernel (the query tile resident): two warpgroups own 64
+// query rows each, and each chunk is 6 kp / 16 wgmma.mma_async m64nNk16
+// per warpgroup, both operands read from shared memory by descriptor: no
+// fragment loads, and kp is a template parameter, so the contraction loop
+// unrolls. Both operands are K-major in the canonical no-swizzle layout
+// (core matrices of 8 rows x 16 bytes; LBO 128 bytes along K, SBO along M
+// or N): the query tile (128, 6 kp) is staged once, and chunks of rc_t =
+// rc^T (n_pad, 3 kp) go through a ring of kStages buffers, filled by
+// cp.async from all 256 threads. Contraction block b reads split [h, m, h,
+// l, h, m][b] by the B descriptor's start column, so the six-block partner
+// is never stored; kp % 16 == 0 keeps every k16 step inside one block.
+// Chunks are N = 128 columns where ts % 128 == 0 (else 64): per product, A
+// is read from shared memory half as often, and the barrier, waits and
+// copies happen once per 128 columns. The ring has two stages: chunk q + 1
+// is copied while chunk q is multiplied, and chunk q's epilogue runs after
+// its products (deeper rings and an epilogue overlapped with the next
+// chunk's products measured no faster on the H100; PERF.md).
 //
-// phase1_wgmma_kernel (the query tile resident): at kp = 16 a 128 x 64
-// chunk is only 6 k16 steps
-// deep, and phase1_kernel spends it on instruction issue (A and B fragment
-// loads, index arithmetic, the epilogue) and a barrier with one copy in
-// flight: about 1,500 SM cycles a chunk against about 370 at the tensor
-// peak, 24% of the bound. Here two warpgroups own 64 query rows each, and
-// each chunk is 6 kp / 16 wgmma.mma_async m64nNk16 per warpgroup, both
-// operands read from shared memory by descriptor: no fragment loads, and
-// kp is a template parameter, so the contraction loop unrolls. Both
-// operands are K-major in the canonical no-swizzle layout (core matrices
-// of 8 rows x 16 bytes; LBO 128 bytes along K, SBO along M or N): the
-// query tile (128, 6 kp) is staged once, and chunks of rc_t = rc^T
-// (n_pad, 3 kp) go through a ring of kStages buffers, filled by cp.async
-// from all 256 threads. Contraction block b reads split [h, m, h, l, h,
-// m][b] by the B descriptor's start column, so the six-block partner is
-// never stored; kp % 16 == 0 keeps every k16 step inside one block. Chunks
-// are N = 128 columns where ts % 128 == 0 (else 64): per product, A is read
-// from shared memory half as often, and the barrier, waits and copies
-// happen once per 128 columns. The ring has two stages: chunk q + 1 is
-// copied while chunk q is multiplied, and chunk q's epilogue runs after its
-// products (deeper rings and an epilogue overlapped with the next chunk's
-// products measured no faster on the H100; PERF.md). The accumulator
-// fragment of m64nNk16 is, per warp, the C fragment of mma.sync m16n8 per
-// n8 tile, so the epilogue is the one phase1_kernel calls.
-//
-// Every kp. kp is a multiple of 8 (the engine pads k), so where kp % 16 ==
-// 8 each of the six query blocks and the three rc splits is staged padded
-// to kp16 = kp + 8 dims with zeros (stage_slice): zero columns add exact
-// zeros to the products, so no k16 step crosses a block, and qc and rc_t
-// keep their global layouts. The instances for kp % 16 == 0 (kPad false)
-// keep their staging and schedule. The query tile stays resident up to
-// kp16 = 96 (64-column chunks where 128 do not fit). Past that,
-// phase1_wgmma_sliced_kernel makes each ring unit (chunk, dimension slice):
-// the unit holds the rc slice (BN, 3 ds), ds = 16, 32 or 48, the
-// accumulators carry across a chunk's slices, and the epilogue runs after
-// the last. Where the (128, 6 kp16) query tile still fits beside two such
-// units (kp16 = 112 and 128 on the H100) it stays resident and each unit
-// reads its slice of it; otherwise each unit also holds the query slice
-// (128, 6 ds), restaged from L2 once per chunk: per chunk 128 x 6 kp + BN
-// x 3 kp bf16 for 2 x 128 x BN x 6 kp operations, about 85 operations per
-// byte at BN = 128, against 256 with the query tile resident. Every slice
-// runs all its k16 steps (the last one's padding is zeros), so the wgmma
-// instruction stream has no branch.
+// Every kp. Where kp % 16 == 8 each of the six query blocks and the three
+// rc splits is staged padded to kp16 = kp + 8 dims with zeros
+// (stage_slice): zero columns add exact zeros to the products, so no k16
+// step crosses a block, and qc and rc_t keep their global layouts. The
+// instances for kp % 16 == 0 (kPad false) stage whole rows. The query tile
+// stays resident up to kp16 = 96 (64-column chunks where 128 do not fit).
+// Past that, phase1_wgmma_sliced_kernel makes each ring unit (chunk,
+// dimension slice): the unit holds the rc slice (BN, 3 ds), ds = 16, 32 or
+// 48, the accumulators carry across a chunk's slices, and the epilogue runs
+// after the last. Where the (128, 6 kp16) query tile still fits beside two
+// such units (kp16 = 112 and 128 on the H100) it stays resident and each
+// unit reads its slice of it; otherwise each unit also holds the query
+// slice (128, 6 ds), restaged from L2 once per chunk: per chunk 128 x 6 kp
+// + BN x 3 kp bf16 for 2 x 128 x BN x 6 kp operations, about 85 operations
+// per byte at BN = 128, against 256 with the query tile resident. Every
+// slice runs all its k16 steps (the last one's padding is zeros), so the
+// wgmma instruction stream has no branch.
 //
 // Blocks run in no order, so each range writes its six carries to an
 // (S, m) scratch and a second kernel merges the ranges of each query in
@@ -104,34 +79,8 @@
 namespace {
 
 constexpr int kBM = 128;              // query rows per block
-constexpr int kBN = 64;               // ref columns per chunk
-constexpr int kBNP = kBN + 8;         // staged row pitch in bf16 (144 bytes)
-constexpr int kWarps = 4;             // each warp: 32 rows = 2 m16 tiles
-constexpr int kThreads = kWarps * nns::kWarp;
-constexpr int kMT = 2;                // m16 tiles per warp
-constexpr int kNT = kBN / 8;          // n8 tiles per chunk
-constexpr int kRows = 2 * kMT;        // rows each thread keeps state for
-constexpr int kSliceDims = 32;        // dims per slice when the tile cannot stay
-
 constexpr int kWgThreads = 256;       // 2 warpgroups of 64 query rows
 constexpr int kStages = 2;            // ring stages of the wgmma kernel
-
-// Smallest shared-memory row stride >= words with stride % 8 == 4: the 8
-// rows one fragment load touches then fall on distinct banks.
-__host__ __device__ constexpr int pad_stride(int words) {
-  return words + (12 - words % 8) % 8;
-}
-
-// Bytes of one staged query slice of ds dims, (kBM, 6 ds) bf16 padded rows.
-__host__ __device__ constexpr int a_bytes(int ds) {
-  return kBM * pad_stride(3 * ds) * 4;
-}
-
-// Bytes of one staged rc slice of ds dims, (3 ds, kBN) bf16, and its kBN
-// half-norms.
-__host__ __device__ constexpr int b_bytes(int ds) {
-  return 3 * ds * kBNP * 2 + kBN * 4;
-}
 
 // The wgmma kernel's shared memory: the query tile (kBM, 6 kp) bf16, then
 // kStages ring stages of (bn, 3 kp) rc_t rows and bn half-norms.
@@ -174,26 +123,8 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
                "l"(gmem), "r"(valid ? 16 : 0));
 }
 
-// B fragments of two n8 tiles: rows are the 16 contraction indices of the
-// k16 step (lanes 0-15 address n tile 0, lanes 16-31 n tile 1), each 8
-// bf16 columns wide; .trans hands out the "col" layout mma.sync wants.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&b)[4], const uint16_t* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(smem_addr(row)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // ---------------------------------------------------------------------------
-// The epilogue both kernels share
+// The epilogue the wgmma kernels share
 // ---------------------------------------------------------------------------
 
 // The carries of one range for R query rows per thread, and the running
@@ -269,9 +200,9 @@ struct RowState {
 };
 
 // e = r2h - cross over one 16-row fragment of a chunk: rows g and g + 8,
-// columns 8 nt + 2 t + {0, 1}, as mma.sync m16n8 hands out its C fragment
-// per n8 tile and wgmma m64nNk16 per warp. Each row's chunk minimum joins
-// its subtile's in st.smin[r0 + h].
+// columns 8 nt + 2 t + {0, 1}, as wgmma m64nNk16 hands out its accumulator
+// fragment per warp and n8 tile. Each row's chunk minimum joins its
+// subtile's in st.smin[r0 + h].
 template <int NT, int R>
 __device__ __forceinline__ void chunk_min(const float (&acc)[NT][4], const float* r2c, int t,
                                           RowState<R>& st, int r0) {
@@ -307,190 +238,6 @@ __device__ __forceinline__ void end_chunk(RowState<R>& st, Walk& w, int cps, int
   if (++w.c < ns) return;
   w.c = 0;
   st.end_tile(w.j++, ns);
-}
-
-// ---------------------------------------------------------------------------
-// phase1_kernel: mma.sync, any kp % 8 == 0
-// ---------------------------------------------------------------------------
-
-// Copy dims [d0, d0 + dn) of the six blocks of query rows q0.. of qc into a
-// (kBM, 6 dn) slice with row stride sA words, zeros past row m, 16 bytes
-// per cp.async.
-__device__ __forceinline__ void stage_queries(const uint16_t* __restrict__ qc, int m, int kp,
-                                              int q0, int d0, int dn, int sA, uint32_t* as) {
-  // One (row, block) pair per step (divisions by constants only); its dn
-  // dims are contiguous in qc and in the slice.
-  for (int i = threadIdx.x; i < kBM * 6; i += kThreads) {
-    const int row = i / 6, b = i % 6;
-    const bool valid = q0 + row < m;
-    const uint16_t* src = valid ? qc + (long long)(q0 + row) * 6 * kp + b * kp + d0 : qc;
-    uint16_t* dst = reinterpret_cast<uint16_t*>(as + row * sA) + b * dn;
-    for (int seg = 0; seg < dn; seg += 8) cp_async16(dst + seg, valid ? src + seg : qc, valid);
-  }
-}
-
-// Copy dims [d0, d0 + dn) of the three splits of chunk col0 of rc, as a
-// (3 dn, kBN) slice, and the chunk's kBN half-norms, 16 bytes per cp.async.
-// This runs once per unit, so it divides by constants only.
-__device__ __forceinline__ void stage_refs(const uint16_t* __restrict__ rc,
-                                           const float* __restrict__ r2h, long long n_pad,
-                                           int kp, int d0, int dn, long long col0,
-                                           uint16_t* bs, float* r2s) {
-  constexpr int kSegs = kBN / 8;  // 16-byte segments of a staged row
-  const int rows = 3 * dn;
-  for (int i = threadIdx.x; i < rows * kSegs + kBN / 4; i += kThreads) {
-    if (i < rows * kSegs) {
-      const int row = i / kSegs, seg = i % kSegs;
-      const int split = (row >= dn) + (row >= 2 * dn);
-      const long long src_row = (long long)split * kp + d0 + row - split * dn;
-      cp_async16(bs + row * kBNP + seg * 8, rc + src_row * n_pad + col0 + seg * 8);
-    } else {
-      const int seg = i - rows * kSegs;
-      cp_async16(r2s + seg * 4, r2h + col0 + seg * 4);
-    }
-  }
-}
-
-// Shared memory: [resident query tile, when nsl == 1] then two unit
-// buffers, each [query slice, when nsl > 1][rc slice][kBN half-norms].
-__global__ void __launch_bounds__(kThreads)
-phase1_kernel(const uint16_t* __restrict__ qc, const uint16_t* __restrict__ rc,
-              const float* __restrict__ r2h, int m, int kp, int ds, int nsl,
-              long long n_pad, int tile_n, int ts, int tiles_per_split, int splits,
-              float* __restrict__ part_f, int* __restrict__ part_i) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int sA = pad_stride(3 * ds);
-  const bool resident = nsl == 1;
-  uint32_t* a_res = reinterpret_cast<uint32_t*>(smem);
-  unsigned char* units = smem + (resident ? a_bytes(ds) : 0);
-  const int unit_bytes = (resident ? 0 : a_bytes(ds)) + b_bytes(ds);
-
-  const int q0 = blockIdx.x * kBM;
-  const int split = blockIdx.y;
-  const int warp = threadIdx.x / nns::kWarp;
-  const int lane = threadIdx.x % nns::kWarp;
-  const int g = lane >> 2;            // fragment row group
-  const int t = lane & 3;             // thread in group
-
-  const int n_tiles = (int)(n_pad / tile_n);
-  const int j0 = split * tiles_per_split;
-  const int j1 = min(n_tiles, j0 + tiles_per_split);
-  const int cpt = tile_n / kBN;       // chunks per tile
-  const int cps = ts / kBN;           // chunks per subtile
-  const int nq = (j1 - j0) * cpt;
-  const int nu = nq * nsl;            // units (chunk, slice), chunk-major
-  const long long col_base = (long long)j0 * tile_n;
-
-  auto unit_a = [&](int buf) {
-    return resident ? a_res : reinterpret_cast<uint32_t*>(units + buf * unit_bytes);
-  };
-  auto unit_b = [&](int buf) {
-    return reinterpret_cast<uint16_t*>(units + buf * unit_bytes + (resident ? 0 : a_bytes(ds)));
-  };
-  auto unit_r2 = [&](int buf) { return reinterpret_cast<float*>(unit_b(buf) + 3 * ds * kBNP); };
-  // Stage unit (chunk q, slice s) into buffer buf.
-  auto stage_unit = [&](int q, int s, int buf) {
-    const int d0 = s * ds, dn = min(ds, kp - d0);
-    if (!resident) stage_queries(qc, m, kp, q0, d0, dn, sA, unit_a(buf));
-    stage_refs(rc, r2h, n_pad, kp, d0, dn, col_base + (long long)q * kBN, unit_b(buf),
-               unit_r2(buf));
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  if (nu > 0) {
-    if (resident) stage_queries(qc, m, kp, q0, 0, kp, sA, a_res);  // lands with unit 0
-    stage_unit(0, 0, 0);
-  }
-
-  // Per-row state of rows warp*32 + mt*16 + h*8 + g, index mt*2 + h.
-  RowState<kRows> st;
-  st.init();
-  Walk walk{j0, 0, 0};
-  const int ns = tile_n / ts;
-  float acc[kMT][kNT][4];
-  int q_next = 0, s_next = 0;  // unit u + 1, stepped without dividing
-  for (int u = 0; u < nu; ++u) {
-    const int s = s_next;
-    if (s + 1 < nsl) {
-      s_next = s + 1;
-    } else {
-      s_next = 0;
-      ++q_next;
-    }
-    // Unit u has landed for every thread, and every warp is done with the
-    // buffer unit u + 1 is about to fill.
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-    if (u + 1 < nu) stage_unit(q_next, s_next, (u + 1) & 1);
-    const int dn = min(ds, kp - s * ds);
-    const uint32_t* As = unit_a(u & 1);
-    const uint16_t* bs = unit_b(u & 1);
-    const float* r2c = unit_r2(u & 1);
-
-    if (s == 0) {
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-    }
-    // This lane's ldmatrix row holds contraction index k0 + (lane & 15) of
-    // the slice: dim kd of block kb (each 8-row group lies in one block, dn
-    // being a multiple of 8). Stepping k0 by 16 moves kd past at most two
-    // blocks of dn >= 8, so two conditional subtractions keep kd < dn.
-    int kb = 0, kd = lane & 15;
-    auto wrap = [&] {
-      for (int i = 0; i < 2; ++i) {
-        if (kd >= dn) {
-          kd -= dn;
-          ++kb;
-        }
-      }
-    };
-    wrap();
-    const int ksteps = 6 * dn / 16;
-    for (int ks = 0; ks < ksteps; ++ks, kd += 16, wrap()) {
-      const int k0 = ks * 16;
-      uint32_t a[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        const uint32_t* arow = As + (warp * 32 + mt * 16 + g) * sA + k0 / 2 + t;
-        a[mt][0] = arow[0];
-        a[mt][1] = arow[8 * sA];
-        a[mt][2] = arow[4];
-        a[mt][3] = arow[8 * sA + 4];
-      }
-      // Block kb reads split [h, m, h, l, h, m][kb] of the staged slice;
-      // lanes 16-31 address the second n tile of each pair.
-      const int split = kb == 3 ? 2 : (kb & 1);
-      const uint16_t* brow = bs + (split * dn + kd) * kBNP + (lane >> 4) * 8;
-#pragma unroll
-      for (int nt = 0; nt < kNT; nt += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, brow + nt * 8);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          mma_bf16(acc[mt][nt], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][nt + 1], a[mt], b[2], b[3]);
-        }
-      }
-    }
-    if (s + 1 < nsl) continue;  // the chunk's cross terms are not complete
-
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) chunk_min(acc[mt], r2c, t, st, mt * 2);
-    end_chunk(st, walk, cps, ns);
-  }
-
-  if (t != 0) return;  // the 4 lanes of a row group hold the same state
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = q0 + warp * 32 + mt * 16 + h * 8 + g;
-      if (row < m) st.store(mt * 2 + h, split, splits, m, row, part_f, part_i);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -930,28 +677,6 @@ cudaError_t smem_optin(int* bytes) {
   return cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
-// Slicing of the contraction for kp: one slice of all kp dims when the
-// query tile fits beside two unit buffers in the card's shared memory,
-// else slices of kSliceDims dims, each unit staging its query slice too.
-struct Plan {
-  int ds, nsl;
-  size_t smem;
-};
-
-cudaError_t plan_for(int kp, Plan* plan) {
-  int optin = 0;
-  cudaError_t e = smem_optin(&optin);
-  if (e != cudaSuccess) return e;
-  const size_t resident = (size_t)a_bytes(kp) + 2 * (size_t)b_bytes(kp);
-  if (resident <= (size_t)optin) {
-    *plan = {kp, 1, resident};
-  } else {
-    *plan = {kSliceDims, (kp + kSliceDims - 1) / kSliceDims,
-             2 * ((size_t)a_bytes(kSliceDims) + b_bytes(kSliceDims))};
-  }
-  return nns::allow_smem(phase1_kernel, plan->smem);
-}
-
 // The wgmma plan for kp and ts: the kernel instance, its shared memory and
 // the slices of the contraction (1: the query tile resident), requested
 // from the card; or cudaErrorInvalidValue where there is none (kp % 8 !=
@@ -1061,18 +786,9 @@ cudaError_t launch_merge(const float* part_f, const int* part_i, int m, int spli
 // The card's opt-in shared memory per block, in bytes, into *bytes.
 extern "C" int nns_smem_optin(int* bytes) { return (int)smem_optin(bytes); }
 
-// Blocks of phase1_kernel that fit on one SM at kp (registers and shared
-// memory), into *blocks. Returns a CUDA error code.
-extern "C" int nns_expansion_phase1_blocks_per_sm(int kp, int* blocks) {
-  Plan plan;
-  cudaError_t e = plan_for(kp, &plan);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, phase1_kernel,
-                                                            kThreads, plan.smem);
-}
-
-// The same for phase1_wgmma_kernel at kp and ts (cudaErrorInvalidValue
-// where it does not take them).
+// Blocks of the wgmma kernel `wgmma_setup` plans for kp and ts that fit on
+// one SM (registers and shared memory), into *blocks. Returns a CUDA error
+// code (cudaErrorInvalidValue where there is no plan).
 extern "C" int nns_expansion_phase1_wgmma_blocks_per_sm(int kp, int ts, int* blocks) {
   WgmmaPlan plan;
   cudaError_t e = wgmma_setup(kp, ts, &plan);
@@ -1081,34 +797,16 @@ extern "C" int nns_expansion_phase1_wgmma_blocks_per_sm(int kp, int ts, int* blo
                                                             plan.smem);
 }
 
-// qc: (m, 6 kp) bf16 row-major; rc: (3 kp, n_pad) bf16 row-major; r2h:
+// Phase 1 on the wgmma kernel `wgmma_setup` plans for kp and ts (the query
+// tile resident, or the contraction in slices). qc: (m, 6 kp) bf16
+// row-major; rc_t: (n_pad, 3 kp) bf16 row-major (rc transposed); r2h:
 // (n_pad,) f32; all three on 16-byte aligned bases, kp % 8 == 0. Ranges of
 // tiles_per_split tiles of tile_n columns, split into ts-column subtiles
 // (ts % 64 == 0). part_f (4, splits, m) and part_i (2, splits, m) are
 // scratch; out_f (4, m) = [min1, m2x, t2v, t3v] and out_i (2, m) =
 // [tid, tid2]. Launches on `stream` and does not synchronize. Returns
-// cudaGetLastError() (or the error of a shared-memory request the card
-// refuses).
-extern "C" int nns_expansion_phase1(const uint16_t* qc, const uint16_t* rc,
-                                    const float* r2h, int m, int kp, long long n_pad,
-                                    int tile_n, int ts, int tiles_per_split, int splits,
-                                    float* part_f, int* part_i, float* out_f, int* out_i,
-                                    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Plan plan;
-  cudaError_t e = plan_for(kp, &plan);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((m + kBM - 1) / kBM, splits);
-  phase1_kernel<<<grid, kThreads, plan.smem, st>>>(qc, rc, r2h, m, kp, plan.ds, plan.nsl,
-                                                   n_pad, tile_n, ts, tiles_per_split,
-                                                   splits, part_f, part_i);
-  return (int)launch_merge(part_f, part_i, m, splits, tile_n / ts, out_f, out_i, st);
-}
-
-// As nns_expansion_phase1, on the wgmma kernel `wgmma_setup` plans for kp
-// and ts (the query tile resident, or the contraction in slices): rc_t is
-// (n_pad, 3 kp) bf16 row-major (rc transposed). Where there is no plan it
-// returns cudaErrorInvalidValue and launches nothing.
+// cudaGetLastError(), or cudaErrorInvalidValue where there is no plan
+// (then it launches nothing).
 extern "C" int nns_expansion_phase1_wgmma(const uint16_t* qc, const uint16_t* rc_t,
                                           const float* r2h, int m, int kp, long long n_pad,
                                           int tile_n, int ts, int tiles_per_split, int splits,

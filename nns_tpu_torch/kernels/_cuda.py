@@ -38,12 +38,10 @@ _lib: ctypes.CDLL | None = None
 
 # Launch counts per kernel wrapper: each wrapper adds one right after its
 # kernel launch succeeds, and nowhere else. The plain CPU path never counts.
-# "expansion_phase1" counts every phase-1 launch, "expansion_phase1_wgmma"
-# those of the wgmma kernel among them.
 LAUNCHES: dict[str, int] = {
     "fused_argmin": 0, "cell_scan": 0, "cell_bin": 0, "cell_place": 0, "cell_answer": 0,
     "fused_point_major": 0, "fused_streaming": 0, "fused_queries_resident": 0, "two_level": 0,
-    "expansion_phase1": 0, "expansion_phase1_wgmma": 0,
+    "expansion_phase1": 0,
 }
 
 
@@ -112,7 +110,6 @@ def build(force: bool = False) -> str:
 
 
 _vp, _ci, _cf, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-_PHASE1 = [_vp, _vp, _vp, _ci, _ci, _cll, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp]
 # The argument types of the library's C entry points (each returns an int,
 # a cudaError_t); a CPU test holds them against the extern "C" definitions
 # under csrc/.
@@ -137,9 +134,8 @@ SIGNATURES = {
     "nns_two_level":
         [_vp, _vp, _ci, _ci, _ci, _cll, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp],
     "nns_two_level_smem": [_ci, _ci, _ci, _ci, _ci, _ci, _vp, _vp],
-    "nns_expansion_phase1": _PHASE1,
-    "nns_expansion_phase1_wgmma": _PHASE1,
-    "nns_expansion_phase1_blocks_per_sm": [_ci, _vp],
+    "nns_expansion_phase1_wgmma":
+        [_vp, _vp, _vp, _ci, _ci, _cll, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp],
     "nns_expansion_phase1_wgmma_blocks_per_sm": [_ci, _ci, _vp],
     "nns_smem_optin": [_vp],
 }

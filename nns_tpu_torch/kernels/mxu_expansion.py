@@ -72,8 +72,8 @@ _SUBLANE = 8
 # folded in by the caller.
 _DELTA_REL_PER_K = 2.0 ** -21
 
-# Query rows per block and columns per chunk of both CUDA kernels (kBM,
-# kBN in csrc/expansion_phase1.cu).
+# Query rows per block of the wgmma kernels (kBM in csrc/expansion_phase1.cu)
+# and their narrower chunk width, in ref columns.
 _KERNEL_BM = 128
 _KERNEL_BN = 64
 # The wgmma kernels' ring stages (kStages) and contraction step; a
@@ -272,82 +272,46 @@ def phase1_plan(kp: int, ts: int, smem_optin: int) -> Phase1Plan | None:
     return None
 
 
-def phase1_route(kp: int, ts: int, smem_optin: int) -> str:
-    """The phase-1 kernel for these shapes, by shape alone: ``"wgmma"``
-    wherever ``phase1_plan`` has a plan, else ``"none"`` (phase 1 on the
-    card then raises). ``phase1_kernel`` (mma.sync) is no route: it is the
-    yardstick, reached only through ``_phase1_cuda(..., "mma_sync")``."""
-    return "wgmma" if phase1_plan(kp, ts, smem_optin) is not None else "none"
-
-
-def device_route(kp: int, ts: int, device) -> str:
-    """The kernel phase 1 runs on ``device``: ``phase1_route`` on a CUDA
-    card's opt-in shared memory, ``"plain"`` (``phase1_plain``) on the
-    CPU."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return "plain"
-    lib = _cuda.library()
-    with torch.cuda.device(device):
-        return phase1_route(kp, ts, _cuda.smem_optin(lib))
-
-
-def _phase1_slots(lib, kp: int, dev, route: str, ts: int) -> int:
-    """Resident blocks of the ``route`` kernel per SM at kp (and, for the
-    wgmma kernel, ts), times SMs."""
+def _phase1_slots(lib, kp: int, dev, ts: int) -> int:
+    """Resident blocks of the wgmma kernel per SM at kp and ts, times SMs."""
     per_sm = ctypes.c_int()
-    if route == "wgmma":
-        rc = lib.nns_expansion_phase1_wgmma_blocks_per_sm(kp, ts, ctypes.byref(per_sm))
-    else:
-        rc = lib.nns_expansion_phase1_blocks_per_sm(kp, ctypes.byref(per_sm))
+    rc = lib.nns_expansion_phase1_wgmma_blocks_per_sm(kp, ts, ctypes.byref(per_sm))
     _cuda.check(lib, rc, "expansion_phase1")
     return per_sm.value * n_sm(dev)
 
 
-def _phase1_cuda(qc, rc, r2h, tile_n, ts, rc_t, route):
-    """Launch the ``route`` kernel ("wgmma" or "mma_sync") and the range
-    merge. The wgmma kernel reads ``rc_t`` (n_pad, 3 kp), the mma.sync
-    kernel ``rc`` (3 kp, n_pad); the one read must be contiguous, the other
-    is not used."""
-    m, kp, n_pad = qc.shape[0], qc.shape[1] // 6, rc.shape[1]
+def _phase1_cuda(qc, rc_t, r2h, tile_n, ts):
+    """Launch the wgmma kernel on its plan and the range merge. It reads
+    ``rc_t``, the contiguous (n_pad, 3 kp) transpose of the split stack."""
+    m, kp, n_pad = qc.shape[0], qc.shape[1] // 6, r2h.numel()
     if ts % _KERNEL_BN or kp % _SUBLANE:
         raise ValueError(f"expansion_phase1 needs ts % {_KERNEL_BN} == 0 and kp % "
                          f"{_SUBLANE} == 0, got ts={ts}, kp={kp}")
-    lib = _cuda.library()
-    if route == "wgmma":
-        if rc_t is None or tuple(rc_t.shape) != (n_pad, 3 * kp) \
-                or rc_t.dtype != torch.bfloat16 or not rc_t.is_contiguous() \
-                or rc_t.device != qc.device:
-            raise ValueError(f"the wgmma kernel reads rc_t, the contiguous bf16 (n_pad, 3 kp) "
-                             f"= {(n_pad, 3 * kp)} transpose of rc on {qc.device} "
-                             f"(MXUExpansion keeps it)")
-        refs, entry = rc_t, lib.nns_expansion_phase1_wgmma
-    elif route == "mma_sync":
-        if not rc.is_contiguous():
-            raise ValueError("the mma.sync kernel reads rc, which must be contiguous")
-        refs, entry = rc, lib.nns_expansion_phase1
-    else:
-        raise ValueError(f"unknown phase-1 route {route!r}")
-    if qc.data_ptr() % 16 or refs.data_ptr() % 16 or r2h.data_ptr() % 16:
-        raise ValueError("expansion_phase1 needs qc, rc (rc_t) and r2h on 16-byte aligned "
+    if rc_t is None or tuple(rc_t.shape) != (n_pad, 3 * kp) \
+            or rc_t.dtype != torch.bfloat16 or not rc_t.is_contiguous() \
+            or rc_t.device != qc.device:
+        raise ValueError(f"the wgmma kernel reads rc_t, the contiguous bf16 (n_pad, 3 kp) "
+                         f"= {(n_pad, 3 * kp)} transpose of rc on {qc.device} "
+                         f"(MXUExpansion keeps it)")
+    if qc.data_ptr() % 16 or rc_t.data_ptr() % 16 or r2h.data_ptr() % 16:
+        raise ValueError("expansion_phase1 needs qc, rc_t and r2h on 16-byte aligned "
                          "bases (16-byte cp.async)")
+    lib = _cuda.library()
     dev = qc.device
     n_tiles = n_pad // tile_n
     with torch.cuda.device(dev):
-        slots = _phase1_slots(lib, kp, dev, route, ts)
+        slots = _phase1_slots(lib, kp, dev, ts)
         per = -(-n_tiles // phase1_splits(m, n_tiles, slots))
         splits = -(-n_tiles // per)
         part_f = torch.empty((4, splits, m), dtype=torch.float32, device=dev)
         part_i = torch.empty((2, splits, m), dtype=torch.int32, device=dev)
         out_f, out_i = _empty_carries(m, dev)
-        rc_ = entry(
-            qc.data_ptr(), refs.data_ptr(), r2h.data_ptr(), m, kp, n_pad, tile_n, ts,
+        rc_ = lib.nns_expansion_phase1_wgmma(
+            qc.data_ptr(), rc_t.data_ptr(), r2h.data_ptr(), m, kp, n_pad, tile_n, ts,
             per, splits, part_f.data_ptr(), part_i.data_ptr(), out_f.data_ptr(),
             out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(lib, rc_, "expansion_phase1")
     _cuda.LAUNCHES["expansion_phase1"] += 1
-    if route == "wgmma":
-        _cuda.LAUNCHES["expansion_phase1_wgmma"] += 1
     return _carries(out_f, out_i)
 
 
@@ -359,11 +323,10 @@ def phase1(qc: torch.Tensor, rc: torch.Tensor, r2h: torch.Tensor, tile_n: int, t
     half-norms ``r2h``. CPU tensors take ``phase1_plain``; CUDA tensors
     launch the wgmma kernel of csrc/expansion_phase1.cu on the plan
     ``phase1_plan`` states (or raise: RuntimeError where the kernel has no
-    plan or fails), counted in ``_cuda.LAUNCHES["expansion_phase1"]`` and
-    ``["expansion_phase1_wgmma"]``. It reads ``rc_t``, the contiguous
-    (n_pad, 3 kp) transpose of rc, which the caller must pass
-    (``MXUExpansion.rc_t``); ``rc`` may then be any view of the same
-    values."""
+    plan or fails), counted in ``_cuda.LAUNCHES["expansion_phase1"]``. It
+    reads ``rc_t``, the contiguous (n_pad, 3 kp) transpose of rc, which the
+    caller must pass (``MXUExpansion.rc_t``); ``rc`` may then be any view
+    of the same values."""
     m, kp, _ = _check_phase1(qc, rc, r2h, tile_n, ts)
     if qc.device.type == "cpu":
         return phase1_plain(qc, rc, r2h, tile_n, ts)
@@ -371,7 +334,7 @@ def phase1(qc: torch.Tensor, rc: torch.Tensor, r2h: torch.Tensor, tile_n: int, t
         raise ValueError(f"unsupported device {qc.device}")
     if m == 0:
         return _carries(*_empty_carries(0, qc.device))
-    return _phase1_cuda(qc.contiguous(), rc, r2h.contiguous(), tile_n, ts, rc_t, "wgmma")
+    return _phase1_cuda(qc.contiguous(), rc_t, r2h.contiguous(), tile_n, ts)
 
 
 def _sq_dist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -482,14 +445,12 @@ class StagedQueries:
 
 class MXUExpansion:
     """Prepare-once / query-many engine for v9. Staging, on ``device``: the
-    bf16 split stack in the layout its phase-1 route reads (``route``, from
-    ``device_route``): on the wgmma route (the card, wherever
-    ``phase1_plan`` has a plan) ``rc_t`` (n_pad, 3 kp), with ``rc`` a
-    transposed view of it; else ``rc`` (3 kp, n_pad) alone, ``rc_t`` None;
-    the (1, n_pad) f32 half-norms ``r2h`` (+inf past n); and for phase 2
-    the zero-padded f32 refs ``refs_t`` (n_sub, ts, kp) with their
-    half-norms ``r2h_t`` (n_sub, ts). The CUDA kernel picks its own query
-    tile, so there is no ``tile_m``."""
+    bf16 split stack as the wgmma kernel reads it, ``rc_t`` (n_pad, 3 kp),
+    with ``rc`` (3 kp, n_pad) a transposed view of it; the (1, n_pad) f32
+    half-norms ``r2h`` (+inf past n); and for phase 2 the zero-padded f32
+    refs ``refs_t`` (n_sub, ts, kp) with their half-norms ``r2h_t`` (n_sub,
+    ts). The CUDA kernel picks its own query tile, so there is no
+    ``tile_m``."""
 
     def __init__(self, refs, tile_n: int | None = None, tile_s: int | None = None,
                  device="cuda"):
@@ -546,10 +507,7 @@ class MXUExpansion:
         self.device = torch.device(device)
         self.tile_n, self.ts = int(tile_n), int(ts)
         self.kp = rc.shape[0] // 3
-        self.route = device_route(self.kp, self.ts, self.device)
-        rc = rc.to(self.device)
-        self.rc_t = rc.t().contiguous() if self.route == "wgmma" else None
-        self._rc = None if self.route == "wgmma" else rc
+        self.rc_t = rc.to(self.device).t().contiguous()
         self.r2h = r2h.to(self.device)
         self.refs_t = refs_t.to(self.device)
         self.r2h_t = r2h_t.to(self.device)
@@ -557,9 +515,9 @@ class MXUExpansion:
 
     @property
     def rc(self) -> torch.Tensor:
-        """The (3 kp, n_pad) bf16 split stack [rh; rm; rl]: on the wgmma
-        route a transposed view of ``rc_t`` (not contiguous, no copy)."""
-        return self.rc_t.t() if self._rc is None else self._rc
+        """The (3 kp, n_pad) bf16 split stack [rh; rm; rl]: a transposed view
+        of ``rc_t`` (not contiguous, no copy)."""
+        return self.rc_t.t()
 
     @spanned("nns.mxu.stage_queries")
     def stage_queries(self, queries) -> StagedQueries:

@@ -192,8 +192,8 @@ def _measure(out: str, this_tree: bool) -> None:
 
 
 def _phase1_cases(dev, timed) -> None:
-    """v9 phase 1 through the measured tree's own engine: its route, its
-    staging (rc or rc_t) and ``phase1``."""
+    """v9 phase 1 through the measured tree's own engine: its staging,
+    its plan and ``phase1``."""
     from nns_tpu_torch.data import make_dataset
     from nns_tpu_torch.kernels import mxu_expansion as mxe
 
@@ -216,7 +216,7 @@ def _phase1_cases(dev, timed) -> None:
         st = eng.stage_queries(q)
         args = (mxe._cat_q(*mxe.split_bf16x3(st.q_dev)), eng.rc, eng.r2h, eng.tile_n, eng.ts)
         plan = getattr(mxe, "phase1_plan", None)
-        detail = f"route {eng.route}" + (f", {plan(eng.kp, eng.ts, 232448)}" if plan else "")
+        detail = f"plan {plan(eng.kp, eng.ts, 232448)}" if plan else "no phase1_plan"
         timed(f"expansion_phase1 {tag}", ("phase1", q.shape[0], r.shape[0], eng.kp), detail,
               lambda: mxe.phase1(*args, rc_t=eng.rc_t),
               delta=None if eng.k == 16 else st.delta)

@@ -1,4 +1,4 @@
-"""What the v9 phase-1 kernels compile to, and how their chunk widths time.
+"""What the v9 phase-1 kernels compile to, and how they time.
 
 Run from the repository root on a machine with one CUDA device:
 ``python -m nns_tpu_torch.utils.phase1_report``. It prints the card's name
@@ -12,15 +12,13 @@ and power limit, then
    has none;
 3. over bench_k16's 1M 16-D refs (seed 1000) and 10000 uniform 16-D
    queries (seed 1001), the times (CUDA events, median of 5) of the wgmma
-   kernel with 128-column chunks (ts = 256, the engine's), the same kernel
-   with 64-column chunks (ts = 64) and ``phase1_kernel`` (mma.sync) at ts =
-   256, each through its own entry point, in that order and again reversed.
-   ts = 64 closes a subtile after every chunk, so its epilogue does a little
-   more work; the products are the same;
+   kernel with 128-column chunks (ts = 256, the engine's) and with
+   64-column chunks (ts = 64), in that order and again reversed. ts = 64
+   closes a subtile after every chunk, so its epilogue does a little more
+   work; the products are the same;
 4. the wgmma kernel at the kp that are not 16-aligned or past a resident
-   query tile, beside ``phase1_kernel`` (mma.sync, the yardstick) on the
-   same inputs, each through its own entry point, in order and reversed,
-   with each shape's bound (``utils/bounds.phase1_bound``) and the plan
+   query tile, timed twice, with each shape's bound
+   (``utils/bounds.phase1_bound``) and the plan
    (``mxu_expansion.phase1_plan``): 1024 x 1M at k = 24 and 40 (kp padded
    to 32 and 48) and 1024 x 65536 at k = 96 (resident, 64-column chunks)
    and 128 (dimension slices), seed 1000.
@@ -47,10 +45,7 @@ def _kernel_name(mangled: str) -> str:
     sliced = re.search(r"phase1_wgmma_sliced_kernelILi(\d+)ELi(\d+)ELb([01])E", mangled)
     if sliced:
         return f"phase1_wgmma_sliced_kernel<{sliced.group(1)}, {sliced.group(2)}, {sliced.group(3)}>"
-    for name in ("phase1_merge_kernel", "phase1_kernel"):
-        if name in mangled:
-            return name
-    return mangled
+    return "phase1_merge_kernel" if "phase1_merge_kernel" in mangled else mangled
 
 
 def _ptxas(_cuda) -> None:
@@ -104,18 +99,15 @@ def main() -> int:
     _sass(_cuda)
     _, refs = make_dataset(16, 1, 1_000_000, 1000)
     mx = MXUExpansion(refs, device="cuda")
-    if mx.route != "wgmma" or mx.ts != 256:
-        raise RuntimeError(f"expected the wgmma route at ts = 256, got {mx.route}, ts={mx.ts}")
+    if mx.ts != 256:
+        raise RuntimeError(f"expected the engine's ts = 256, got {mx.ts}")
     q = np.random.default_rng(1001).random((10_000, 16), dtype=np.float32)
     qc = _cat_q(*split_bf16x3(mx.stage_queries(q).q_dev))
-    rc = mx.rc.contiguous()
     runs = {
         "wgmma, 128-column chunks (ts = 256)":
-            lambda: _phase1_cuda(qc, rc, mx.r2h, mx.tile_n, 256, mx.rc_t, "wgmma"),
+            lambda: _phase1_cuda(qc, mx.rc_t, mx.r2h, mx.tile_n, 256),
         "wgmma, 64-column chunks (ts = 64)":
-            lambda: _phase1_cuda(qc, rc, mx.r2h, mx.tile_n, 64, mx.rc_t, "wgmma"),
-        "mma.sync phase1_kernel (ts = 256)":
-            lambda: _phase1_cuda(qc, rc, mx.r2h, mx.tile_n, 256, mx.rc_t, "mma_sync"),
+            lambda: _phase1_cuda(qc, mx.rc_t, mx.r2h, mx.tile_n, 64),
     }
     times = {name: [] for name in runs}
     for order in (list(runs), list(runs)[::-1]):
@@ -124,15 +116,14 @@ def main() -> int:
     for name, (first, second) in times.items():
         print(f"[time] 10000 x 1M k=16 {name}: {first:.4f} / {second:.4f} ms "
               f"(in order / reversed)", flush=True)
-    del mx, qc, rc, runs
+    del mx, qc, runs
     for k, n in ((24, 1_000_000), (40, 1_000_000), (96, 65536), (128, 65536)):
-        _beside_yardstick(k, n)
+        _at_kp(k, n)
     return 0
 
 
-def _beside_yardstick(k: int, n: int) -> None:
-    """The wgmma kernel and the mma.sync yardstick at 1024 x n and k, in
-    turns (wgmma, mma.sync, mma.sync, wgmma)."""
+def _at_kp(k: int, n: int) -> None:
+    """The wgmma kernel at 1024 x n and k, timed twice."""
     from nns_tpu_torch.data import make_dataset
     from nns_tpu_torch.kernels.mxu_expansion import (
         MXUExpansion, _cat_q, _phase1_cuda, phase1_plan, split_bf16x3)
@@ -142,19 +133,13 @@ def _beside_yardstick(k: int, n: int) -> None:
     q, refs = make_dataset(k, 1024, n, 1000)
     mx = MXUExpansion(refs, device="cuda")
     qc = _cat_q(*split_bf16x3(mx.stage_queries(q).q_dev))
-    rc = mx.rc.contiguous()
-    runs = {"wgmma": lambda: _phase1_cuda(qc, rc, mx.r2h, mx.tile_n, mx.ts, mx.rc_t, "wgmma"),
-            "mma.sync": lambda: _phase1_cuda(qc, rc, mx.r2h, mx.tile_n, mx.ts, None,
-                                             "mma_sync")}
-    times = {name: [] for name in runs}
-    for name in ("wgmma", "mma.sync", "mma.sync", "wgmma"):
-        times[name].append(cuda_ms(runs[name])[0])
+    first, second = (cuda_ms(_phase1_cuda, qc, mx.rc_t, mx.r2h, mx.tile_n, mx.ts)[0]
+                     for _ in range(2))
     bound, by = phase1_bound(1024, n, mx.kp)
     plan = phase1_plan(mx.kp, mx.ts, 232448)
-    for name, (first, second) in times.items():
-        print(f"[time] 1024 x {n} k={k} (kp={mx.kp}) {name}: {first:.4f} / {second:.4f} ms "
-              f"(in turns); bound {bound:.4f} ms ({by}), {bound / ((first + second) / 2):.1%}"
-              f"{'; plan ' + str(plan) if name == 'wgmma' else ''}", flush=True)
+    print(f"[time] 1024 x {n} k={k} (kp={mx.kp}) wgmma: {first:.4f} / {second:.4f} ms "
+          f"(two runs); bound {bound:.4f} ms ({by}), {bound / ((first + second) / 2):.1%}; "
+          f"plan {plan}", flush=True)
 
 
 if __name__ == "__main__":

@@ -7,9 +7,8 @@ halo tiles, padded and repeated slots, unaligned rows, exact ties).
 Tolerance: indices exactly equal and min_d2 bit-equal — kernel and plain
 version both round each sub, mul and add to nearest in the same order (the
 kernels are built with -fmad=false), so there is nothing to tolerate.
-The one exception is ``expansion_phase1`` (v9, both its kernels: wgmma, the
-route at every kp, and mma.sync, the yardstick): its tensor cores sum the
-bf16 products in their own order and may truncate, so its values (min1,
+The one exception is ``expansion_phase1`` (v9, the wgmma kernels at every
+kp): its tensor cores sum the bf16 products in their own order and may truncate, so its values (min1,
 m2x, t2v, t3v) are held within the engine's delta of the plain version, and
 its ids (tid, tid2) equal wherever the plain runner-up lies more than
 2 delta away. On integer data every sum is exact, and there all six
@@ -64,11 +63,10 @@ from nns_tpu_torch.kernels.fused_ladder import (
 from nns_tpu_torch.kernels.mxu_expansion import (
     MXUExpansion,
     _cat_q,
-    _phase1_cuda,
     _phase1_slots,
-    device_route,
     phase1,
     phase1_plain,
+    phase1_plan,
     phase1_splits,
     split_bf16x3,
 )
@@ -1203,12 +1201,12 @@ def _phase1_args(q, r, tile_n, ts, dev):
     return eng, st.delta, (qc, eng.rc, eng.r2h, eng.tile_n, eng.ts)
 
 
-def _route(kp, ts):
-    return device_route(kp, ts, "cuda")
+def _has_plan(kp, ts):
+    return phase1_plan(kp, ts, _cuda.smem_optin(_cuda.library())) is not None
 
 
 def _counts():
-    return _cuda.LAUNCHES["expansion_phase1"], _cuda.LAUNCHES["expansion_phase1_wgmma"]
+    return _cuda.LAUNCHES["expansion_phase1"]
 
 
 def assert_phase1_close(kernel, plain, delta):
@@ -1233,83 +1231,43 @@ def assert_phase1_close(kernel, plain, delta):
     return worst
 
 
-@pytest.mark.parametrize("m,n,k,tile_n,ts", [(33, 777, 10, 128, 128), (300, 5000, 16, 512, 256),
-                                             (1000, 70000, 16, 4096, 256),
-                                             (17, 3000, 24, 640, 640), (129, 20000, 8, 1024, 256),
-                                             (1, 300, 16, 128, 64), (200, 9000, 88, 1024, 256),
-                                             (300, 9000, 96, 1024, 256),
-                                             (301, 9000, 96, 1024, 64),
-                                             (130, 5000, 128, 512, 128),
-                                             (64, 3000, 200, 1024, 256),
-                                             (100, 9000, 40, 1024, 256)])
-def test_phase1_kernel_within_delta_of_plain(cuda, m, n, k, tile_n, ts):
-    q, r = make_dataset(k, m, n, seed=300 + m)
-    eng, delta, args = _phase1_args(q, r, tile_n, ts, cuda)
-    before = _cuda.LAUNCHES["expansion_phase1"]
-    got = phase1(*args, rc_t=eng.rc_t)
-    assert _cuda.LAUNCHES["expansion_phase1"] == before + 1
-    assert_phase1_close(got, phase1_plain(*args), delta)
-
-
 @pytest.mark.parametrize("m,n,k,tile_n,ts", [(1, 300, 16, 128, 64), (33, 777, 16, 128, 128),
                                              (1000, 70000, 16, 4096, 256),
+                                             (300, 5000, 16, 512, 256),
                                              (300, 9000, 32, 1024, 256),
                                              (129, 20000, 48, 1024, 256),
                                              (129, 20000, 8, 1024, 256),
+                                             (33, 777, 10, 128, 128),
                                              (300, 9000, 24, 1024, 256),
                                              (33, 777, 24, 128, 64),
+                                             (17, 3000, 24, 640, 640),
                                              (200, 9000, 40, 1024, 128),
+                                             (100, 9000, 40, 1024, 256),
                                              (200, 9000, 88, 1024, 256),
                                              (130, 9000, 96, 1024, 256),
+                                             (300, 9000, 96, 1024, 256),
+                                             (301, 9000, 96, 1024, 64),
                                              (300, 9000, 128, 1024, 256),
                                              (129, 5000, 128, 512, 64),
+                                             (130, 5000, 128, 512, 128),
                                              (64, 3000, 200, 1024, 256),
                                              (64, 3000, 200, 1024, 64)])
 def test_phase1_wgmma_kernel_within_delta_of_plain(cuda, m, n, k, tile_n, ts):
     # Every kp: 16-aligned with the query tile resident, 8 more than a
     # multiple of 16 (8, 24, 40, 88: each block padded with zero dims), and
-    # past a resident tile (128, 200: dimension slices of up to 48).
+    # past a resident tile (128, 200: dimension slices of up to 48); k = 10
+    # pads to kp = 16 with zero dims.
     q, r = make_dataset(k, m, n, seed=400 + m + k)
     eng, delta, args = _phase1_args(q, r, tile_n, ts, cuda)
-    assert _route(eng.kp, ts) == "wgmma"
+    assert _has_plan(eng.kp, ts)
     before = _counts()
     got = phase1(*args, rc_t=eng.rc_t)
-    assert _counts() == (before[0] + 1, before[1] + 1)
-    assert_phase1_close(got, phase1_plain(*args), delta)
-
-
-def test_phase1_mma_sync_kernel_where_kp_is_not_16_aligned(cuda):
-    # k = 24: kp = 24 now takes the wgmma kernel (blocks padded to 32 dims);
-    # the mma.sync kernel, no route any more, still answers through its own
-    # entry point (the yardstick), and both stay within delta of the plain
-    # version. The engine keeps rc_t alone.
-    q, r = make_dataset(24, 200, 9000, seed=24)
-    eng, delta, args = _phase1_args(q, r, 1024, 256, cuda)
-    assert _route(eng.kp, eng.ts) == "wgmma" and eng.rc_t is not None
-    before = _counts()
-    got = phase1(*args, rc_t=eng.rc_t)
-    assert _counts() == (before[0] + 1, before[1] + 1)
-    assert_phase1_close(got, phase1_plain(*args), delta)
-    yard = _phase1_cuda(args[0], eng.rc.contiguous(), *args[2:], None, "mma_sync")
-    assert _counts() == (before[0] + 2, before[1] + 1)
-    assert_phase1_close(yard, phase1_plain(*args), delta)
-
-
-def test_phase1_mma_sync_kernel_at_kp16(cuda):
-    # The mma.sync kernel through its own entry point at the main path's kp:
-    # chip_smoke.py's yardstick, held to the same tolerance. The engine keeps
-    # only rc_t there, so rc is made contiguous for it.
-    q, r = make_dataset(16, 300, 20000, seed=16)
-    eng, delta, args = _phase1_args(q, r, 1024, 256, cuda)
-    assert not eng.rc.is_contiguous()
-    before = _counts()
-    got = _phase1_cuda(args[0], eng.rc.contiguous(), *args[2:], None, "mma_sync")
-    assert _counts() == (before[0] + 1, before[1])
+    assert _counts() == before + 1
     assert_phase1_close(got, phase1_plain(*args), delta)
 
 
 def test_phase1_wgmma_route_needs_rc_t(cuda):
-    # The wgmma route reads the engine's rc_t; without it phase1 raises
+    # The wgmma kernels read the engine's rc_t; without it phase1 raises
     # instead of transposing rc on every call.
     q, r = make_dataset(16, 20, 3000, seed=5)
     _, _, args = _phase1_args(q, r, 1024, 256, cuda)
@@ -1320,22 +1278,22 @@ def test_phase1_wgmma_route_needs_rc_t(cuda):
 
 
 @pytest.mark.parametrize("ts", [64, 128, 192, 256, 320, 640])
-def test_phase1_route_agrees_with_the_kernel_library(cuda, ts):
-    # phase1_route (host) and wgmma_setup (csrc/expansion_phase1.cu) state
-    # the same rule: every shape the host sends to the wgmma kernel, the
-    # library takes, and it refuses every other.
+def test_phase1_plan_agrees_with_the_kernel_library(cuda, ts):
+    # phase1_plan (host) and wgmma_setup (csrc/expansion_phase1.cu) state
+    # the same rule: every shape the host has a plan for, the library
+    # takes, and it refuses every other.
     lib = _cuda.library()
     for kp in range(8, 265, 8):
         blocks = ctypes.c_int()
         rc = lib.nns_expansion_phase1_wgmma_blocks_per_sm(kp, ts, ctypes.byref(blocks))
-        assert (rc == 0) == (_route(kp, ts) == "wgmma"), (kp, ts, rc)
+        assert (rc == 0) == _has_plan(kp, ts), (kp, ts, rc)
         assert rc != 0 or blocks.value >= 1
     # Every kp the engine makes has a plan; none where kp % 8 != 0 or
-    # ts % 64 != 0, and the route says so.
-    assert all(_route(kp, ts) == "wgmma" for kp in range(8, 265, 8))
+    # ts % 64 != 0, and the host says so.
+    assert all(_has_plan(kp, ts) for kp in range(8, 265, 8))
     for kp, bad_ts in ((12, ts), (16, ts + 32)):
         rc = lib.nns_expansion_phase1_wgmma_blocks_per_sm(kp, bad_ts, ctypes.byref(blocks))
-        assert rc != 0 and _route(kp, bad_ts) == "none", (kp, bad_ts)
+        assert rc != 0 and not _has_plan(kp, bad_ts), (kp, bad_ts)
 
 
 @pytest.mark.parametrize("m,tile_n,ts,k", [(40, 512, 128, 16), (300, 256, 64, 16),
@@ -1359,14 +1317,13 @@ def test_phase1_kernel_merges_ranges_per_query(cuda, m, tile_n, ts, k):
             r[dup % n] = r[w]
     r[tile_n:2 * tile_n] = r[:tile_n]
     kp = -(-k // 8) * 8
-    route = _route(kp, ts)
-    assert route == "wgmma"
-    slots = _phase1_slots(_cuda.library(), kp, cuda, route, ts)
+    assert _has_plan(kp, ts)
+    slots = _phase1_slots(_cuda.library(), kp, cuda, ts)
     assert phase1_splits(m, -(-n // tile_n), slots) > 1
     eng, _, args = _phase1_args(q, r, tile_n, ts, cuda)
     before = _counts()
     got, want = phase1(*args, rc_t=eng.rc_t), phase1_plain(*args)
-    assert _counts() == (before[0] + 1, before[1] + 1)
+    assert _counts() == before + 1
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -1408,10 +1365,11 @@ def test_v9_engine_at_kp96_with_64_column_subtiles(cuda):
     # of 64-column chunks (221,696 bytes of shared memory).
     q, r = make_dataset(96, 300, 20_000, seed=96)
     eng = MXUExpansion(r, tile_s=64, device=cuda)
-    assert (eng.kp, eng.ts, eng.route) == (96, 64, "wgmma") and eng._rc is None
+    assert (eng.kp, eng.ts) == (96, 64) and _has_plan(eng.kp, eng.ts)
+    assert eng.rc_t.is_contiguous() and eng.rc.data_ptr() == eng.rc_t.data_ptr()
     before = _counts()
     got = eng.query(q)
-    assert _counts() == (before[0] + 1, before[1] + 1)
+    assert _counts() == before + 1
     r_dm, _ = prepare_refs(r, 4096, cuda)
     _, want = fused_min_idx(torch.as_tensor(q, device=cuda), r_dm, r.shape[0])
     np.testing.assert_array_equal(got, want.cpu().numpy())
@@ -1427,7 +1385,7 @@ def test_auto_engine_at_high_k_on_card(cuda, k):
     assert eng.spec.num == 9 and isinstance(eng._built, MXUExpansion)
     before = _counts()
     got = eng.query(q)
-    assert _counts() == (before[0] + 1, before[1] + 1)
+    assert _counts() == before + 1
     r_dm, _ = prepare_refs(r, 4096, cuda)
     _, want = fused_min_idx(torch.as_tensor(q, device=cuda), r_dm, r.shape[0])
     np.testing.assert_array_equal(got, want.cpu().numpy())

@@ -103,7 +103,8 @@ def test_phase1_plain_equals_jax(k, n, tile_n):
 # The CUDA kernel's algorithm, mirrored: each range of whole tiles scans its
 # subtiles incrementally into (tmin, lowest subtile, runner-up), updates the
 # six carries per tile, and the ranges are merged in ascending order
-# (csrc/expansion_phase1.cu, phase1_kernel and phase1_merge_kernel).
+# (csrc/expansion_phase1.cu, the wgmma kernels' epilogue and
+# phase1_merge_kernel).
 
 
 def _range_state(e, j0, j1, tile_n, ts):
@@ -185,50 +186,54 @@ def test_kernel_range_merge_equals_sequential(tile_n, ts, per):
                        float(want[3][i]), int(want[4][i]), float(want[5][i])], i
 
 
-def test_engine_keeps_rc_t(monkeypatch):
-    # The wgmma kernel's K-major ref operand: on that route the engine keeps
-    # rc_t, byte-equal to rc transposed, and rc only as a view of it, in a
-    # built engine and in one made from staged arrays; on any other route
-    # (the CPU's among them) it keeps rc alone. Either engine answers alike.
+def test_engine_keeps_rc_t():
+    # The wgmma kernel's K-major ref operand, on every device: the engine
+    # keeps rc_t alone, contiguous and byte-equal to the JAX engine's rc
+    # transposed, and rc only as a view of it, in a built engine and in one
+    # made from staged arrays (the JAX layout, transposed once). Both answer
+    # as the JAX engine does.
     q, refs = make_dataset(16, 50, 900, seed=2)
-    plain = P.MXUExpansion(refs, tile_n=128, device="cpu")
-    assert plain.route == "plain" and plain.rc_t is None and plain.rc.is_contiguous()
-    monkeypatch.setattr(P, "device_route", lambda kp, ts, device: "wgmma")
+    je = J.MXUExpansion(refs, tile_m=8, tile_n=128)
+    want = np.ascontiguousarray(_bits(je.rc).T)
     eng = P.MXUExpansion(refs, tile_n=128, device="cpu")
-    assert eng.route == "wgmma" and eng._rc is None
-    assert eng.rc_t.shape == (plain.rc.shape[1], 3 * eng.kp) and eng.rc_t.is_contiguous()
-    np.testing.assert_array_equal(_bits(eng.rc_t), _bits(plain.rc.t().contiguous()))
-    assert eng.rc.data_ptr() == eng.rc_t.data_ptr()
-    np.testing.assert_array_equal(_bits(eng.rc.contiguous()), _bits(plain.rc))
-    staged = P.MXUExpansion.from_staged(refs, plain.rc, plain.r2h, plain.refs_t, plain.r2h_t,
-                                        plain.tile_n, plain.ts, device="cpu")
-    assert staged._rc is None
-    np.testing.assert_array_equal(_bits(staged.rc_t), _bits(eng.rc_t))
-    np.testing.assert_array_equal(eng.query(q), plain.query(q))
+    rc = torch.from_numpy(_bits(je.rc).copy()).view(torch.bfloat16)
+    staged = P.MXUExpansion.from_staged(refs, rc, eng.r2h, eng.refs_t, eng.r2h_t, eng.tile_n,
+                                        eng.ts, device="cpu")
+    for e in (eng, staged):
+        assert e.rc_t.shape == (want.shape[0], 3 * e.kp) and e.rc_t.is_contiguous()
+        np.testing.assert_array_equal(_bits(e.rc_t), want)
+        assert e.rc.data_ptr() == e.rc_t.data_ptr() and not e.rc.is_contiguous()
+        np.testing.assert_array_equal(_bits(e.rc.contiguous()), _bits(je.rc))
+        # One ref layout: no other bf16 tensor is kept beside rc_t.
+        kept = [v for v in vars(e).values()
+                if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16]
+        assert len(kept) == 1 and kept[0] is e.rc_t
+    np.testing.assert_array_equal(eng.query(q), np.asarray(je.query(q)))
+    np.testing.assert_array_equal(staged.query(q), eng.query(q))
 
 
 # The H100's opt-in shared memory per block (227 KB).
 _H100_OPTIN = 232_448
 
 
-@pytest.mark.parametrize("kp,ts,optin,route", [
-    (16, 256, _H100_OPTIN, "wgmma"), (16, 64, _H100_OPTIN, "wgmma"),
-    (32, 256, _H100_OPTIN, "wgmma"), (48, 1024, _H100_OPTIN, "wgmma"),
-    (64, 256, _H100_OPTIN, "wgmma"),
-    (8, 256, _H100_OPTIN, "wgmma"), (24, 256, _H100_OPTIN, "wgmma"),  # padded to kp16
-    (80, 256, _H100_OPTIN, "wgmma"),       # 128-column chunks 246,784 bytes; 64: 184,832
-    (80, 64, _H100_OPTIN, "wgmma"),        # 64-column chunks: 184,832 bytes
-    (96, 64, _H100_OPTIN, "wgmma"),        # resident, 221,696 bytes
-    (96, 192, _H100_OPTIN, "wgmma"), (96, 256, _H100_OPTIN, "wgmma"),
-    (128, 256, _H100_OPTIN, "wgmma"),      # the sliced case
-    (16, 640, _H100_OPTIN, "wgmma"), (16, 100, _H100_OPTIN, "none"),  # ts % 64 != 0
-    (16, 256, 48 * 1024, "wgmma"),         # 64-column chunks fit a 48 KB card: 37,376 bytes
-    (12, 256, _H100_OPTIN, "none"),        # kp % 8 != 0 (the engine pads k to 8)
+@pytest.mark.parametrize("kp,ts,optin,expected", [
+    (16, 256, _H100_OPTIN, True), (16, 64, _H100_OPTIN, True),
+    (32, 256, _H100_OPTIN, True), (48, 1024, _H100_OPTIN, True),
+    (64, 256, _H100_OPTIN, True),
+    (8, 256, _H100_OPTIN, True), (24, 256, _H100_OPTIN, True),  # padded to kp16
+    (80, 256, _H100_OPTIN, True),       # 128-column chunks 246,784 bytes; 64: 184,832
+    (80, 64, _H100_OPTIN, True),        # 64-column chunks: 184,832 bytes
+    (96, 64, _H100_OPTIN, True),        # resident, 221,696 bytes
+    (96, 192, _H100_OPTIN, True), (96, 256, _H100_OPTIN, True),
+    (128, 256, _H100_OPTIN, True),      # the sliced case
+    (16, 640, _H100_OPTIN, True), (16, 100, _H100_OPTIN, False),  # ts % 64 != 0
+    (16, 256, 48 * 1024, True),         # 64-column chunks fit a 48 KB card: 37,376 bytes
+    (12, 256, _H100_OPTIN, False),      # kp % 8 != 0 (the engine pads k to 8)
 ])
-def test_phase1_route_by_shape(kp, ts, optin, route):
-    # Every kp the engine makes (a multiple of 8) takes the wgmma kernel
-    # wherever ts % 64 == 0; the mma.sync kernel is no route any more.
-    assert P.phase1_route(kp, ts, optin) == route
+def test_phase1_route_by_shape(kp, ts, optin, expected):
+    # Every kp the engine makes (a multiple of 8) has a wgmma plan wherever
+    # ts % 64 == 0; where there is none, phase 1 on the card raises.
+    assert (P.phase1_plan(kp, ts, optin) is not None) == expected
 
 
 @pytest.mark.parametrize("kp,ts,plan", [
@@ -315,7 +320,7 @@ def _read(buf, start, rows, kc):
 
 @pytest.mark.parametrize("k,m,n,ts", [(16, 130, 300, 128), (12, 40, 700, 64), (32, 70, 200, 128),
                                       (48, 9, 130, 64)])
-def test_wgmma_addressing_reads_phase1_plain_cross(monkeypatch, k, m, n, ts):
+def test_wgmma_addressing_reads_phase1_plain_cross(k, m, n, ts):
     # Integer data: every product and sum is exact in any order, so the
     # cross terms read through the mirrored descriptors from the engine's
     # staged rc_t must equal the plain version's qc @ [rh; rm; rh; rl; rh;
@@ -323,10 +328,9 @@ def test_wgmma_addressing_reads_phase1_plain_cross(monkeypatch, k, m, n, ts):
     rng = np.random.default_rng(k + m)
     refs = rng.integers(-3, 4, (n, k)).astype(np.float32)
     q = rng.integers(-3, 4, (m, k)).astype(np.float32)
-    monkeypatch.setattr(P, "device_route", lambda kp, ts, device: "wgmma")
     eng = P.MXUExpansion(refs, tile_n=128, tile_s=ts, device="cpu")
     kp, n_pad, bn, rc_t = eng.kp, eng.rc.shape[1], P.wgmma_chunk(ts), eng.rc_t
-    assert P.phase1_route(kp, eng.ts, _H100_OPTIN) == "wgmma"
+    assert P.phase1_plan(kp, eng.ts, _H100_OPTIN) is not None
     qc = P._cat_q(*P.split_bf16x3(eng.stage_queries(q).q_dev))
     rows = torch.cat([eng.rc[s * kp:(s + 1) * kp] for s in P._SPLIT_OF_BLOCK]).float()
     with P.full_fp32_matmul():
@@ -374,8 +378,7 @@ def _stage_slice(src, blocks, kp, d0, dn, ds, rows):
 @pytest.mark.parametrize("k,m,n,ts,sliced", [(24, 130, 300, 256, False), (40, 70, 200, 64, False),
                                              (96, 9, 130, 256, True), (128, 40, 200, 128, True),
                                              (104, 20, 130, 64, True), (200, 9, 130, 64, True)])
-def test_wgmma_padded_and_sliced_staging_reads_phase1_plain_cross(monkeypatch, k, m, n, ts,
-                                                                  sliced):
+def test_wgmma_padded_and_sliced_staging_reads_phase1_plain_cross(k, m, n, ts, sliced):
     # The wgmma kernels' staging of padded blocks (kp % 16 == 8: each block
     # and split padded with zeros to whole k16 steps) and of dimension
     # slices (units of (chunk, slice) holding the rc slice and, unless the
@@ -388,7 +391,6 @@ def test_wgmma_padded_and_sliced_staging_reads_phase1_plain_cross(monkeypatch, k
     rng = np.random.default_rng(k + m)
     refs = rng.integers(-3, 4, (n, k)).astype(np.float32)
     q = rng.integers(-3, 4, (m, k)).astype(np.float32)
-    monkeypatch.setattr(P, "device_route", lambda kp, ts, device: "wgmma")
     eng = P.MXUExpansion(refs, tile_n=128, tile_s=ts, device="cpu")
     kp, n_pad, rc_t = eng.kp, eng.rc.shape[1], eng.rc_t
     plan = P.phase1_plan(kp, eng.ts, _H100_OPTIN)
