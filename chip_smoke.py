@@ -1003,9 +1003,9 @@ def main() -> int:
 def _binning_check(name, eng, queue):
     """Phase 3's binning kernels against their plain versions on the same
     card tensors, for one queue as the drain uploads it: ``bin_queue``'s
-    sids, per-supercell counts and per-batch maxima bit-equal to
-    ``bin_queue_plain``'s (tolerance 0) and each (batch, supercell)'s slots
-    the same set; ``place_queue`` on the drain's plan against
+    sids, per-supercell counts, per-batch maxima and non-finite count
+    bit-equal to ``bin_queue_plain``'s (tolerance 0) and each (batch,
+    supercell)'s slots the same set; ``place_queue`` on the drain's plan against
     ``place_queue_plain``: the same rows placed, each row's slot in the
     same (batch, supercell) block, the table bit-equal to the row at each
     row's slot and zero at every other slot, rows of a batch without a
@@ -1024,9 +1024,10 @@ def _binning_check(name, eng, queue):
     bp_ms, want = cuda_ms(lambda: bin_queue_plain(rows, offs, eng.D, eng.mn, eng.W))
     sid, pos, counts, maxima = got
     for label, a, b in (("sid", sid, want[0]), ("counts", counts, want[2]),
-                        ("maxima", maxima, want[3])):
+                        ("maxima and non-finite count", maxima, want[3])):
         if a.dtype != b.dtype or not torch.equal(a, b):
             raise AssertionError(f"cell_bin {name}: {label} differs from bin_queue_plain's")
+    maxima = maxima[:-1]
     batch = torch.repeat_interleave(torch.arange(len(queue), device=dev),
                                     torch.tensor(sizes, device=dev))
     key = (batch * groups + sid.long()) * (int(maxima.max()) + 1)

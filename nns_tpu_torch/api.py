@@ -24,6 +24,7 @@ from typing import Any, Callable
 import numpy as np
 
 from nns_tpu_torch.config import DEFAULT_ENGINE_CONFIG, EngineConfig
+from nns_tpu_torch.kernels.layouts import non_finite_error
 from nns_tpu_torch.utils.spans import span, spanned
 
 
@@ -37,10 +38,7 @@ def _check_finite(arr: np.ndarray, name: str) -> None:
     """NaN/inf coordinates silently poison distance comparisons; reject them
     at the API boundary."""
     if not np.isfinite(arr).all():
-        raise ValueError(
-            f"{name} contains non-finite values (NaN/inf); exact NN search "
-            "is defined for finite float32 coordinates only"
-        )
+        raise non_finite_error(name)
 
 
 # Version adapters, as nns_tpu/api.py:49-98. ``r`` is the numpy refs, or
@@ -374,7 +372,9 @@ class NNEngine:
             self._built = as_f32(refs, self.device)
         return self
 
-    def _check_queries(self, queries) -> np.ndarray:
+    def _as_queries(self, queries) -> np.ndarray:
+        """The queries as an f32 (m, k) array, after the build and dimension
+        checks."""
         if self._refs is None:
             raise RuntimeError("call build(refs) first")
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
@@ -383,6 +383,11 @@ class NNEngine:
                 f"dimension mismatch: queries k={queries.shape[1]}, "
                 f"refs k={self._refs.shape[1]}"
             )
+        return queries
+
+    def _check_queries(self, queries) -> np.ndarray:
+        """``_as_queries`` and the host's finiteness pass."""
+        queries = self._as_queries(queries)
         _check_finite(queries, "queries")
         return queries
 
@@ -550,14 +555,21 @@ class NNEngine:
         promotion hysteresis after the drain (the sharded index drains the
         same way and never promotes); the beam, fused, v8 and v9 expansion
         engines answer the concatenated queue in one call; the
-        other versions answer batch by batch (nns_tpu/api.py:639-692)."""
+        other versions answer batch by batch (nns_tpu/api.py:639-692).
+        The single-device supercell drain checks the queue's finiteness on
+        its device, in the pass that bins it, and its int32 answers come
+        back as the drain made them: no host pass over the coordinates and
+        no copy of the answers."""
         from nns_tpu_torch.kernels.cell_list import CellListEngine
         from nns_tpu_torch.kernels.fused import FusedBruteForce
         from nns_tpu_torch.kernels.mxu_expansion import MXUExpansion
         from nns_tpu_torch.parallel.sharded import ShardedBruteForce
         from nns_tpu_torch.trees.beam import BeamIndex
 
-        batches = [self._check_queries(b) for b in batches]
+        # By exact type: the sharded index (a subclass) stages on the host.
+        drained_on_device = type(self._built) is CellListEngine
+        check = self._as_queries if drained_on_device else self._check_queries
+        batches = [check(b) for b in batches]
         if isinstance(self._built, CellListEngine):
             results, covs = self._built.query_queue(batches, return_coverage=True)
             # The answers of this queue are already exact; the next queue
@@ -565,8 +577,10 @@ class NNEngine:
             promote = False
             for qb, cov in zip(batches, covs):
                 promote |= self._note_cell_coverage(cov, qb.shape[0])
-            if promote and type(self._built) is CellListEngine:
+            if promote and drained_on_device:
                 self._promote_to_beam()
+            if drained_on_device:
+                return results  # the drain's int32 answers, uncopied
             return [_as_idx(i) for i in results]
         if (not isinstance(self._built, (BeamIndex, FusedBruteForce, MXUExpansion,
                                          ShardedBruteForce)) or not batches):

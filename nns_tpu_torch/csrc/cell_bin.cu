@@ -23,7 +23,11 @@
 // (batch, supercell) counter gives the row its slot, so the counters end as
 // the per-supercell counts and a slot's order inside its supercell is the
 // order in which the atomics land. Each warp folds the counts it saw into
-// the batch's largest with one atomic max.
+// the batch's largest with one atomic max. The kernel also counts the rows
+// with a NaN or an infinity in any coordinate into `nonfinite`, one int32
+// right after the maxima, with one atomic add per warp that saw such a row:
+// the drain downloads the count with the maxima and raises ValueError when
+// it is above 0, before any table is placed or scanned.
 //
 // cell_place_kernel: once the host has read the maxima and chosen each
 // batch's q_max and table offset (`plan`), one thread per row writes the
@@ -67,9 +71,11 @@ struct Geometry {
 __global__ void cell_bin_kernel(const float* __restrict__ q, const int* __restrict__ offs,
                                 int batches, int d_per_dim, Geometry geo,
                                 int* __restrict__ sid, int* __restrict__ pos,
-                                int* __restrict__ counts, int* __restrict__ maxima) {
+                                int* __restrict__ counts, int* __restrict__ maxima,
+                                int* __restrict__ nonfinite) {
   const long long groups = (long long)d_per_dim * d_per_dim * d_per_dim;
   const double top = (double)(d_per_dim - 1);
+  int bad = 0;
   for (int b = blockIdx.y; b < batches; b += gridDim.y) {
     const int lo = offs[b], hi = offs[b + 1];
     int* cnt = counts + (long long)b * groups;
@@ -77,10 +83,13 @@ __global__ void cell_bin_kernel(const float* __restrict__ q, const int* __restri
     for (int i = lo + blockIdx.x * blockDim.x + threadIdx.x; i < hi;
          i += gridDim.x * blockDim.x) {
       int g = 0;
+      int special = 0;
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
-        double c = floor(__ddiv_rn(__dsub_rn((double)q[3 * (long long)i + d], geo.mn[d]),
-                                   geo.w[d]));
+        const float v = q[3 * (long long)i + d];
+        // NaN and +-inf are the floats whose exponent bits are all ones.
+        special |= (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;
+        double c = floor(__ddiv_rn(__dsub_rn((double)v, geo.mn[d]), geo.w[d]));
         c = fmin(fmax(c, 0.0), top);
         g = g * d_per_dim + (int)c;
       }
@@ -88,10 +97,13 @@ __global__ void cell_bin_kernel(const float* __restrict__ q, const int* __restri
       sid[i] = g;
       pos[i] = p;
       most = max(most, p + 1);
+      bad += special;
     }
     most = __reduce_max_sync(0xffffffffu, most);
     if ((threadIdx.x & 31) == 0 && most > 0) atomicMax(maxima + b, most);
   }
+  bad = __reduce_add_sync(0xffffffffu, bad);
+  if ((threadIdx.x & 31) == 0 && bad > 0) atomicAdd(nonfinite, bad);
 }
 
 __global__ void cell_place_kernel(const float* __restrict__ q, const int* __restrict__ offs,
@@ -187,7 +199,9 @@ dim3 queue_grid(int batches, int max_rows) {
 
 // queries (rows, 3) f32 and offs (batches + 1) i32 on the card; geo the
 // host's six doubles (mn[3], w[3]); counts (batches, D^3) and maxima
-// (batches) i32 zero-filled by the caller. Writes sid and pos (rows) i32.
+// (batches + 1) i32 zero-filled by the caller. Writes sid and pos (rows)
+// i32, each batch's largest count at maxima[b] and the number of rows with
+// a non-finite coordinate at maxima[batches].
 extern "C" int nns_cell_bin(const float* queries, const int* offs, int batches, int max_rows,
                             int d_per_dim, const double* geo, int* sid, int* pos, int* counts,
                             int* maxima, void* stream) {
@@ -202,7 +216,8 @@ extern "C" int nns_cell_bin(const float* queries, const int* offs, int batches, 
   }
   cell_bin_kernel<<<queue_grid(batches, max_rows), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(queries, offs, batches, d_per_dim, g,
-                                                         sid, pos, counts, maxima);
+                                                         sid, pos, counts, maxima,
+                                                         maxima + batches);
   return (int)cudaGetLastError();
 }
 

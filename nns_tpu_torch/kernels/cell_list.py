@@ -42,7 +42,8 @@ import torch
 
 from nns_tpu_torch.kernels import _cuda
 from nns_tpu_torch.kernels.fused import FusedBruteForce, as_f32, fused_fallback
-from nns_tpu_torch.kernels.layouts import PAD_SENTINEL, pow2_at_least as _pow2_at_least
+from nns_tpu_torch.kernels.layouts import PAD_SENTINEL, non_finite_error
+from nns_tpu_torch.kernels.layouts import pow2_at_least as _pow2_at_least
 from nns_tpu_torch.kernels.topk import direct_d2, nns_topk, smallest
 from nns_tpu_torch.utils.spans import COUNTS, count_copy, span, spanned
 
@@ -166,6 +167,18 @@ def _to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host array. A CUDA tensor comes down in one blocking copy
+    into pinned memory from PyTorch's pinned-memory cache: a caller that
+    keeps views of one download while the next runs (the queue drain hands
+    back its answers uncopied) would otherwise make each download fault in
+    fresh pageable pages. The block returns to the cache when its last view
+    is dropped."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t).numpy()
+
+
 def _upload_queue(queries: list[np.ndarray], device) -> tuple[torch.Tensor, torch.Tensor]:
     """A queue's (m, 3) f32 batches on ``device`` as their concatenation
     (rows, 3) f32 and the (batches + 1,) i32 row offsets. For a CUDA device
@@ -203,7 +216,7 @@ def bin_queue_plain(rows: torch.Tensor, offs: torch.Tensor, d_per_dim: int, mn, 
     """Plain PyTorch binning of a queue (``bin_queue``): float64 torch ops
     for the supercell ids (the host sort's expression), ``bincount`` for the
     counts and a stable sort for the slots, which follow the row order
-    inside each (batch, supercell)."""
+    inside each (batch, supercell); ``isfinite`` for the non-finite rows."""
     dev = rows.device
     nb, groups = offs.shape[0] - 1, d_per_dim ** 3
     mn = torch.as_tensor(np.asarray(mn, dtype=np.float64), device=dev)
@@ -219,7 +232,8 @@ def bin_queue_plain(rows: torch.Tensor, offs: torch.Tensor, d_per_dim: int, mn, 
     pos = torch.empty_like(key)
     pos[order] = torch.arange(len(key), device=dev) - (torch.cumsum(counts, 0) - counts)[key[order]]
     counts = counts.view(nb, groups).int()
-    return sid.int(), pos.int(), counts, counts.amax(1)
+    nonfinite = (~torch.isfinite(rows).all(1)).sum().view(1).int()
+    return sid.int(), pos.int(), counts, torch.cat([counts.amax(1), nonfinite])
 
 
 def bin_queue(rows: torch.Tensor, offs: torch.Tensor, max_rows: int, d_per_dim: int, mn, w):
@@ -227,11 +241,16 @@ def bin_queue(rows: torch.Tensor, offs: torch.Tensor, max_rows: int, d_per_dim: 
     (batches + 1,) i32 on one device, max_rows the largest batch, the grid's
     D per dimension, its float64 origin ``mn`` and widths ``w`` (3,) ->
     (sid (rows,) i32, pos (rows,) i32: the row's slot in its (batch,
-    supercell), counts (batches, D^3) i32, maxima (batches,) i32: each
-    batch's largest count). sid and the counts equal the host sort's
+    supercell), counts (batches, D^3) i32, maxima (batches + 1,) i32: each
+    batch's largest count, then the number of rows with a NaN or an
+    infinity in any coordinate). sid and the counts equal the host sort's
     (``CellListEngine.stage``); slots are an order of the rows inside their
-    supercell. CPU tensors take ``bin_queue_plain``; CUDA tensors launch
-    ``csrc/cell_bin.cu``'s kernel (or raise RuntimeError)."""
+    supercell. A non-finite row is binned all the same (a NaN to
+    supercell 0 per dimension, an infinity to the nearest end); the drain
+    (``CellListEngine._bin``) raises ValueError on a count above 0 before
+    any table is placed or scanned. CPU tensors take ``bin_queue_plain``;
+    CUDA tensors launch ``csrc/cell_bin.cu``'s kernel (or raise
+    RuntimeError)."""
     _check_queue(rows, offs)
     if rows.device.type == "cpu":
         return bin_queue_plain(rows, offs, d_per_dim, mn, w)
@@ -239,7 +258,7 @@ def bin_queue(rows: torch.Tensor, offs: torch.Tensor, max_rows: int, d_per_dim: 
         raise ValueError(f"unsupported device {rows.device}")
     dev, nb, groups = rows.device, offs.shape[0] - 1, d_per_dim ** 3
     sid_pos = torch.empty((2, rows.shape[0]), dtype=torch.int32, device=dev)
-    state = torch.zeros(nb * groups + nb, dtype=torch.int32, device=dev)
+    state = torch.zeros(nb * groups + nb + 1, dtype=torch.int32, device=dev)
     geo = np.ascontiguousarray(np.concatenate([mn, w]), dtype=np.float64)
     lib = _cuda.library()
     with torch.cuda.device(dev):
@@ -834,8 +853,11 @@ class CellListEngine:
     def _bin(self, queries: list[np.ndarray]) -> BinnedQueue:
         """Upload a queue's rows and bin them on the device: one upload
         (``_upload_queue``), ``bin_queue``, one download of the per-batch
-        maxima; each batch's q_max as ``stage`` picks it, and the parts of
-        the tables (``queue_parts``, at most ``_QUEUE_SLOTS`` slots each)."""
+        maxima and the count of non-finite rows, which raises ValueError
+        when above 0 (the drain's only finiteness check, before any table
+        is placed); each batch's q_max as ``stage`` picks it, and the parts
+        of the tables (``queue_parts``, at most ``_QUEUE_SLOTS`` slots
+        each)."""
         sizes = np.array([len(q) for q in queries], dtype=np.int64)
         with span("nns.cells.bin"):
             rows, offs = _upload_queue(queries, self.device)
@@ -843,6 +865,10 @@ class CellListEngine:
                                             self.W)
             raw = maxima.cpu().numpy()
             count_copy("down", raw.nbytes, self.device)
+        COUNTS["cells.device_checked_rows"] += int(sizes.sum())
+        if raw[-1]:
+            raise non_finite_error("queries")
+        raw = raw[:-1]
         q_max = np.array([_pow2_at_least(max(int(r), 8)) for r in raw], dtype=np.int64)
         skewed = q_max > self.q_max_limit()
         plan, parts = queue_parts(np.where(skewed | (sizes == 0), 0, q_max), self.D ** 3,
@@ -901,9 +927,10 @@ class CellListEngine:
         with no table); one download of the counts and the list's length;
         one ``FusedBruteForce.fallback`` over the listed rows, gathered from
         the uploaded rows, its answers scattered into place; one download
-        of the answers. Returns (answers, per-batch coverage) as
-        ``_answer_queue`` does. On a CPU device it runs the plain twins (the
-        tests' specification of this path)."""
+        of the answers (``_to_host``). Returns (answers: int32 views of that
+        one download, per-batch coverage) as ``_answer_queue`` does. On a
+        CPU device it runs the plain twins (the tests' specification of
+        this path)."""
         rows, ends, batches = binned.rows, binned.ends, len(queries)
         max_rows, lim = int(np.diff(ends).max()), (2.0 * self.halo) ** 2
         with span("nns.cells.device"):
@@ -924,7 +951,7 @@ class CellListEngine:
                 idx.index_copy_(0, at, self._fallback_engine().fallback(rows.index_select(0, at)))
             COUNTS["cells.exact_calls"] += 1
         with span("nns.cells.download"):
-            flat = idx.cpu().numpy()
+            flat = _to_host(idx)
         count_copy("down", flat.nbytes, self.device)
         COUNTS["cells.device_answered_rows"] += len(flat)
         results = [flat[lo:hi] for lo, hi in zip(ends[:-1], ends[1:])]

@@ -18,6 +18,15 @@ import torch
 PAD_SENTINEL = 1e6
 
 
+def non_finite_error(name: str) -> ValueError:
+    """The error for NaN/inf coordinates, which silently poison distance
+    comparisons: raised at the API boundary and by the v14 queue drain."""
+    return ValueError(
+        f"{name} contains non-finite values (NaN/inf); exact NN search "
+        "is defined for finite float32 coordinates only"
+    )
+
+
 def round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
 

@@ -32,7 +32,7 @@ import torch
 from nns_tpu_torch.kernels.cell_list import (CellListEngine, CellToken, _device_query_topk,
                                              _upload, cell_scan, nns_cell_list)
 from nns_tpu_torch.kernels.fused import as_f32
-from nns_tpu_torch.kernels.layouts import PAD_SENTINEL
+from nns_tpu_torch.kernels.layouts import PAD_SENTINEL, non_finite_error
 from nns_tpu_torch.parallel.mesh import Mesh, make_mesh
 from nns_tpu_torch.parallel.sharded import nns_sharded
 from nns_tpu_torch.utils.spans import count_copy, span
@@ -130,10 +130,14 @@ class ShardedCellEngine(CellListEngine):
         of shards); the signed winners of the whole queue are concatenated
         on ``devices[0]`` and downloaded once; then the host answers each
         batch as the base drain does (``_answer_queue``), putting its
-        winners back in query order first."""
+        winners back in query order first. A NaN or an infinity in any
+        row raises ValueError on the host first: this drain never runs
+        ``bin_queue``, whose count the base drain checks."""
         if not batches:
             return ([], []) if return_coverage else []
         queries = [np.ascontiguousarray(qb, dtype=np.float32) for qb in batches]
+        if not all(np.isfinite(q).all() for q in queries):
+            raise non_finite_error("queries")
         staged = [self.stage(q) for q in queries]
         with span("nns.cells.device"):
             rows = [self.query_staged(packed, q_max)[0] for packed, _, q_max in staged

@@ -16,6 +16,9 @@ value the code already holds (no device sync, no pass over the rows).
   and rows its certificate proved;
 - ``cells.device_staged_rows``: rows of the v14 queue drain binned on the
   device and scanned (a batch too skewed for the scan is not);
+- ``cells.device_checked_rows``: rows of the v14 queue drain whose
+  finiteness ``bin_queue`` checked in the pass that bins them (every row
+  of the queue; ``NNEngine.query_many`` makes no host pass over them);
 - ``cells.device_answered_rows``: rows of the v14 queue drain on a CUDA
   device answered by ``cell_answer`` (decoded, or listed for the exact
   fallback), not by the host tail;
@@ -39,7 +42,7 @@ _OFF = contextlib.nullcontext()
 
 COUNTS: dict[str, int] = {
     "cells.rows": 0, "cells.certified_rows": 0, "cells.device_staged_rows": 0,
-    "cells.device_answered_rows": 0, "cells.exact_calls": 0,
+    "cells.device_checked_rows": 0, "cells.device_answered_rows": 0, "cells.exact_calls": 0,
     "mxu.rows": 0, "mxu.certified_rows": 0,
     "copy.bytes_up": 0, "copy.bytes_down": 0,
 }

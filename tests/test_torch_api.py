@@ -317,6 +317,68 @@ def test_sharded_index_never_promotes(four_devices, via):
     assert isinstance(single._built, BeamIndex)
 
 
+def _v14_engine(engine, request):
+    """NNEngine's single-device supercell index ("cells") over 32768 uniform
+    refs, or the sharded one that "auto" builds on four devices over 65536."""
+    if engine == "cells":
+        _, r = make_dataset(3, 1, 32768, seed=72)
+        eng = nns_tpu_torch.NNEngine(14, device="cpu").build(r)
+        assert type(eng._built) is CellListEngine
+    else:
+        request.getfixturevalue("four_devices")
+        _, r = make_dataset(3, 1, 65536, seed=72)
+        eng = nns_tpu_torch.NNEngine("auto", device="cpu").build(r)
+        assert type(eng._built) is ShardedCellEngine
+    return eng, r
+
+
+@pytest.mark.parametrize("engine", ["cells", "sharded_cells"])
+def test_v14_query_many_raises_on_non_finite(engine, request, monkeypatch):
+    # A NaN or an infinity anywhere in a v14 queue raises ValueError. The
+    # single-device drain makes no host pass over the queue (bin_queue
+    # counts the bad rows in the pass that bins them); the sharded drain,
+    # which stages on the host, keeps the API's check and one of its own.
+    import nns_tpu_torch.api as api
+
+    eng, _ = _v14_engine(engine, request)
+    rng = np.random.default_rng(73)
+    q = rng.random((64, 3), dtype=np.float32)
+    checked = []
+    check = api._check_finite
+    monkeypatch.setattr(api, "_check_finite", lambda a, name: checked.append(name) or check(a, name))
+    for value, bad_batch in ((np.nan, -1), (np.inf, 0), (-np.inf, -1)):
+        queue = [q.copy(), q.copy(), q[:7].copy()]
+        queue[bad_batch][-1, 2] = value
+        with pytest.raises(ValueError, match="non-finite"):
+            eng.query_many(queue)
+        with pytest.raises(ValueError, match="non-finite"):
+            eng._built.query_queue(queue)
+    # The API's host check stops at the first bad batch: 3 + 1 + 3 batches.
+    assert len(checked) == (0 if engine == "cells" else 7)
+    with pytest.raises(ValueError, match="non-finite"):
+        eng.query(queue[-1])
+
+
+@pytest.mark.parametrize("engine", ["cells", "sharded_cells"])
+def test_v14_query_many_hands_back_the_drains_answers(engine, request, monkeypatch):
+    # The single-device drain's int32 answers come back as query_queue made
+    # them, not copied; the sharded drain's go through the API's copy. Both
+    # are exact and int32.
+    eng, r = _v14_engine(engine, request)
+    rng = np.random.default_rng(74)
+    queue = [rng.random((m, 3), dtype=np.float32) for m in (300, 1, 200)]
+    made = []
+    drain = eng._built.query_queue
+    monkeypatch.setattr(eng._built, "query_queue",
+                        lambda batches, **kw: made.append(drain(batches, **kw)) or made[-1])
+    got = eng.query_many(queue)
+    (answers, _), = made
+    assert [a is b for a, b in zip(got, answers, strict=True)] == [engine == "cells"] * 3
+    for idx, qb in zip(got, queue):
+        assert idx.dtype == np.int32
+        assert_exact(idx, qb, r)
+
+
 def test_registry_names_match_jax():
     port = [(s.num, s.name, s.family) for s in nns_tpu_torch.list_versions()]
     jax = [(s.num, s.name, s.family) for s in nns_tpu.list_versions()]

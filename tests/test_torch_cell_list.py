@@ -556,7 +556,68 @@ def test_bin_queue_plain_equals_native_stage(seed):
                                       np.bincount(want_sid, minlength=eng.D ** 3))
         assert int(maxima[b]) == raw_max
     assert sid.dtype == pos.dtype == counts.dtype == maxima.dtype == torch.int32
+    assert maxima.shape == (len(queue) + 1,) and int(maxima[-1]) == 0
     assert int(maxima[3]) == 0 and (sid[300:700] != sid[300:700][0]).any()
+
+
+@pytest.fixture(scope="module")
+def small_cells():
+    _, r = make_dataset(3, 1, 8192, seed=65)
+    return r, CellListEngine(r, device="cpu")
+
+
+@pytest.mark.parametrize("row", ["first", "last"])
+@pytest.mark.parametrize("dim", [0, 1, 2])
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf], ids=["nan", "inf", "-inf"])
+def test_bin_queue_plain_counts_non_finite_rows(small_cells, value, dim, row):
+    # bin_queue's twin counts the rows with a NaN or an infinity after the
+    # per-batch maxima, and bins such a row as a finite row far outside the
+    # box on the same side (NaN and -inf to supercell 0 of their dimension,
+    # +inf to D - 1): sid, pos, counts and maxima equal that queue's. Rows
+    # are counted, not coordinates: a second bad coordinate in the same
+    # row leaves the count at 1.
+    from nns_tpu_torch.kernels.cell_list import _upload_queue, bin_queue
+
+    _, eng = small_cells
+    queue = [q.copy() for q in _binning_queue(eng, 65)[:3]]
+    at = 0 if row == "first" else -1
+    stand_in = [q.copy() for q in queue]
+    queue[1][at, dim] = value
+    stand_in[1][at, dim] = eng.mn[dim] + (1e3 if value == np.inf else -1e3)
+    got = bin_queue(*_upload_queue(queue, "cpu"), 400, eng.D, eng.mn, eng.W)
+    want = bin_queue(*_upload_queue(stand_in, "cpu"), 400, eng.D, eng.mn, eng.W)
+    for a, b in zip(got[:3], want[:3], strict=True):
+        assert torch.equal(a, b)
+    assert got[3][:-1].tolist() == want[3][:-1].tolist()
+    assert int(got[3][-1]) == 1 and int(want[3][-1]) == 0
+    queue[1][at, (dim + 1) % 3] = np.nan
+    assert int(bin_queue(*_upload_queue(queue, "cpu"), 400, eng.D, eng.mn, eng.W)[3][-1]) == 1
+
+
+@pytest.mark.parametrize("batch", ["first", "last"])
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf], ids=["nan", "inf", "-inf"])
+def test_query_queue_raises_on_non_finite_before_any_scan(small_cells, value, batch):
+    # The v14 drain checks finiteness in the pass that bins the queue: a
+    # NaN or an infinity in the first or the last batch raises ValueError
+    # before a batch is staged, scanned or answered. Every row was checked;
+    # the same engine then answers a finite queue exactly, in int32.
+    from nns_tpu_torch.utils.spans import COUNTS
+
+    r, eng = small_cells
+    rng = np.random.default_rng(66)
+    queue = [rng.random((m, 3), dtype=np.float32) for m in (200, 0, 300)]
+    bad = [q.copy() for q in queue]
+    bad[0 if batch == "first" else -1][-1, 1] = value
+    before = dict(COUNTS)
+    with pytest.raises(ValueError, match="non-finite"):
+        eng.query_queue(bad)
+    grew = {name: COUNTS[name] - before[name] for name in COUNTS}
+    assert grew["cells.device_checked_rows"] == 500
+    assert grew["cells.device_staged_rows"] == grew["cells.rows"] == 0
+    got = eng.query_queue(queue)
+    assert [(idx.dtype, len(idx)) for idx in got] == [(np.int32, len(qb)) for qb in queue]
+    assert_exact(np.concatenate(got), np.concatenate(queue), r)
+    assert COUNTS["cells.device_checked_rows"] - before["cells.device_checked_rows"] == 1000
 
 
 @pytest.mark.parametrize("case", ["mixed", "one_batch"])

@@ -436,7 +436,9 @@ def _bin_queue_case(case, eng, rng):
     faces (and one f32 ulp off them), rows outside the box, a batch above
     the 2048 skew limit, an empty batch; "large" has one batch past the
     kernels' 1024 blocks of 256 rows, "many" more batches than a grid has
-    rows (65535)."""
+    rows (65535); "nonfinite" is "mixed" with NaN and +-inf coordinates in
+    the first and last rows of batches and in every 97th row of the last
+    one (many warps each see one)."""
     if case == "large":
         return [rng.random((300_000, 3), dtype=np.float32), rng.random((7, 3), dtype=np.float32)]
     if case == "many":
@@ -449,15 +451,24 @@ def _bin_queue_case(case, eng, rng):
                - np.float32(1.0)).astype(np.float32)
     skewed = (np.float32(0.5) + rng.random((2 * eng.q_max_limit() + 10, 3), dtype=np.float32)
               * np.float32(1e-4)).astype(np.float32)
-    return [rng.random((1000, 3), dtype=np.float32), faces, outside, skewed,
-            np.zeros((0, 3), np.float32), rng.random((3000, 3), dtype=np.float32)]
+    queue = [rng.random((1000, 3), dtype=np.float32), faces, outside, skewed,
+             np.zeros((0, 3), np.float32), rng.random((3000, 3), dtype=np.float32)]
+    if case == "nonfinite":
+        queue[0][0, 0] = np.nan
+        queue[1][-1, 1] = np.inf
+        queue[2][0, 2] = -np.inf
+        queue[5][::97, 1] = np.nan
+        queue[5][-1] = (np.inf, np.nan, -np.inf)
+    return queue
 
 
-@pytest.mark.parametrize("case", ["mixed", "large", "many"])
+@pytest.mark.parametrize("case", ["mixed", "large", "many", "nonfinite"])
 def test_cell_bin_kernels_equal_twin(cuda, case):
-    # bin_queue's kernel against its plain twin: sids, per-supercell counts
-    # and per-batch maxima bit-equal; each (batch, supercell)'s slots are
-    # 0..count-1 in both, in any order. place_queue's kernel on the same
+    # bin_queue's kernel against its plain twin: sids, per-supercell counts,
+    # per-batch maxima and the count of rows with a NaN or an infinity
+    # bit-equal (that count is 0 on a finite queue); each (batch,
+    # supercell)'s slots are 0..count-1 in both, in any order. place_queue's
+    # kernel on the same
     # plan: each row sits at its slot, every slot lies in the row's
     # (batch, supercell) block as the twin's does, every other slot is
     # zero, and a batch without a table points its rows past the last slot.
@@ -470,16 +481,20 @@ def test_cell_bin_kernels_equal_twin(cuda, case):
     sizes = [len(b) for b in queue]
     rows, offs = _upload_queue(queue, cuda)
     rows_c, offs_c = rows.cpu(), offs.cpu()
-    assert torch.equal(rows_c, torch.from_numpy(np.concatenate(queue)))
+    assert torch.equal(rows_c.view(torch.int32),
+                       torch.from_numpy(np.concatenate(queue)).view(torch.int32))
     _cuda.reset_launches()
     got = [t.cpu() for t in bin_queue(rows, offs, max(sizes), eng.D, eng.mn, eng.W)]
     assert _cuda.LAUNCHES["cell_bin"] == 1
     want = bin_queue_plain(rows_c, offs_c, eng.D, eng.mn, eng.W)
-    for name, a, b in zip(("sid", "pos", "counts", "maxima"), got, want):
+    for name, a, b in zip(("sid", "pos", "counts", "maxima"), got, want, strict=True):
         assert a.dtype == b.dtype == torch.int32 and a.shape == b.shape, name
         if name != "pos":
             assert torch.equal(a, b), f"{name}: {int((a != b).sum())} differ"
     sid, pos, _, maxima = got
+    assert int(maxima[-1]) == sum(int((~np.isfinite(b)).any(1).sum()) for b in queue)
+    assert int(maxima[-1]) == (3 + 31 + 1 if case == "nonfinite" else 0)
+    maxima = maxima[:-1]
     batch = torch.repeat_interleave(torch.arange(len(queue)), torch.tensor(sizes))
     key = (batch * eng.D ** 3 + sid.long()) * (int(maxima.max()) + 1)
     assert torch.equal(torch.sort(key + pos.long())[0], torch.sort(key + want[1].long())[0])
@@ -503,7 +518,7 @@ def test_cell_bin_kernels_equal_twin(cuda, case):
     assert torch.equal(placed, t_slot < slots)
     assert torch.equal(placed, torch.from_numpy(q_max)[batch] > 0)
     assert torch.equal(slot[placed] - pos[placed], t_slot[placed] - want[1][placed])
-    assert torch.equal(table[slot[placed]], rows_c[placed])
+    assert torch.equal(table[slot[placed]].view(torch.int32), rows_c[placed].view(torch.int32))
     assert len(torch.unique(slot[placed])) == int(placed.sum())
     table[slot[placed]] = 0.0
     t_table[t_slot[placed]] = 0.0
@@ -525,7 +540,7 @@ def test_cell_bin_kernels_equal_twin(cuda, case):
     for a, b, first, n in ((0, cut, 0, start), (cut, len(queue), start, slots - start)):
         part = place_queue(rows, offs[a:b + 1], max(sizes), sid_d, pos_d, runs_dev[a:b], n,
                            slot2)
-        assert torch.equal(part.cpu(), whole[first:first + n])
+        assert torch.equal(part.cpu().view(torch.int32), whole[first:first + n].view(torch.int32))
         lo, hi = sum(sizes[:a]), sum(sizes[:b])
         want_slot = torch.where(slot[lo:hi] < slots, slot[lo:hi] - first, n)
         assert torch.equal(slot2.cpu()[lo:hi], want_slot)
@@ -717,6 +732,39 @@ def test_engine_auto_feeds_the_hysteresis_the_host_tails_coverage(cuda):
     got = eng.query_many(queue)
     assert fed == [(c, len(q)) for c, q in zip(covs, queue)]
     for idx, q in zip(got, queue):
+        assert recall_at_1(idx, q, r) == 1.0
+
+
+def test_engine_query_many_on_card_checks_finiteness_in_the_bin_pass(cuda):
+    # NNEngine(14).query_many on the card makes no host pass over the
+    # queue: a NaN in the last row of its last batch raises ValueError after
+    # the one bin launch, before any place, scan, answer or exact launch,
+    # with every row counted as checked. A finite queue is answered
+    # exactly, in int32 views of the drain's one download.
+    from nns_tpu_torch.utils.spans import COUNTS
+
+    _, r = make_dataset(3, 1, 65536, seed=29)
+    eng = NNEngine(14, device="cuda").build(r)
+    assert type(eng._built) is CellListEngine
+    rng = np.random.default_rng(29)
+    queue = [rng.random((2000, 3), dtype=np.float32) for _ in range(8)]
+    bad = [q.copy() for q in queue]
+    bad[-1][-1, 0] = np.nan
+    _cuda.reset_launches()
+    before = dict(COUNTS)
+    with pytest.raises(ValueError, match="non-finite"):
+        eng.query_many(bad)
+    assert _cuda.LAUNCHES["cell_bin"] == 1
+    assert [_cuda.LAUNCHES[name] for name in ("cell_place", "cell_scan", "cell_answer",
+                                              "fused_argmin")] == [0, 0, 0, 0]
+    assert COUNTS["cells.device_checked_rows"] - before["cells.device_checked_rows"] == 16000
+    assert COUNTS["cells.rows"] == before["cells.rows"]
+    before = dict(COUNTS)
+    got = eng.query_many(queue)
+    assert (COUNTS["cells.device_checked_rows"] - before["cells.device_checked_rows"]
+            == COUNTS["cells.rows"] - before["cells.rows"] == 16000)
+    for idx, q in zip(got, queue, strict=True):
+        assert idx.dtype == np.int32 and idx.base is got[0].base is not None
         assert recall_at_1(idx, q, r) == 1.0
 
 
