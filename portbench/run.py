@@ -35,6 +35,7 @@ import dataclasses
 import gc
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -132,6 +133,30 @@ class Sample:
         """The checked rows of a call over ``units``, in the order of its
         kept answers."""
         return np.concatenate([pool[u][r] for u, r in zip(units, self.rows)])
+
+
+def _placement(dev) -> dict:
+    """Where the process ran: the CPUs it may run on, the CPU it ran on
+    last (``/proc/self/stat`` field 39) and the card's NUMA node (None
+    where the system does not say)."""
+    import torch
+
+    out = {"cpus": sorted(os.sched_getaffinity(0)), "last_cpu": None, "card_numa_node": None}
+    try:
+        with open("/proc/self/stat") as f:
+            out["last_cpu"] = int(f.read().rsplit(")", 1)[1].split()[36])
+    except (OSError, ValueError, IndexError):
+        pass
+    if dev.type == "cuda":
+        p = torch.cuda.get_device_properties(dev)
+        bdf = (f"{getattr(p, 'pci_domain_id', 0):04x}:{getattr(p, 'pci_bus_id', 0):02x}:"
+               f"{getattr(p, 'pci_device_id', 0):02x}.0")
+        try:
+            with open(f"/sys/bus/pci/devices/{bdf}/numa_node") as f:
+                out["card_numa_node"] = int(f.read())
+        except (OSError, ValueError):
+            pass
+    return out
 
 
 def _power_limit_w() -> float | None:
@@ -243,6 +268,9 @@ def run_cell(cell: dict, config: dict, traffic: dict, seed: int, seconds: float,
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
     if on_card:
         notes["power_limit_w"] = _power_limit_w()
+    if len(run.call_s) >= 2:
+        notes["call_deciles_ms"] = [q * 1e3 for q in statistics.quantiles(run.call_s, n=10)]
+    notes.update(_placement(dev))
 
     if prof is not None:
         run.trace = clock("trace_s", lambda: trace_mod.collect(prof))

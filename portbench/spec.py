@@ -9,7 +9,10 @@ window is, ``calls/<call>.py``, and its ``answer`` how an answer is judged,
 by ``metrics/<name>.py``'s ``read(run)``; a metric named ``<name>.<part>``
 (one quantity split by the end-to-end metric it moves) by the same file.
 A metric applies to the cells its ``workloads`` key lists, or to every
-cell without one.
+cell without one. A configuration's ``cpu_n`` is the refs count its CPU
+tests run at (the card's runs take ``n``). The tests' planted faults are
+``faults/<name>.py``, one for each engine path that hands back answers;
+a configuration that brings a new engine path brings a new fault file.
 """
 
 from __future__ import annotations
@@ -90,3 +93,13 @@ def answer(name: str):
 def distribution(name: str):
     """``distributions/<name>.py``: its ``points(count, k, seed, params)``."""
     return _load(PKG / "distributions" / f"{name}.py", f"portbench_dist_{name}")
+
+
+def faults() -> dict:
+    """Every ``faults/<name>.py`` by name. Each one's ``plant(setattr,
+    rows)`` wraps, through ``setattr`` (pytest's ``monkeypatch.setattr``),
+    the place where one engine path of the port hands back its answers so
+    that the first row of each batch of ``rows`` comes back altered, and
+    returns the dict ``{"fired": 0}``, counting the calls it altered."""
+    return {p.stem: _load(p, f"portbench_fault_{p.stem}")
+            for p in sorted((PKG / "faults").glob("*.py"))}

@@ -17,12 +17,14 @@ import pytest
 from portbench import run, spec
 
 BENCH = spec.load_benchmark()
-SMALL = {"uniform3d-1m": 1 << 16, "uniform16d-1m": 1 << 13}
 
 
 def _small(cell_name: str, **traffic):
+    """The cell at the size of a CPU test: its configuration's ``cpu_n``
+    refs, a few small batches."""
     cell = spec.workload(BENCH, cell_name)
-    config = dict(spec.config(BENCH, cell["config"]), n=SMALL[cell["config"]])
+    config = spec.config(BENCH, cell["config"])
+    config["n"] = config["cpu_n"]
     mix = spec.traffic(cell["traffic"])
     rows = 1000 if mix["rows"] >= 10000 else 128
     w = min(mix["batches_per_call"], 2)
@@ -66,34 +68,20 @@ def test_traced_run_adds_breakdown_and_window():
     assert result["correct"] is True
 
 
-def _alter_one_row_per_batch(monkeypatch, rows):
-    """The fault: an answer altered where the engines produce it."""
-    from nns_tpu_torch.kernels.cell_list import CellListEngine
-    from nns_tpu_torch.kernels.mxu_expansion import MXUExpansion
-
-    unstage = CellListEngine._unstage
-
-    def bad_unstage(signed, order, risk):
-        idx, ok = unstage(signed, order, risk)
-        idx[0] = idx[0] + 1
-        return idx, ok
-
-    drain = MXUExpansion._drain_staged
-
-    def bad_drain(self, st):
-        idx = drain(self, st)
-        idx[::rows] += 1
-        return idx
-
-    monkeypatch.setattr(CellListEngine, "_unstage", staticmethod(bad_unstage))
-    monkeypatch.setattr(MXUExpansion, "_drain_staged", bad_drain)
+def plant_every_fault(monkeypatch, rows: int) -> dict:
+    """Every ``faults/*.py`` planted: the first row of each batch altered
+    where each engine path hands back its answers. Returns each fault's
+    ``{"fired": count}`` by name."""
+    return {name: fault.plant(monkeypatch.setattr, rows)
+            for name, fault in spec.faults().items()}
 
 
 @pytest.mark.parametrize("cell", [c["name"] for c in BENCH["workloads"]])
 def test_an_altered_answer_is_not_correct(cell, monkeypatch):
     _, _, mix = _small(cell)
-    _alter_one_row_per_batch(monkeypatch, mix["rows"])
+    fired = plant_every_fault(monkeypatch, mix["rows"])
     result, checks, _ = _run(cell)
+    assert sum(f["fired"] for f in fired.values()) > 0, fired
     assert result["correct"] is False
     # The first row of every batch of every checked call is compared.
     assert checks["misses"]["value"] >= checks["checked_rows"]["value"] // mix["check_rows"]
@@ -114,11 +102,11 @@ def test_a_fault_in_the_last_batch_of_each_call_is_not_correct(cell, fault, monk
         if fault == "last_batch_shifted":
             last = np.roll(last, 1)
         else:
-            last[-1] = (last[-1] + 1) % SMALL[spec.workload(BENCH, cell)["config"]]
+            last[-1] = (last[-1] + 1) % config["n"]
         return out[:-1] + [last]
 
     monkeypatch.setattr(NNEngine, "query_many", bad)
-    _, _, mix = _small(cell)
+    _, config, mix = _small(cell)
     result, checks, _ = _run(cell, batches_per_call=8, pool_batches=16)
     assert result["correct"] is False and result["failed"] == 0
     # At least the last row of each checked call.
@@ -184,7 +172,8 @@ def test_a_run_imports_no_jax():
         "b = spec.load_benchmark()\n"
         "for name in ('uniform3d-1m.call1024', 'uniform16d-1m.drain'):\n"
         "    c = spec.workload(b, name)\n"
-        "    cfg = dict(spec.config(b, c['config']), n=1 << 16)\n"
+        "    cfg = spec.config(b, c['config'])\n"
+        "    cfg['n'] = cfg['cpu_n']\n"
         "    mix = dict(spec.traffic(c['traffic']), rows=128, batches_per_call=1,\n"
         "               pool_batches=2, warmup_calls=1, check_calls=1, check_rows=128,\n"
         "               call='query')\n"

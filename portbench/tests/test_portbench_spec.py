@@ -127,3 +127,18 @@ def test_pairs_configs_and_reductions():
 def test_every_metric_file_has_a_reader_and_an_entry():
     files = {p.stem for p in (spec.PKG / "metrics").glob("*.py")}
     assert files == {m["name"].split(".")[0] for m in METRICS}
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_every_configuration_sizes_its_cpu_run(config):
+    cfg = spec.config(BENCH, config)
+    cpu_n = cfg["cpu_n"]
+    assert isinstance(cpu_n, int) and not isinstance(cpu_n, bool)
+    assert 1 <= cpu_n <= cfg["n"]
+
+
+def test_every_fault_file_has_a_plant():
+    faults = spec.faults()
+    assert faults
+    for name, fault in faults.items():
+        assert NAME_RE.fullmatch(name) and callable(fault.plant), name
